@@ -1,0 +1,408 @@
+"""ServeSession: the engine's request path for batched DLRM inference.
+
+Wraps the serve step (``repro_torch.parallel.build_step``) behind a
+dynamic micro-batcher: callers ``submit()`` fixed-size queries, and
+micro-batches flush when full or when the oldest query hits its deadline.
+Two drivers measure the latency distribution D_Q against the paper's SLA
+model (Eq. 1, PPF(D_Q, P) <= C_SLA):
+
+  * ``run_serial(n)``: closed loop, one query at a time; isolates the
+    per-query service time.
+  * ``run_open_loop(n, qps)``: Poisson arrivals at a target QPS on a
+    virtual clock. Service times are real device executions, timed to
+    the end of the device's work; queueing and batching delays are
+    simulated event by event, without sleeping.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DLRMConfig
+from repro_torch.core import dlrm as dlrm_lib
+from repro_torch.data.recsys import make_recsys_batch
+from repro_torch.device import DeviceArg, resolve_device
+from repro_torch.engine.batching import (MicroBatcher, QueryFuture, now_s,
+                                         poisson_arrivals)
+from repro_torch.obs.attribution import AttributionLog, BlameReport
+from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.serialize import report_asdict, report_to_json
+from repro_torch.obs.trace import Tracer
+from repro_torch.parallel.build import build_step
+
+Query = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class SLAReport:
+    """Latency distribution + SLA verdict for one serving run."""
+
+    n_queries: int
+    mode: str                  # "serial" | "open_loop"
+    offered_qps: Optional[float]
+    achieved_qps: float
+    p50_ms: float
+    p90_ms: float
+    p99_ms: float
+    percentile: float
+    ppf_ms: float              # PPF(D_Q, percentile)
+    sla_ms: float              # C_SLA
+    ok: bool
+    mean_batch_queries: float  # avg queries per flushed micro-batch
+    blame: Optional[BlameReport] = None  # tail-latency attribution
+
+    def summary(self) -> str:
+        offered = ("" if self.offered_qps is None
+                   else f" offered={self.offered_qps:.1f}qps")
+        text = (
+            f"[serve] {self.mode}: {self.n_queries} queries,{offered} "
+            f"QPS={self.achieved_qps:.1f} mean_batch="
+            f"{self.mean_batch_queries:.2f} p50={self.p50_ms:.2f}ms "
+            f"p90={self.p90_ms:.2f}ms p99={self.p99_ms:.2f}ms\n"
+            f"[serve] SLA check PPF(D_Q, {self.percentile:.0f}) = "
+            f"{self.ppf_ms:.2f}ms {'<=' if self.ok else '>'} "
+            f"C_SLA={self.sla_ms}ms -> {'PASS' if self.ok else 'FAIL'}")
+        if self.blame is not None:
+            text += "\n" + self.blame.summary()
+        return text
+
+    def asdict(self) -> dict:
+        return report_asdict(self)
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        return report_to_json(self, path)
+
+
+def _report(lat_ms: Sequence[float], batch_sizes: Sequence[int], mode: str,
+            offered_qps: Optional[float], achieved_qps: float,
+            sla_ms: float, percentile: float,
+            blame: Optional[BlameReport] = None) -> SLAReport:
+    lat = np.asarray(lat_ms, np.float64)
+    p50, p90, p99 = (float(np.percentile(lat, p)) for p in (50, 90, 99))
+    ppf = float(np.percentile(lat, percentile))
+    return SLAReport(
+        n_queries=len(lat), mode=mode, offered_qps=offered_qps,
+        achieved_qps=achieved_qps, p50_ms=p50, p90_ms=p90, p99_ms=p99,
+        percentile=percentile, ppf_ms=ppf, sla_ms=sla_ms, ok=ppf <= sla_ms,
+        mean_batch_queries=float(np.mean(batch_sizes)) if batch_sizes else 0.0,
+        blame=blame)
+
+
+class ServeSession:
+    """One served model instance on one device: params + step + batcher.
+
+    Built by ``Engine.serve_session()``. Queries are fixed-size
+    (``query_size`` samples each, the paper's "query of size B", Sec.
+    III-B); the micro-batcher packs up to ``max_batch_queries`` of them
+    into one device execution. ``params`` are used as given (no copy) and
+    must lie on the session's device; the default is a fresh init from
+    ``seed`` drawn on that device.
+    """
+
+    def __init__(self, cfg: DLRMConfig, *, device: DeviceArg = None,
+                 max_batch_queries: int = 8,
+                 max_wait_ms: float = 2.0,
+                 query_size: Optional[int] = None,
+                 params=None, seed: int = 0, alpha: float = 0.0,
+                 warmup: bool = False, pipeline_depth: int = 1,
+                 fused: bool = True):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.alpha = alpha
+        self.query_size = int(query_size or cfg.batch_size)
+        self.max_batch_queries = int(max_batch_queries)
+        self._step = build_step(cfg, mode="serve",
+                                pipeline_depth=pipeline_depth, fused=fused)
+        self.serve_kernel = self._step.serve_kernel
+        self.pipeline_depth = int(pipeline_depth)
+        if self.max_batch_queries < 1:
+            raise ValueError("max_batch_queries must be >= 1")
+        if (self.max_batch_queries * self.query_size) % self.pipeline_depth:
+            raise ValueError(
+                f"capacity batch {self.max_batch_queries}x{self.query_size} "
+                f"samples must divide into pipeline_depth="
+                f"{self.pipeline_depth} micro-batches")
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = dlrm_lib.init_dlrm(cfg, gen)
+        elif params["tables"].device != self.device:
+            raise ValueError(f"params lie on {params['tables'].device}, the "
+                             f"session on {self.device}")
+        self.params = params
+        self.batcher = MicroBatcher(self.max_batch_queries, max_wait_ms / 1e3)
+        self._qid = 0
+        self._warm = False
+        # The first execution builds and loads the kernel and initialises
+        # the device libraries. The measurement drivers pay it untimed on
+        # first use; warmup=True pays it here, for the real-time submit path.
+        if warmup:
+            self._ensure_warm()
+
+    # -- shapes ------------------------------------------------------------
+    def _padded_count(self, n_queries: int) -> int:
+        """Smallest query count >= n_queries whose sample total divides
+        into the pipeline depth (exists because the capacity batch does)."""
+        if n_queries > self.max_batch_queries:
+            raise ValueError(
+                f"{n_queries} queries exceed the micro-batch capacity "
+                f"({self.max_batch_queries})")
+        k = n_queries
+        while (k * self.query_size) % self.pipeline_depth:
+            k += 1
+        return k
+
+    def _ensure_warm(self) -> None:
+        if self._warm:
+            return
+        b = self.query_size * self.max_batch_queries
+        dense = torch.zeros((b, self.cfg.num_dense), device=self.device)
+        idx = torch.zeros((b, self.cfg.num_tables,
+                           self.cfg.lookups_per_table), dtype=torch.int32,
+                          device=self.device)
+        self._step(self.params, dense, idx)
+        self._sync()
+        self._warm = True
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- execution ---------------------------------------------------------
+    def serve_direct(self, dense: torch.Tensor,
+                     indices: torch.Tensor) -> np.ndarray:
+        """Run the serve step on one exact batch (no batching or padding)."""
+        probs = self._step(self.params, dense.to(self.device, torch.float32),
+                           indices.to(self.device, torch.int32))
+        return probs.cpu().numpy()
+
+    def _execute(self, queries: List[Query]) -> Tuple[np.ndarray, float]:
+        """Concatenate + pad queries, run the step, split results back.
+
+        Returns (probs (n_queries, query_size), service_seconds), where the
+        service time runs from the step's launch to the end of the
+        device's work. Padding replicates query 0; padded outputs are
+        discarded."""
+        k = self._padded_count(len(queries))
+        self._ensure_warm()
+        parts = list(queries) + [queries[0]] * (k - len(queries))
+        dense = torch.cat([p["dense"] for p in parts]).to(self.device,
+                                                         torch.float32)
+        idx = torch.cat([p["indices"] for p in parts]).to(self.device,
+                                                         torch.int32)
+        self._sync()
+        t0 = time.perf_counter()
+        probs = self._step(self.params, dense, idx)
+        self._sync()
+        service = time.perf_counter() - t0
+        out = probs.cpu().numpy().reshape(k, self.query_size)
+        return out[:len(queries)], service
+
+    # -- request path ------------------------------------------------------
+    def validate_query(self, query: Query) -> None:
+        """Shape/dtype-check a query against the session's config before
+        it reaches the device, so a malformed query fails with a clear
+        ValueError at submit time. Metadata only: no device sync."""
+        for field in ("dense", "indices"):
+            if field not in query:
+                raise ValueError(f"query is missing the {field!r} field")
+            if not torch.is_tensor(query[field]):
+                raise ValueError(f"query {field!r} must be a torch.Tensor, "
+                                 f"got {type(query[field]).__name__}")
+        dense, idx = query["dense"], query["indices"]
+        q = self.query_size
+        want_dense = (q, self.cfg.num_dense)
+        if tuple(dense.shape) != want_dense:
+            raise ValueError(
+                f"query 'dense' must have shape {want_dense} "
+                f"(query_size x cfg.num_dense), got {tuple(dense.shape)}")
+        want_idx = (q, self.cfg.num_tables, self.cfg.lookups_per_table)
+        if tuple(idx.shape) != want_idx:
+            raise ValueError(
+                f"query 'indices' must have shape {want_idx} (query_size x "
+                f"cfg.num_tables x cfg.lookups_per_table), got "
+                f"{tuple(idx.shape)}")
+        if not dense.is_floating_point():
+            raise ValueError(
+                f"query 'dense' must be floating point, got {dense.dtype}")
+        if (idx.is_floating_point() or idx.is_complex()
+                or idx.dtype == torch.bool):
+            raise ValueError(
+                f"query 'indices' must be an integer dtype (row ids), got "
+                f"{idx.dtype}")
+
+    def submit(self, query: Query, now: Optional[float] = None) -> QueryFuture:
+        """Enqueue one query; flushes the micro-batch if it became full or
+        the oldest query's deadline has already passed. ``now`` (seconds)
+        is injectable for deterministic tests; defaults to the wall clock."""
+        self.validate_query(query)
+        t = now_s() if now is None else now
+        fut = QueryFuture(self._qid, t, {"dense": query["dense"],
+                                         "indices": query["indices"]})
+        self._qid += 1
+        full = self.batcher.add(fut)
+        if full or self.batcher.due(t):
+            self.flush(now=t if now is not None else None)
+        return fut
+
+    def poll(self, now: Optional[float] = None) -> bool:
+        """Flush if the oldest queued query has exceeded its deadline.
+        Returns True if a flush happened."""
+        t = now_s() if now is None else now
+        if self.batcher.due(t):
+            self.flush(now=now)
+            return True
+        return False
+
+    def flush(self, now: Optional[float] = None) -> List[QueryFuture]:
+        """Force the queued micro-batch through the device."""
+        futs = self.batcher.drain()
+        if not futs:
+            return []
+        probs, _ = self._execute([f.query for f in futs])
+        t = now_s() if now is None else now
+        for f, p in zip(futs, probs):
+            f.complete(p, t)
+        return futs
+
+    @property
+    def pending(self) -> int:
+        return len(self.batcher.queue)
+
+    # -- measurement drivers ----------------------------------------------
+    def measure_service_time(self, n_queries: int = 1, repeats: int = 5,
+                             seed: Optional[int] = None,
+                             alpha: Optional[float] = None) -> float:
+        """Median wall-clock seconds to serve one ``n_queries``-query batch
+        (``n_queries`` must be <= the session's micro-batch capacity)."""
+        qs = [self._make_query(s, seed, alpha) for s in range(n_queries)]
+        self._ensure_warm()
+        return float(np.median([self._execute(qs)[1]
+                                for _ in range(repeats)]))
+
+    def _make_query(self, step: int, seed: Optional[int] = None,
+                    alpha: Optional[float] = None) -> Query:
+        """Synthetic query from the session's stream, drawn on its device
+        (seed/alpha default to the engine's)."""
+        b = make_recsys_batch(self.cfg, step,
+                              self.seed if seed is None else seed,
+                              self.alpha if alpha is None else alpha,
+                              batch_size=self.query_size, device=self.device)
+        return {"dense": b["dense"], "indices": b["indices"]}
+
+    def run_serial(self, n_queries: int, *, sla_ms: float = 50.0,
+                   percentile: float = 99.0, seed: Optional[int] = None,
+                   alpha: Optional[float] = None,
+                   tracer: Optional[Tracer] = None,
+                   metrics=None) -> SLAReport:
+        """Closed loop: one query per micro-batch, back to back.
+
+        ``metrics`` scopes the run's meters to a caller-owned
+        ``MetricsRegistry``; the default is the process-wide
+        ``default_registry()``."""
+        self._ensure_warm()
+        if tracer is not None:
+            tracer.track(1, 0, process="board0", thread="serve")
+        log = AttributionLog()
+        metrics = metrics if metrics is not None else default_registry()
+        lat_ms: List[float] = []
+        clock = 0.0            # back-to-back virtual timeline
+        for q in range(n_queries):
+            _, service = self._execute([self._make_query(q, seed, alpha)])
+            done = clock + service
+            metrics.counter("queries_served", rid=0).inc()
+            metrics.histogram("flush_service_ms").observe(service * 1e3)
+            # closed loop: arrival == dispatch, so latency is pure service
+            log.record_batch([(q, clock)], rid=0, trigger=clock, start=clock,
+                             done=done, compute_s=service)
+            if tracer is not None:
+                tracer.span("serve_batch", "service", clock, done,
+                            pid=1, tid=0, args={"queries": 1, "qid": q})
+            clock = done
+            lat_ms.append(service * 1e3)
+        busy_s = sum(lat_ms) / 1e3
+        return _report(lat_ms, [1] * n_queries, "serial", None,
+                       n_queries / max(busy_s, 1e-12), sla_ms, percentile,
+                       blame=log.blame(percentile))
+
+    def run_open_loop(self, n_queries: int, qps: float, *,
+                      sla_ms: float = 50.0, percentile: float = 99.0,
+                      seed: Optional[int] = None,
+                      alpha: Optional[float] = None,
+                      max_wait_ms: Optional[float] = None,
+                      tracer: Optional[Tracer] = None,
+                      metrics=None) -> SLAReport:
+        """Open-loop load: Poisson arrivals at ``qps``, dynamic batching.
+
+        An event-driven virtual clock over the same ``MicroBatcher``
+        policy the real-time submit path uses: arrival times are drawn up
+        front; each flush's service time is a real, measured device
+        execution; queueing (server busy) and batching (deadline) delays
+        compose with it as on a single-executor server. Per-query latency
+        is completion - arrival; ``report.blame`` decomposes the tail."""
+        arrivals = poisson_arrivals(n_queries, qps,
+                                    self.seed if seed is None else seed)
+        batcher = MicroBatcher(
+            self.max_batch_queries,
+            self.batcher.max_wait_s if max_wait_ms is None
+            else max_wait_ms / 1e3)
+        if tracer is not None:
+            tracer.track(1, 0, process="board0", thread="serve")
+            tracer.track(1, 1, thread="batching")
+        log = AttributionLog()
+        metrics = metrics if metrics is not None else default_registry()
+        lat_ms: List[float] = []
+        batch_sizes: List[int] = []
+        free = 0.0            # server busy until this time
+        last_done = 0.0
+        i = 0
+        while i < n_queries or batcher.queue:
+            next_arr = arrivals[i] if i < n_queries else float("inf")
+            # deadline wins ties, matching MicroBatcher.due (now >= deadline)
+            if next_arr < batcher.deadline():
+                fut = QueryFuture(i, arrivals[i],
+                                  self._make_query(i, seed, alpha))
+                i += 1
+                if not batcher.add(fut):
+                    continue
+                trigger = fut.arrival          # the batch just filled
+                reason = "full"
+            else:
+                trigger = batcher.deadline()   # oldest query timed out
+                reason = "deadline"
+            futs = batcher.drain()
+            probs, service = self._execute([f.query for f in futs])
+            start = max(trigger, free)
+            done = start + service
+            free = done
+            last_done = done
+            metrics.counter("queries_served", rid=0).inc(len(futs))
+            metrics.counter("flushes", reason=reason).inc()
+            metrics.histogram("flush_service_ms").observe(service * 1e3)
+            log.record_batch([(f.qid, f.arrival) for f in futs], rid=0,
+                             trigger=trigger, start=start, done=done,
+                             compute_s=service)
+            if tracer is not None:
+                tracer.span("batch_fill", "batching", futs[0].arrival,
+                            trigger, pid=1, tid=1,
+                            args={"queries": len(futs), "reason": reason})
+                tracer.instant(f"flush:{reason}", "batching", trigger,
+                               pid=1, tid=1, args={"queries": len(futs)})
+                tracer.counter("queue_depth", trigger, {"board0": len(futs)},
+                               pid=1)
+                tracer.counter("queue_depth", done, {"board0": 0}, pid=1)
+                tracer.span("serve_batch", "service", start, done,
+                            pid=1, tid=0,
+                            args={"queries": len(futs),
+                                  "service_ms": service * 1e3})
+            for f, p in zip(futs, probs):
+                f.complete(p, done)
+                lat_ms.append(f.latency_ms)
+            batch_sizes.append(len(futs))
+        achieved = n_queries / max(last_done, 1e-12)
+        return _report(lat_ms, batch_sizes, "open_loop", qps, achieved,
+                       sla_ms, percentile, blame=log.blame(percentile))

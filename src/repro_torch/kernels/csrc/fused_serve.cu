@@ -1,0 +1,146 @@
+// Fused DLRM serve hot path for Hopper (sm_90a): gather -> sum-pool ->
+// pairwise feature interaction, one launch.
+//
+// Replaces the TPU kernel `fused_bag_interactions_pallas`
+// (src/repro/kernels/fused_serve.py:134). Computes, per sample b:
+//   A[0]   = bot_out[b]
+//   A[1+t] = sum_l tables[t, ids[b, t, l]]             (fp32, in l order)
+//   out[b] = [bot_out[b] | A[i].A[j] for (i, j) in tril_indices(T+1, -1)]
+// with the strict lower triangle in numpy's row-major order, so the static
+// gather the TPU kernel ran outside its launch (`_finalize`) is folded in
+// and no (B, T+1, T+1) matrix is ever written.
+//
+// What bounds it: device-memory bytes. At the RM2-small serve shape
+// (B=200, T=40, L=80, d=32, fp32) one query gathers 640,000 random 128-byte
+// rows (81.9 MB) and reads 2.56 MB of ids, against 10.5 MFLOP of
+// contraction: about 0.1 FLOP per byte, far below the ~20 FLOP/byte at
+// which fp32 CUDA-core math would bound it. The rows are random, so the
+// 50 MB L2 does not help.
+//
+// Design: one block per sample, so there is no batch padding. The
+// (T+1) x d fp32 accumulator lives in shared memory (5.4 KB at d=32) and
+// never touches device memory. Warp w pools tables t = w (mod warps): a
+// lane owns one column of d, so each gathered row is one coalesced read
+// (128 B at d=32 fp32); the warp loads 32 ids at once and broadcasts them
+// with shuffles, and the unrolled l loop keeps several row reads in flight
+// per warp. After one barrier, each thread computes whole pair dot products
+// from shared memory, with the accumulator rows padded to d+1 floats so
+// the lanes of a warp hit distinct banks. Ids follow jnp.take: a negative
+// id counts from the end of the table, and an id outside [-R, R) reads as
+// NaN rather than out of bounds.
+//
+// What this design leaves on the table (later work): more rows in flight
+// per warp (cp.async / TMA gathers into a shared ring), several samples
+// per block to fill 132 SMs at small B, and vector loads at d=128.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename Row>
+__global__ void fused_bag_interactions_kernel(
+    const Row* __restrict__ tables, const int32_t* __restrict__ ids,
+    const float* __restrict__ bot, float* __restrict__ out, int n_tables,
+    long long n_rows, int n_lookups, int dim) {
+  extern __shared__ float acc[];  // (T+1) rows of `ld` floats
+  const int ld = dim + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const long long b = blockIdx.x;
+  const int s1 = n_tables + 1;
+  const int n_pairs = s1 * (s1 - 1) / 2;
+  float* out_b = out + b * (dim + n_pairs);
+
+  for (int k = threadIdx.x; k < dim; k += blockDim.x) {
+    const float v = bot[b * dim + k];
+    acc[k] = v;
+    out_b[k] = v;
+  }
+
+  const float nan = __int_as_float(0x7fc00000);
+  const int32_t* ids_b = ids + b * n_tables * n_lookups;
+  for (int t = warp; t < n_tables; t += n_warps) {
+    const Row* tab = tables + (long long)t * n_rows * dim;
+    const int32_t* ids_t = ids_b + (long long)t * n_lookups;
+    for (int k0 = 0; k0 < dim; k0 += 32) {
+      const int k = k0 + lane;
+      float s = 0.f;
+      for (int l0 = 0; l0 < n_lookups; l0 += 32) {
+        const int n = min(32, n_lookups - l0);
+        const int mine = lane < n ? ids_t[l0 + lane] : 0;
+#pragma unroll 8
+        for (int j = 0; j < n; ++j) {
+          long long r = __shfl_sync(0xffffffffu, mine, j);
+          if (r < 0) r += n_rows;
+          float v = nan;
+          if (r >= 0 && r < n_rows)
+            v = k < dim ? to_f32(tab[r * dim + k]) : 0.f;
+          s += v;
+        }
+      }
+      if (k < dim) acc[(t + 1) * ld + k] = s;
+    }
+  }
+  __syncthreads();
+
+  // Pair p of the row-major strict lower triangle is (i, j) with
+  // p = i(i-1)/2 + j, 0 <= j < i.
+  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    int i = (int)((1.f + sqrtf(1.f + 8.f * (float)p)) * 0.5f);
+    while (i * (i - 1) / 2 > p) --i;
+    while ((i + 1) * i / 2 <= p) ++i;
+    const int j = p - i * (i - 1) / 2;
+    const float* ai = acc + i * ld;
+    const float* aj = acc + j * ld;
+    float s = 0.f;
+    for (int k = 0; k < dim; ++k) s = fmaf(ai[k], aj[k], s);
+    out_b[dim + p] = s;
+  }
+}
+
+template <typename Row>
+int launch(const void* tables, const void* ids, const void* bot, void* out,
+           int batch, int n_tables, long long n_rows, int n_lookups, int dim,
+           cudaStream_t stream) {
+  // ceil(T / 32) tables a warp, and as few warps as that allows, so the
+  // tables spread evenly (T=40: 20 warps of 2 tables).
+  const int tables_per_warp = (n_tables + 31) / 32;
+  const int n_warps = (n_tables + tables_per_warp - 1) / tables_per_warp;
+  const size_t smem = (size_t)(n_tables + 1) * (dim + 1) * sizeof(float);
+  auto kernel = fused_bag_interactions_kernel<Row>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<batch, n_warps * 32, smem, stream>>>(
+      static_cast<const Row*>(tables), static_cast<const int32_t*>(ids),
+      static_cast<const float*>(bot), static_cast<float*>(out), n_tables,
+      n_rows, n_lookups, dim);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fused_bag_interactions_launch(
+    const void* tables, int tables_bf16, const void* ids, const void* bot,
+    void* out, int batch, int n_tables, long long n_rows, int n_lookups,
+    int dim, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables_bf16)
+    return launch<__nv_bfloat16>(tables, ids, bot, out, batch, n_tables,
+                                 n_rows, n_lookups, dim, s);
+  return launch<float>(tables, ids, bot, out, batch, n_tables, n_rows,
+                       n_lookups, dim, s);
+}
+
+extern "C" const char* fused_serve_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,199 @@
+"""The port's serving slice against repro.engine on the same weights.
+
+The JAX session's params go through numpy into the port's session on the
+CPU, and the same numpy queries go to both. Tolerance: fp32 allclose at
+rtol = atol = 1e-5 (tests/test_kernels.py).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_dlrm as jax_get_dlrm
+from repro.engine import Engine as JaxEngine
+from repro_torch import convert
+from repro_torch.configs import get_dlrm
+from repro_torch.engine import Engine, MicroBatcher, SLAReport
+from repro_torch.parallel.build import build_step
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+NAME = "dlrm-rm2-small-unsharded"
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX session, port session) over the same weights, capacity 2."""
+    jsess = JaxEngine(jax_get_dlrm(NAME).reduced(), plan="none") \
+        .serve_session(max_batch_queries=2, max_wait_ms=50.0)
+    params = convert.params_from_jax_numpy(
+        jax.tree_util.tree_map(np.asarray, jsess.params), "cpu")
+    sess = Engine(get_dlrm(NAME).reduced(), device="cpu").serve_session(
+        max_batch_queries=2, max_wait_ms=50.0, params=params)
+    return jsess, sess
+
+
+def _query(cfg, seed):
+    rng = np.random.default_rng(seed)
+    q = cfg.batch_size
+    return (rng.standard_normal((q, cfg.num_dense)).astype(np.float32),
+            rng.integers(0, cfg.rows_per_table,
+                         (q, cfg.num_tables, cfg.lookups_per_table)
+                         ).astype(np.int32))
+
+
+def test_serve_direct_matches_reference(pair):
+    jsess, sess = pair
+    assert sess.serve_kernel == jsess.serve_kernel == "fused"
+    dense, idx = _query(sess.cfg, 0)
+    want = jsess.serve_direct(jnp.asarray(dense), jnp.asarray(idx))
+    got = sess.serve_direct(torch.from_numpy(dense), torch.from_numpy(idx))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_submit_and_flush_match_reference(pair):
+    """Same submits and polls at injected times: the two batchers flush
+    alike (deadline, then full) and the probs agree."""
+    jsess, sess = pair
+    queries = [_query(sess.cfg, s) for s in (1, 2, 3)]
+    futs = {}
+    for name, s, conv in (("jax", jsess, jnp.asarray),
+                          ("torch", sess, torch.from_numpy)):
+        fs = [s.submit({"dense": conv(queries[0][0]),
+                        "indices": conv(queries[0][1])}, now=0.0)]
+        assert s.pending == 1 and not fs[0].done
+        assert not s.poll(now=0.049)               # before the deadline
+        assert s.poll(now=0.050) and fs[0].done    # deadline flush
+        for i, (d, x) in enumerate(queries[1:]):
+            fs.append(s.submit({"dense": conv(d), "indices": conv(x)},
+                               now=1.0 + i * 1e-3))
+        assert s.pending == 0 and all(f.done for f in fs)   # full flush
+        assert fs[2].completed_at == 1.001
+        futs[name] = fs
+    for fj, ft in zip(futs["jax"], futs["torch"]):
+        np.testing.assert_allclose(ft.probs, fj.probs, **TOL)
+
+
+def test_micro_batcher_flushes_at_injected_now():
+    from repro.engine.batching import MicroBatcher as JaxMicroBatcher
+    from repro.engine.batching import QueryFuture as JaxQueryFuture
+    from repro_torch.engine import QueryFuture
+    events = [0.0, 0.001, 0.010, 0.0105, 0.011, 0.030]
+    seen = []
+    for batcher_cls, fut_cls in ((JaxMicroBatcher, JaxQueryFuture),
+                                 (MicroBatcher, QueryFuture)):
+        b = batcher_cls(capacity=3, max_wait_s=0.005)
+        log = []
+        for i, t in enumerate(events):
+            if b.due(t):
+                log.append(("deadline", t, [f.qid for f in b.drain()]))
+            if b.add(fut_cls(i, t, {})):
+                log.append(("full", t, [f.qid for f in b.drain()]))
+        seen.append(log)
+    assert seen[0] == seen[1]
+    assert [r for r, _, _ in seen[1]] == ["deadline", "full"]
+
+
+def test_run_serial_and_open_loop_report_every_query(pair):
+    _, sess = pair
+    rep = sess.run_serial(5, sla_ms=60_000.0)
+    assert isinstance(rep, SLAReport) and rep.mode == "serial"
+    assert rep.n_queries == 5 and rep.blame.n_queries == 5 and rep.ok
+    rep = sess.run_open_loop(6, qps=1000.0, sla_ms=60_000.0)
+    assert rep.n_queries == 6 and rep.blame.n_queries == 6
+    assert 1.0 <= rep.mean_batch_queries <= 2.0
+
+
+def test_composed_path_and_depth_agree_with_fused(pair):
+    _, sess = pair
+    dense, idx = (torch.from_numpy(a) for a in _query(sess.cfg, 4))
+    want = sess.serve_direct(dense, idx)
+    cfg = get_dlrm(NAME).reduced()
+    for kw in ({"fused_serve": "off"}, {"pipeline_depth": 2}):
+        other = Engine(cfg, device="cpu", **kw).serve_session(
+            max_batch_queries=2, params=sess.params)
+        np.testing.assert_allclose(other.serve_direct(dense, idx), want,
+                                   **TOL)
+    assert Engine(cfg, device="cpu", fused_serve="off").serve_session(
+        params=sess.params).serve_kernel == "composed"
+
+
+@pytest.mark.parametrize("fused_serve,kernel",
+                         [("auto", "fused"), ("off", "composed")])
+def test_session_reports_the_branch_build_step_chose(fused_serve, kernel):
+    cfg = get_dlrm(NAME).reduced()
+    step = build_step(cfg, fused=fused_serve != "off")
+    assert step.serve_kernel == kernel
+    sess = Engine(cfg, device="cpu", fused_serve=fused_serve).serve_session(
+        max_batch_queries=2)
+    assert sess.serve_kernel == kernel
+
+
+def test_pipeline_depth_below_one_is_refused():
+    cfg = get_dlrm(NAME).reduced()
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        build_step(cfg, pipeline_depth=0)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        Engine(cfg, device="cpu", pipeline_depth=0).serve_session()
+
+
+def _launch(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", *args],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+
+
+def test_launcher_serves_on_cpu_when_asked():
+    proc = _launch("--device", "cpu", "--queries", "4")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "serve_kernel=fused" in proc.stdout
+
+
+def test_launcher_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _launch("--queries", "4")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_dlrm(NAME).reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg)
+    from repro_torch.engine import ServeSession
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeSession(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    {"plan": "auto"}, {"host_capacity_mb": 1.0}, {"dp_axes": ("data",)},
+    {"model_axis": 2}, {"pipeline_depth": None}])
+def test_features_not_ported_fail_loudly(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--replicas", "2"],
+                                  ["--online-every-s", "1"]])
+def test_launcher_flags_not_ported_fail_loudly(flag):
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        serve.main(["--smoke", "--device", "cpu", *flag])
