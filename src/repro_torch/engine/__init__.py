@@ -1,12 +1,15 @@
-"""repro_torch.engine: one session API from config -> step -> serve.
+"""repro_torch.engine: one session API from config -> plan -> step -> serve.
 
-``Engine`` builds the serve pipeline; ``ServeSession`` adds the
-dynamic-batching request path and its SLA measurement drivers.
+``Engine`` owns the profile -> plan -> reconcile -> step pipeline;
+``ServeSession`` adds the dynamic-batching request path and its SLA
+measurement drivers; ``planning`` holds the planner stage.
 """
 from repro_torch.engine.batching import (MicroBatcher, QueryFuture,
                                          poisson_arrivals)
 from repro_torch.engine.engine import Engine
+from repro_torch.engine.planning import PlanReport, build_auto_plan
 from repro_torch.engine.serving import ServeSession, SLAReport
 
-__all__ = ["Engine", "ServeSession", "SLAReport", "MicroBatcher",
-           "QueryFuture", "poisson_arrivals"]
+__all__ = ["Engine", "ServeSession", "SLAReport", "PlanReport",
+           "MicroBatcher", "QueryFuture", "poisson_arrivals",
+           "build_auto_plan"]

@@ -1,24 +1,43 @@
-"""Engine: one session API from config -> exchange -> step -> serve.
+"""Engine: one session API from config -> plan -> step -> serve.
 
     from repro_torch.configs import get_dlrm
     from repro_torch.engine import Engine
 
-    eng = Engine(get_dlrm("dlrm-rm2-small-unsharded"))    # on the card
+    eng = Engine(get_dlrm("dlrm-rm2-small-unsharded"), plan="auto",
+                 alpha=1.05)                                # on the card
     serve = eng.serve_session(max_batch_queries=4, max_wait_ms=2.0)
     report = serve.run_open_loop(n_queries=200, qps=400.0, sla_ms=50.0)
 
-This slice of the port serves DLRM on one device with the config's own
-table placement (``plan="none"``). Options of the reference's ``Engine``
-that the slice does not carry raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``plan=`` accepts "none" (execute cfg.sharding as-is), "auto" (profile
+the step-indexed stream and run the placement planner) or a concrete
+``ShardingPlan`` (reconciled against the device count). A placed plan
+serves through the tiered exchange: fast and bulk table groups, fused
+into one kernel launch per micro-batch. The serve step's pipeline depth
+is the planner's, resolved per flushed batch shape, unless
+``pipeline_depth`` pins it.
+
+The port serves DLRM on one device. Options of the reference's
+``Engine`` that it does not carry raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple, Union
 
 from repro_torch.configs.base import DLRMConfig
+from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
+from repro_torch.engine.planning import (PlanReport, build_auto_plan,
+                                         resolve_depth_for_batch)
 from repro_torch.engine.serving import ServeSession
+from repro_torch.parallel.plan import reconcile_plan_with_mesh
+
+PlanArg = Union[None, str, ShardingPlan]
+
+# The reference's default row-wise wire mode. It enters the depth model
+# only for row-wise sharding, which comes with ROADMAP A6.
+_ROW_WISE_EXCHANGE = "partial_pool"
 
 
 class Engine:
@@ -27,32 +46,40 @@ class Engine:
     Parameters
     ----------
     cfg            : DLRMConfig.
-    plan           : "none" only (execute cfg.sharding as-is).
+    plan           : "none" | "auto" | ShardingPlan (see module doc).
+    fast_mb        : fast-tier capacity (MiB) for plan="auto"; the default
+                     fits ~half the tables, so the placement is MIXED.
+    profile_batches: batches of the stream the auto plan's profile counts.
     fused_serve    : "auto" serves through the fused gather -> pool ->
                      interaction kernel whenever the exchange is local;
                      "off" forces the composed path. The choice is recorded
-                     on ``ServeSession.serve_kernel``.
-    pipeline_depth : micro-batches a serve step splits into (an int).
+                     on ``ServeSession.serve_kernel`` and on the plan report.
+    pipeline_depth : micro-batches a serve step splits into. None (the
+                     default) = planner-resolved per batch shape; an int
+                     pins every shape.
     seed           : parameter init + data stream seed.
-    alpha          : Zipf skew of the synthetic query stream.
+    alpha          : Zipf skew of the synthetic stream (profiling AND data).
     device         : None (the CUDA device; raises without one) or an
                      explicit device such as "cpu".
+    verbose        : print the plan summary when a plan is built.
     model_axis, dp_axes, host_capacity_mb : the reference's multi-device
                      and host-tier options; only their single-device
                      defaults are accepted.
     """
 
-    def __init__(self, cfg, *, plan="none", fused_serve: str = "auto",
-                 pipeline_depth: int = 1, seed: int = 0, alpha: float = 0.0,
-                 device: DeviceArg = None, model_axis: int = 1,
+    def __init__(self, cfg, *, plan: PlanArg = "none",
+                 fast_mb: Optional[float] = None, profile_batches: int = 4,
+                 fused_serve: str = "auto",
+                 pipeline_depth: Optional[int] = None, seed: int = 0,
+                 alpha: float = 0.0, device: DeviceArg = None,
+                 verbose: bool = False, model_axis: int = 1,
                  dp_axes: Tuple[str, ...] = (), host_capacity_mb=None):
         if not isinstance(cfg, DLRMConfig):
             raise NotImplementedError(
                 "LM configs are not ported yet (ROADMAP A8, LM substrate)")
-        if plan not in (None, "none"):
-            raise NotImplementedError(
-                f"plan={plan!r} is not ported yet (ROADMAP A4, planner and "
-                f"tiered serving); this slice takes plan='none'")
+        if isinstance(plan, str) and plan not in ("none", "auto"):
+            raise ValueError(f"plan must be 'none', 'auto', or a "
+                             f"ShardingPlan; got {plan!r}")
         if host_capacity_mb is not None:
             raise NotImplementedError(
                 "host_capacity_mb (the host chunk tier) is not ported yet "
@@ -61,35 +88,102 @@ class Engine:
             raise NotImplementedError(
                 "more than one device (model_axis > 1, dp_axes) is not "
                 "ported yet (ROADMAP A6, distributed)")
-        if pipeline_depth is None:
+        if cfg.sharding != "table_wise":
             raise NotImplementedError(
-                "planner-resolved pipeline depth is not ported yet (ROADMAP "
-                "A4, planner and tiered serving); pass an int")
+                f"sharding={cfg.sharding!r} is not ported yet (ROADMAP A6, "
+                f"distributed); the port serves table_wise configs")
+        if pipeline_depth is not None and pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got "
+                             f"{pipeline_depth}")
         if fused_serve not in ("auto", "off"):
             raise ValueError(f"fused_serve must be 'auto' or 'off', got "
                              f"{fused_serve!r}")
         self.cfg = cfg
+        self.fast_mb = fast_mb
+        self.profile_batches = profile_batches
         self.fused_serve = fused_serve
-        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline_depth = pipeline_depth
         self.seed = seed
         self.alpha = alpha
+        self.verbose = verbose
         self.device = resolve_device(device)
+        self._plan_arg: PlanArg = plan
+        self._reports: Dict[str, PlanReport] = {}
 
+    # -- planning stage ----------------------------------------------------
+    def build_plan(self, mode: str = "inference") -> Optional[ShardingPlan]:
+        """Resolve the engine's ``plan=`` argument for a serving
+        ("inference") or training mode. Auto plans are profiled once per
+        mode (on the engine's device) and cached; concrete plans are
+        reconciled against the one device."""
+        if self._plan_arg in (None, "none"):
+            return None
+        if isinstance(self._plan_arg, ShardingPlan):
+            return reconcile_plan_with_mesh(self._plan_arg, 1)
+        if mode not in self._reports:
+            report = build_auto_plan(
+                self.cfg, 1, alpha=self.alpha, seed=self.seed,
+                fast_mb=self.fast_mb, mode=mode,
+                profile_batches=self.profile_batches, device=self.device)
+            self._reports[mode] = report
+            if self.verbose:
+                print(report.summary())
+        return self._reports[mode].plan
+
+    def plan_report(self, mode: str = "inference") -> Optional[PlanReport]:
+        """The cached profile/prediction report for an auto plan (None when
+        plan="none", a concrete plan, or the mode hasn't been built yet)."""
+        return self._reports.get(mode)
+
+    def make_depth_resolver(self, mode: str) -> Callable[[int], int]:
+        """Per-batch-shape depth resolver for serving: the executed-schedule
+        sweep (``planning.resolve_depth_for_batch``) at the actual flushed
+        sample count, under the engine's plan (its sharding mode, exchange,
+        and measured hit ratio). ``ServeSession`` caches the result per
+        shape."""
+        plan = self.build_plan(mode)
+        hit = plan.hit_ratio if plan is not None else 0.0
+        placed = plan is not None and bool(plan.placements)
+        sharding = plan.mode if placed else None
+        exchange = plan.exchange if plan is not None else _ROW_WISE_EXCHANGE
+        pmode = "inference" if mode == "inference" else "training"
+
+        def resolve(batch_samples: int) -> int:
+            best, _ = resolve_depth_for_batch(
+                self.cfg, 1, batch_samples, mode=pmode, sharding=sharding,
+                exchange=exchange, hit_ratio=hit)
+            return best
+
+        return resolve
+
+    # -- sessions ----------------------------------------------------------
     def serve_session(self, *, max_batch_queries: int = 8,
                       max_wait_ms: float = 2.0, query_size=None,
                       params=None, warmup: bool = False) -> ServeSession:
-        """Build the serving pipeline: serve step -> params ->
-        dynamic micro-batcher. ``params`` serve given weights (stacked
-        ``{"tables": ...}`` on the engine's device, used without a copy);
-        the default is a fresh init from the engine seed on the device.
-        ``warmup=True`` runs one untimed capacity batch first."""
-        return ServeSession(
-            self.cfg, device=self.device,
+        """Build the serving pipeline: plan -> serve step -> params ->
+        dynamic micro-batcher. ``params`` serve given weights on the
+        engine's device: stacked ``{"tables": ...}`` (split into the plan's
+        table groups under a placed plan, else used without a copy) or
+        plan-split ``{"tables_fast", "tables_bulk"}`` matching this plan's
+        groups. The default is a fresh init from the engine seed on the
+        device. ``warmup=True`` runs one untimed capacity batch first."""
+        plan = self.build_plan("inference")
+        resolver = (self.make_depth_resolver("inference")
+                    if self.pipeline_depth is None else None)
+        sess = ServeSession(
+            self.cfg, device=self.device, plan=plan,
             max_batch_queries=max_batch_queries, max_wait_ms=max_wait_ms,
             query_size=query_size, params=params, seed=self.seed,
             alpha=self.alpha, warmup=warmup,
-            pipeline_depth=self.pipeline_depth,
+            pipeline_depth=self.pipeline_depth, depth_resolver=resolver,
             fused=self.fused_serve != "off")
+        # record the kernel selection the session resolved on the cached
+        # plan report, so plan_report("inference") tells the whole story
+        rep = self._reports.get("inference")
+        if rep is not None and rep.serve_kernel != sess.serve_kernel:
+            self._reports["inference"] = dataclasses.replace(
+                rep, serve_kernel=sess.serve_kernel)
+        return sess
 
     def train_session(self, **_):
         raise NotImplementedError(

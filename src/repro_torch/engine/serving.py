@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm as dlrm_lib
+from repro_torch.core.planner import ShardingPlan
 from repro_torch.data.recsys import make_recsys_batch
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.batching import (MicroBatcher, QueryFuture, now_s,
@@ -32,7 +33,9 @@ from repro_torch.obs.attribution import AttributionLog, BlameReport
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.obs.trace import Tracer
-from repro_torch.parallel.build import build_step
+from repro_torch.parallel.build import build_step, shard_dlrm_params
+from repro_torch.parallel.exchange import make_exchange
+from repro_torch.parallel.plan import plan_table_groups
 
 Query = Dict[str, torch.Tensor]
 
@@ -98,42 +101,63 @@ class ServeSession:
     Built by ``Engine.serve_session()``. Queries are fixed-size
     (``query_size`` samples each, the paper's "query of size B", Sec.
     III-B); the micro-batcher packs up to ``max_batch_queries`` of them
-    into one device execution. ``params`` are used as given (no copy) and
-    must lie on the session's device; the default is a fresh init from
-    ``seed`` drawn on that device.
+    into one device execution. ``params`` must lie on the session's
+    device; the default is a fresh init from ``seed`` drawn on that
+    device. Under a placed ``plan`` stacked params are split into the
+    plan's table groups (a copy of the tables); plan-split params are used
+    as given when their groups match the plan's. Other params are used
+    without a copy.
+
+    ``pipeline_depth``: an int pins every batch shape to that depth; None
+    resolves the depth PER BATCH SHAPE through ``depth_resolver`` (the
+    planner's executed-schedule sweep at the flushed sample count, which
+    ``Engine`` wires), falling back to 1.
     """
 
     def __init__(self, cfg: DLRMConfig, *, device: DeviceArg = None,
+                 plan: Optional[ShardingPlan] = None,
                  max_batch_queries: int = 8,
                  max_wait_ms: float = 2.0,
                  query_size: Optional[int] = None,
                  params=None, seed: int = 0, alpha: float = 0.0,
-                 warmup: bool = False, pipeline_depth: int = 1,
+                 warmup: bool = False,
+                 pipeline_depth: Optional[int] = 1,
+                 depth_resolver: Optional[Callable[[int], int]] = None,
                  fused: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.plan = plan
         self.seed = seed
         self.alpha = alpha
         self.query_size = int(query_size or cfg.batch_size)
         self.max_batch_queries = int(max_batch_queries)
-        self._step = build_step(cfg, mode="serve",
-                                pipeline_depth=pipeline_depth, fused=fused)
-        self.serve_kernel = self._step.serve_kernel
-        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline_depth = (None if pipeline_depth is None
+                               else int(pipeline_depth))
+        self._depth_resolver = depth_resolver
+        if self.pipeline_depth is not None and self.pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got "
+                             f"{pipeline_depth}")
         if self.max_batch_queries < 1:
             raise ValueError("max_batch_queries must be >= 1")
-        if (self.max_batch_queries * self.query_size) % self.pipeline_depth:
+        fixed = self.pipeline_depth or 1
+        if (self.max_batch_queries * self.query_size) % fixed:
             raise ValueError(
                 f"capacity batch {self.max_batch_queries}x{self.query_size} "
-                f"samples must divide into pipeline_depth="
-                f"{self.pipeline_depth} micro-batches")
+                f"samples must divide into pipeline_depth={fixed} "
+                f"micro-batches")
+        self._exch = make_exchange(cfg, plan=plan, device=self.device)
+        self._fused = bool(fused)
+        self.serve_kernel = ("fused" if self._fused
+                             and self._exch.supports_fused_forward()
+                             else "composed")
+        self._steps: Dict[int, Callable] = {}
+        self._depth_by_samples: Dict[int, int] = {}
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = dlrm_lib.init_dlrm(cfg, gen)
-        elif params["tables"].device != self.device:
-            raise ValueError(f"params lie on {params['tables'].device}, the "
-                             f"session on {self.device}")
-        self.params = params
+        else:
+            self._check_params(params)
+        self.params = shard_dlrm_params(params, plan)
         self.batcher = MicroBatcher(self.max_batch_queries, max_wait_ms / 1e3)
         self._qid = 0
         self._warm = False
@@ -143,18 +167,69 @@ class ServeSession:
         if warmup:
             self._ensure_warm()
 
+    def _check_params(self, params) -> None:
+        keys = ("tables",) if "tables" in params else ("tables_fast",
+                                                       "tables_bulk")
+        for k in keys:
+            if params[k].device != self.device:
+                raise ValueError(f"params lie on {params[k].device}, the "
+                                 f"session on {self.device}")
+        if "tables" in params:
+            return
+        # plan-split params: only accepted when the split matches THIS
+        # session's plan groups, otherwise tables would land in the wrong
+        # tier.
+        if self.plan is None or not self.plan.placements:
+            raise ValueError(
+                "params have no 'tables' (plan-split) but this session "
+                "has no placed plan; pass stacked params")
+        groups = plan_table_groups(self.plan, 1)
+        got = (params["tables_fast"].shape[0], params["tables_bulk"].shape[0])
+        want = (len(groups.fast_ids), len(groups.bulk_ids))
+        if got != want:
+            raise ValueError(
+                f"plan-split params (fast,bulk)={got} do not match this "
+                f"session's plan groups {want}; re-stack them with "
+                f"merge_dlrm_params_by_plan under their own plan first")
+
     # -- shapes ------------------------------------------------------------
     def _padded_count(self, n_queries: int) -> int:
         """Smallest query count >= n_queries whose sample total divides
-        into the pipeline depth (exists because the capacity batch does)."""
+        into a pinned pipeline depth (exists because the capacity batch
+        does). A planner-resolved depth is clamped to the batch instead."""
         if n_queries > self.max_batch_queries:
             raise ValueError(
                 f"{n_queries} queries exceed the micro-batch capacity "
                 f"({self.max_batch_queries})")
         k = n_queries
-        while (k * self.query_size) % self.pipeline_depth:
+        while (k * self.query_size) % (self.pipeline_depth or 1):
             k += 1
         return k
+
+    def depth_for_samples(self, batch_samples: int) -> int:
+        """The pipeline depth the step for this batch shape executes: the
+        fixed session depth, or (pipeline_depth=None) the per-shape planner
+        choice via ``depth_resolver``, clamped to the largest feasible
+        depth dividing the batch. Cached per shape, off the hot path."""
+        if self.pipeline_depth is not None:
+            return self.pipeline_depth
+        b = int(batch_samples)
+        if b not in self._depth_by_samples:
+            depth = (self._depth_resolver(b)
+                     if self._depth_resolver is not None else 1)
+            depth = max(1, min(int(depth), b))
+            while depth > 1 and b % depth:
+                depth -= 1
+            self._depth_by_samples[b] = depth
+        return self._depth_by_samples[b]
+
+    def _step_for(self, batch_samples: int) -> Callable:
+        depth = self.depth_for_samples(batch_samples)
+        if depth not in self._steps:
+            self._steps[depth] = build_step(
+                self.cfg, mode="serve", exchange=self._exch,
+                pipeline_depth=depth, fused=self._fused)
+        return self._steps[depth]
 
     def _ensure_warm(self) -> None:
         if self._warm:
@@ -164,7 +239,7 @@ class ServeSession:
         idx = torch.zeros((b, self.cfg.num_tables,
                            self.cfg.lookups_per_table), dtype=torch.int32,
                           device=self.device)
-        self._step(self.params, dense, idx)
+        self._step_for(b)(self.params, dense, idx)
         self._sync()
         self._warm = True
 
@@ -176,8 +251,9 @@ class ServeSession:
     def serve_direct(self, dense: torch.Tensor,
                      indices: torch.Tensor) -> np.ndarray:
         """Run the serve step on one exact batch (no batching or padding)."""
-        probs = self._step(self.params, dense.to(self.device, torch.float32),
-                           indices.to(self.device, torch.int32))
+        probs = self._step_for(dense.shape[0])(
+            self.params, dense.to(self.device, torch.float32),
+            indices.to(self.device, torch.int32))
         return probs.cpu().numpy()
 
     def _execute(self, queries: List[Query]) -> Tuple[np.ndarray, float]:
@@ -194,9 +270,10 @@ class ServeSession:
                                                          torch.float32)
         idx = torch.cat([p["indices"] for p in parts]).to(self.device,
                                                          torch.int32)
+        step = self._step_for(k * self.query_size)
         self._sync()
         t0 = time.perf_counter()
-        probs = self._step(self.params, dense, idx)
+        probs = step(self.params, dense, idx)
         self._sync()
         service = time.perf_counter() - t0
         out = probs.cpu().numpy().reshape(k, self.query_size)

@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/kernels/<name>-<hash>.so`` under the checkout
 root. The hash covers the source and the compiler flags, so an edited
 source rebuilds and an unchanged one loads the library already built.
+``check_inputs`` is the wrappers' shared check of what they hand a kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -61,3 +65,31 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build(name)))
+
+
+def check_inputs(op: str, *, tables: Dict[str, torch.Tensor],
+                 ids: Dict[str, torch.Tensor],
+                 fp32: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Raise ValueError unless every tensor lies contiguous on one CUDA
+    device, the ``tables`` share one dtype of fp32 or bf16, the ``ids``
+    are int32 and the ``fp32`` tensors fp32."""
+    want = ((tables, (torch.float32, torch.bfloat16)), (ids, (torch.int32,)),
+            (fp32 or {}, (torch.float32,)))
+    first = next(iter(tables.values()))
+    for group, dtypes in want:
+        for name, x in group.items():
+            if x.device.type != "cuda":
+                raise ValueError(f"{op}: {name} must be a CUDA tensor, got "
+                                 f"device {x.device}")
+            if x.device != first.device:
+                raise ValueError(f"{op}: {name} is on {x.device}, the "
+                                 f"tables on {first.device}")
+            if not x.is_contiguous():
+                raise ValueError(f"{op}: {name} must be contiguous")
+            if x.dtype not in dtypes:
+                raise ValueError(f"{op}: {name} must be "
+                                 f"{' or '.join(map(str, dtypes))}, got "
+                                 f"{x.dtype}")
+    if len({x.dtype for x in tables.values()}) > 1:
+        raise ValueError(f"{op}: the tables' dtypes differ: "
+                         f"{[x.dtype for x in tables.values()]}")

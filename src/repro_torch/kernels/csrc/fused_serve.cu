@@ -1,21 +1,42 @@
 // Fused DLRM serve hot path for Hopper (sm_90a): gather -> sum-pool ->
-// pairwise feature interaction, one launch.
+// pairwise feature interaction, one launch. Two entry points share one
+// kernel:
 //
-// Replaces the TPU kernel `fused_bag_interactions_pallas`
-// (src/repro/kernels/fused_serve.py:134). Computes, per sample b:
+//   fused_bag_interactions_launch replaces the TPU kernel
+//   `fused_bag_interactions_pallas` (src/repro/kernels/fused_serve.py:134):
+//   one stacked group of tables.
+//
+//   fused_grouped_bag_interactions_launch replaces
+//   `fused_grouped_bag_interactions_pallas` (fused_serve.py:244): the
+//   tiered plan's two table groups, fast (Tf, Rf, d) and bulk (Tb, Rb, d),
+//   with ids already permuted to concat(fast, bulk) order. Table t of that
+//   order reads its row from the fast group if t < Tf, else from the bulk
+//   group: only the owning group's row is read (the TPU kernel fetched a
+//   clamped row from both groups every step, an artifact of its BlockSpecs).
+//   The output is in the ORIGINAL table order: feature i of the original
+//   order (0 = bot_out, 1 + table) lives in accumulator slot pos[i], with
+//   pos = [0] + [1 + inv_perm], so the pair loop reads slots pos[i], pos[j]
+//   and the reference's un-permuting gather (`_finalize(inv_perm=...)`)
+//   costs nothing. An empty group (Tf = 0 or Tb = 0) is the same kernel.
+//
+// Computes, per sample b:
 //   A[0]   = bot_out[b]
 //   A[1+t] = sum_l tables[t, ids[b, t, l]]             (fp32, in l order)
-//   out[b] = [bot_out[b] | A[i].A[j] for (i, j) in tril_indices(T+1, -1)]
+//   out[b] = [bot_out[b] | A[pos[i]].A[pos[j]] for (i, j) in
+//             tril_indices(T+1, -1)]                    (pos = identity
+//                                                        for one group)
 // with the strict lower triangle in numpy's row-major order, so the static
 // gather the TPU kernel ran outside its launch (`_finalize`) is folded in
 // and no (B, T+1, T+1) matrix is ever written.
 //
-// What bounds it: device-memory bytes. At the RM2-small serve shape
-// (B=200, T=40, L=80, d=32, fp32) one query gathers 640,000 random 128-byte
-// rows (81.9 MB) and reads 2.56 MB of ids, against 10.5 MFLOP of
-// contraction: about 0.1 FLOP per byte, far below the ~20 FLOP/byte at
-// which fp32 CUDA-core math would bound it. The rows are random, so the
-// 50 MB L2 does not help.
+// What bounds it (both entry points): device-memory bytes. At the
+// RM2-small serve shape (B=200, T=40, L=80, d=32, fp32) one query gathers
+// 640,000 random 128-byte rows (81.9 MB) and reads 2.56 MB of ids, against
+// 10.5 MFLOP of contraction: about 0.1 FLOP per byte, far below the
+// ~20 FLOP/byte at which fp32 CUDA-core math would bound it. The rows are
+// random, so the 50 MB L2 does not help. Under the planner's default depth
+// a 200-sample query runs as 8 launches of 25 samples: 25 blocks on 132
+// SMs, so at that shape too few rows are in flight to near the bound.
 //
 // Design: one block per sample, so there is no batch padding. The
 // (T+1) x d fp32 accumulator lives in shared memory (5.4 KB at d=32) and
@@ -43,12 +64,17 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// Tables 0..n_fast-1 of the kernel order live in `fast` (fast_rows rows
+// each), the rest in `bulk` (bulk_rows rows each). `pos` (T+1 entries) maps
+// an output feature to its accumulator slot; nullptr means the identity.
 template <typename Row>
 __global__ void fused_bag_interactions_kernel(
-    const Row* __restrict__ tables, const int32_t* __restrict__ ids,
+    const Row* __restrict__ fast, long long fast_rows, int n_fast,
+    const Row* __restrict__ bulk, long long bulk_rows,
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ ids,
     const float* __restrict__ bot, float* __restrict__ out, int n_tables,
-    long long n_rows, int n_lookups, int dim) {
-  extern __shared__ float acc[];  // (T+1) rows of `ld` floats
+    int n_lookups, int dim) {
+  extern __shared__ float acc[];  // (T+1) rows of `ld` floats, then pos
   const int ld = dim + 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -57,7 +83,10 @@ __global__ void fused_bag_interactions_kernel(
   const int s1 = n_tables + 1;
   const int n_pairs = s1 * (s1 - 1) / 2;
   float* out_b = out + b * (dim + n_pairs);
+  int* slot = reinterpret_cast<int*>(acc + s1 * ld);
 
+  for (int i = threadIdx.x; i < s1; i += blockDim.x)
+    slot[i] = pos == nullptr ? i : pos[i];
   for (int k = threadIdx.x; k < dim; k += blockDim.x) {
     const float v = bot[b * dim + k];
     acc[k] = v;
@@ -67,7 +96,10 @@ __global__ void fused_bag_interactions_kernel(
   const float nan = __int_as_float(0x7fc00000);
   const int32_t* ids_b = ids + b * n_tables * n_lookups;
   for (int t = warp; t < n_tables; t += n_warps) {
-    const Row* tab = tables + (long long)t * n_rows * dim;
+    const bool in_fast = t < n_fast;
+    const long long n_rows = in_fast ? fast_rows : bulk_rows;
+    const Row* tab = in_fast ? fast + (long long)t * fast_rows * dim
+                             : bulk + (long long)(t - n_fast) * bulk_rows * dim;
     const int32_t* ids_t = ids_b + (long long)t * n_lookups;
     for (int k0 = 0; k0 < dim; k0 += 32) {
       const int k = k0 + lane;
@@ -97,8 +129,8 @@ __global__ void fused_bag_interactions_kernel(
     while (i * (i - 1) / 2 > p) --i;
     while ((i + 1) * i / 2 <= p) ++i;
     const int j = p - i * (i - 1) / 2;
-    const float* ai = acc + i * ld;
-    const float* aj = acc + j * ld;
+    const float* ai = acc + slot[i] * ld;
+    const float* aj = acc + slot[j] * ld;
     float s = 0.f;
     for (int k = 0; k < dim; ++k) s = fmaf(ai[k], aj[k], s);
     out_b[dim + p] = s;
@@ -106,14 +138,16 @@ __global__ void fused_bag_interactions_kernel(
 }
 
 template <typename Row>
-int launch(const void* tables, const void* ids, const void* bot, void* out,
-           int batch, int n_tables, long long n_rows, int n_lookups, int dim,
-           cudaStream_t stream) {
+int launch(const void* fast, long long fast_rows, int n_fast,
+           const void* bulk, long long bulk_rows, const void* pos,
+           const void* ids, const void* bot, void* out, int batch,
+           int n_tables, int n_lookups, int dim, cudaStream_t stream) {
   // ceil(T / 32) tables a warp, and as few warps as that allows, so the
   // tables spread evenly (T=40: 20 warps of 2 tables).
   const int tables_per_warp = (n_tables + 31) / 32;
   const int n_warps = (n_tables + tables_per_warp - 1) / tables_per_warp;
-  const size_t smem = (size_t)(n_tables + 1) * (dim + 1) * sizeof(float);
+  const size_t smem = (size_t)(n_tables + 1) * (dim + 1) * sizeof(float) +
+                      (size_t)(n_tables + 1) * sizeof(int);
   auto kernel = fused_bag_interactions_kernel<Row>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -121,24 +155,46 @@ int launch(const void* tables, const void* ids, const void* bot, void* out,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<batch, n_warps * 32, smem, stream>>>(
-      static_cast<const Row*>(tables), static_cast<const int32_t*>(ids),
+      static_cast<const Row*>(fast), fast_rows, n_fast,
+      static_cast<const Row*>(bulk), bulk_rows,
+      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(ids),
       static_cast<const float*>(bot), static_cast<float*>(out), n_tables,
-      n_rows, n_lookups, dim);
+      n_lookups, dim);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// One stacked group: tables (T, R, d).
 extern "C" int fused_bag_interactions_launch(
     const void* tables, int tables_bf16, const void* ids, const void* bot,
     void* out, int batch, int n_tables, long long n_rows, int n_lookups,
     int dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables_bf16)
-    return launch<__nv_bfloat16>(tables, ids, bot, out, batch, n_tables,
-                                 n_rows, n_lookups, dim, s);
-  return launch<float>(tables, ids, bot, out, batch, n_tables, n_rows,
-                       n_lookups, dim, s);
+    return launch<__nv_bfloat16>(tables, n_rows, n_tables, nullptr, 0,
+                                 nullptr, ids, bot, out, batch, n_tables,
+                                 n_lookups, dim, s);
+  return launch<float>(tables, n_rows, n_tables, nullptr, 0, nullptr, ids,
+                       bot, out, batch, n_tables, n_lookups, dim, s);
+}
+
+// Two groups: fast (n_fast, fast_rows, d) and bulk (n_bulk, bulk_rows, d)
+// of one dtype; ids (B, n_fast + n_bulk, L) in concat(fast, bulk) order;
+// pos (n_fast + n_bulk + 1) int32 = [0] + [1 + inv_perm].
+extern "C" int fused_grouped_bag_interactions_launch(
+    const void* fast, const void* bulk, int tables_bf16, long long fast_rows,
+    int n_fast, long long bulk_rows, int n_bulk, const void* pos,
+    const void* ids, const void* bot, void* out, int batch, int n_lookups,
+    int dim, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tables = n_fast + n_bulk;
+  if (tables_bf16)
+    return launch<__nv_bfloat16>(fast, fast_rows, n_fast, bulk, bulk_rows,
+                                 pos, ids, bot, out, batch, n_tables,
+                                 n_lookups, dim, s);
+  return launch<float>(fast, fast_rows, n_fast, bulk, bulk_rows, pos, ids,
+                       bot, out, batch, n_tables, n_lookups, dim, s);
 }
 
 extern "C" const char* fused_serve_error_string(int code) {

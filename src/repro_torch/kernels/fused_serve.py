@@ -1,14 +1,17 @@
-"""Wrapper of the hand-written Hopper kernel for the fused serve hot path.
+"""Wrappers of the hand-written Hopper kernel for the fused serve hot path.
 
-``fused_bag_interactions`` launches ``csrc/fused_serve.cu``, which
-replaces the TPU kernel ``fused_bag_interactions_pallas``
-(``src/repro/kernels/fused_serve.py:134``): gather -> sum-pool ->
-pairwise interaction in one launch, one block per sample, the pooled
-accumulator kept in shared memory. The source file says what bounds it
-and how the design answers that.
+``csrc/fused_serve.cu`` computes gather -> sum-pool -> pairwise
+interaction in one launch, one block per sample, the pooled accumulator
+kept in shared memory. Its two entry points replace two TPU kernels:
 
-The wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors
-to the plain version in ``kernels.ref``.
+  fused_bag_interactions          <- ``fused_bag_interactions_pallas``
+                                     (``src/repro/kernels/fused_serve.py:134``)
+  fused_grouped_bag_interactions  <- ``fused_grouped_bag_interactions_pallas``
+                                     (``src/repro/kernels/fused_serve.py:244``)
+
+The source file says what bounds them and how the design answers that.
+The wrappers take CUDA tensors only; ``kernels.ops`` routes CPU tensors
+to the plain versions in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,10 @@ def _lib() -> ctypes.CDLL:
     lib.fused_bag_interactions_launch.argtypes = [
         p, i, p, p, p, i, i, ctypes.c_longlong, i, i, p]
     lib.fused_bag_interactions_launch.restype = i
+    lib.fused_grouped_bag_interactions_launch.argtypes = [
+        p, p, i, ctypes.c_longlong, i, ctypes.c_longlong, i, p, p, p, p, i,
+        i, i, p]
+    lib.fused_grouped_bag_interactions_launch.restype = i
     lib.fused_serve_error_string.argtypes = [i]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     return lib
@@ -34,26 +41,8 @@ def _lib() -> ctypes.CDLL:
 
 def _check(tables: torch.Tensor, indices: torch.Tensor,
            bot_out: torch.Tensor) -> None:
-    for name, x in (("tables", tables), ("indices", indices),
-                    ("bot_out", bot_out)):
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_bag_interactions: {name} must be a "
-                             f"CUDA tensor, got device {x.device}")
-        if x.device != tables.device:
-            raise ValueError(f"fused_bag_interactions: {name} is on "
-                             f"{x.device}, tables on {tables.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"fused_bag_interactions: {name} must be "
-                             f"contiguous")
-    if tables.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_bag_interactions: tables must be float32 "
-                         f"or bfloat16, got {tables.dtype}")
-    if indices.dtype != torch.int32:
-        raise ValueError(f"fused_bag_interactions: indices must be int32, "
-                         f"got {indices.dtype}")
-    if bot_out.dtype != torch.float32:
-        raise ValueError(f"fused_bag_interactions: bot_out must be float32, "
-                         f"got {bot_out.dtype}")
+    _build.check_inputs("fused_bag_interactions", tables={"tables": tables},
+                        ids={"indices": indices}, fp32={"bot_out": bot_out})
     if tables.dim() != 3 or indices.dim() != 3:
         raise ValueError(f"fused_bag_interactions: want tables (T, R, d) and "
                          f"indices (B, T, L), got {tuple(tables.shape)} and "
@@ -91,4 +80,62 @@ def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
         raise RuntimeError(f"fused_bag_interactions launch failed "
                            f"(cudaError {err}: {msg}) at B={B} T={T} "
                            f"R={R} L={L} d={d} {tables.dtype}")
+    return out
+
+
+def grouped_pos(inv_perm, device: torch.device) -> torch.Tensor:
+    """``pos = [0] + [1 + inv_perm]`` as an int32 tensor on ``device``:
+    the accumulator slot of each output feature (0 = bot_out)."""
+    inv = torch.as_tensor(inv_perm, dtype=torch.int32).cpu()
+    return torch.cat([torch.zeros(1, dtype=torch.int32), inv + 1]).to(device)
+
+
+def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
+                                   tables_bulk: torch.Tensor,
+                                   indices_perm: torch.Tensor,
+                                   bot_out: torch.Tensor,
+                                   pos: torch.Tensor) -> torch.Tensor:
+    """tables_fast (Tf, Rf, d) and tables_bulk (Tb, Rb, d) of one dtype
+    (fp32|bf16; either group may be empty), indices_perm (B, Tf+Tb, L)
+    int32 in concat(fast, bulk) order, bot_out (B, d) fp32, pos (Tf+Tb+1)
+    int32 from ``grouped_pos``; all contiguous on one CUDA device ->
+    (B, d + (T+1)T/2) fp32 in the original table order.
+
+    Launches on the current stream and does not synchronise. Raises if
+    the kernel does not build or its launch is refused."""
+    op = "fused_grouped_bag_interactions"
+    _build.check_inputs(
+        op, tables={"tables_fast": tables_fast, "tables_bulk": tables_bulk},
+        ids={"indices_perm": indices_perm, "pos": pos},
+        fp32={"bot_out": bot_out})
+    if tables_fast.dim() != 3 or tables_bulk.dim() != 3 \
+            or indices_perm.dim() != 3:
+        raise ValueError(f"{op}: want tables (T, R, d) and indices (B, T, L)")
+    Tf, Rf, d = tables_fast.shape
+    Tb, Rb, d2 = tables_bulk.shape
+    B, T, L = indices_perm.shape
+    if (d2 != d or T != Tf + Tb or tuple(bot_out.shape) != (B, d)
+            or tuple(pos.shape) != (T + 1,) or min(B, T, L, d) < 1
+            or (Tf and Rf < 1) or (Tb and Rb < 1)):
+        raise ValueError(
+            f"{op}: shapes disagree or are empty: tables_fast "
+            f"{tuple(tables_fast.shape)}, tables_bulk "
+            f"{tuple(tables_bulk.shape)}, indices_perm "
+            f"{tuple(indices_perm.shape)}, bot_out {tuple(bot_out.shape)}, "
+            f"pos {tuple(pos.shape)}")
+    out = torch.empty((B, d + (T + 1) * T // 2), device=bot_out.device,
+                      dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(bot_out.device):
+        stream = torch.cuda.current_stream(bot_out.device).cuda_stream
+        err = lib.fused_grouped_bag_interactions_launch(
+            tables_fast.data_ptr(), tables_bulk.data_ptr(),
+            int(tables_fast.dtype == torch.bfloat16), Rf, Tf, Rb, Tb,
+            pos.data_ptr(), indices_perm.data_ptr(), bot_out.data_ptr(),
+            out.data_ptr(), B, L, d, stream)
+    if err != 0:
+        msg = lib.fused_serve_error_string(err).decode()
+        raise RuntimeError(f"{op} launch failed (cudaError {err}: {msg}) at "
+                           f"B={B} Tf={Tf} Tb={Tb} Rf={Rf} Rb={Rb} L={L} "
+                           f"d={d} {tables_fast.dtype}")
     return out

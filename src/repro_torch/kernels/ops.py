@@ -16,14 +16,53 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import embedding_bags as bag_kernels
 from repro_torch.kernels import fused_serve, ref
 
-launch_counts: Dict[str, int] = {"fused_bag_interactions": 0}
+launch_counts: Dict[str, int] = {
+    "fused_bag_interactions": 0,
+    "fused_grouped_bag_interactions": 0,
+    "embedding_bag": 0,
+    "cached_embedding_bag": 0,
+}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _no_path(op: str, t: torch.Tensor) -> ValueError:
+    return ValueError(f"{op}: no path for tables on {t.device}")
+
+
+def embedding_bag(tables: torch.Tensor,
+                  indices: torch.Tensor) -> torch.Tensor:
+    """(T, R, d) x (B, T, L) -> (B, T, d) pooled, fp32; one launch on the
+    card."""
+    if tables.device.type == "cuda":
+        out = bag_kernels.embedding_bag(tables, indices)
+        launch_counts["embedding_bag"] += 1
+        return out
+    if tables.device.type == "cpu":
+        return ref.embedding_bag_ref(tables, indices)
+    raise _no_path("embedding_bag", tables)
+
+
+def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
+                         fast_idx: torch.Tensor,
+                         bulk_idx: torch.Tensor) -> torch.Tensor:
+    """Two-tier cached bag: (T, S+1, d) x (T, R+1, d) x 2 x (B, T, L)
+    pre-translated slots -> (B, T, d) pooled, fp32; one launch on the
+    card."""
+    if fast.device.type == "cuda":
+        out = bag_kernels.cached_embedding_bag(fast, bulk, fast_idx,
+                                               bulk_idx)
+        launch_counts["cached_embedding_bag"] += 1
+        return out
+    if fast.device.type == "cpu":
+        return ref.cached_embedding_bag_ref(fast, bulk, fast_idx, bulk_idx)
+    raise _no_path("cached_embedding_bag", fast)
 
 
 def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
@@ -36,5 +75,28 @@ def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
         return out
     if tables.device.type == "cpu":
         return ref.fused_bag_interactions_ref(tables, indices, bot_out)
-    raise ValueError(f"fused_bag_interactions: no path for tables on "
-                     f"{tables.device}")
+    raise _no_path("fused_bag_interactions", tables)
+
+
+def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
+                                   tables_bulk: torch.Tensor,
+                                   indices_perm: torch.Tensor,
+                                   bot_out: torch.Tensor, *, inv_perm,
+                                   pos: torch.Tensor) -> torch.Tensor:
+    """Tiered-plan fused serve path: (Tf, Rf, d) + (Tb, Rb, d) table groups,
+    indices (B, Tf+Tb, L) pre-permuted to concat(fast, bulk) order, output
+    (B, d + (T+1)T/2) in the original table order; one launch on the card.
+
+    ``inv_perm`` is the plan's ``PlanGroups.inv_perm`` and ``pos`` its
+    ``fused_serve.grouped_pos(inv_perm, device)``, built once by the
+    caller (the tiered exchange); the card reads ``pos``, the plain
+    version ``inv_perm``."""
+    if bot_out.device.type == "cuda":
+        out = fused_serve.fused_grouped_bag_interactions(
+            tables_fast, tables_bulk, indices_perm, bot_out, pos)
+        launch_counts["fused_grouped_bag_interactions"] += 1
+        return out
+    if bot_out.device.type == "cpu":
+        return ref.fused_grouped_bag_interactions_ref(
+            tables_fast, tables_bulk, indices_perm, bot_out, inv_perm)
+    raise _no_path("fused_grouped_bag_interactions", bot_out)

@@ -27,6 +27,17 @@ def embedding_bag_ref(tables: torch.Tensor,
     return rows.sum(dim=2)
 
 
+def cached_embedding_bag_ref(fast: torch.Tensor, bulk: torch.Tensor,
+                             fast_idx: torch.Tensor,
+                             bulk_idx: torch.Tensor) -> torch.Tensor:
+    """Two-tier cached bag: fast (T, S+1, d) hot rows + zero miss slot,
+    bulk (T, R+1, d) full tables + zero hit slot, pre-translated indices
+    (B, T, L) -> pooled (B, T, d) fp32: the two pools added. Exactly one of
+    the two rows a lookup reads is a zero pad, so this is the exact bag."""
+    return embedding_bag_ref(fast, fast_idx) + embedding_bag_ref(bulk,
+                                                                 bulk_idx)
+
+
 def interactions_ref(bot_out: torch.Tensor,
                      pooled: torch.Tensor) -> torch.Tensor:
     """FM pairwise dot products (paper Sec. III-D), strict lower triangle
@@ -44,3 +55,24 @@ def fused_bag_interactions_ref(tables: torch.Tensor, indices: torch.Tensor,
     """Composed gather -> pool -> interaction: exactly
     ``interactions_ref(bot_out, embedding_bag_ref(tables, indices))``."""
     return interactions_ref(bot_out, embedding_bag_ref(tables, indices))
+
+
+def fused_grouped_bag_interactions_ref(tables_fast: torch.Tensor,
+                                       tables_bulk: torch.Tensor,
+                                       indices_perm: torch.Tensor,
+                                       bot_out: torch.Tensor,
+                                       inv_perm) -> torch.Tensor:
+    """Tiered-plan composed version: pool the fast (Tf, Rf, d) and bulk
+    (Tb, Rb, d) table groups separately (indices (B, Tf+Tb, L) already in
+    concat(fast, bulk) order), restore the original table order through
+    ``inv_perm`` (a sequence of ints or an int tensor), then interactions —
+    ``parallel.exchange.planned_forward`` at n=1."""
+    Tf = tables_fast.shape[0]
+    parts = []
+    if Tf:
+        parts.append(embedding_bag_ref(tables_fast, indices_perm[:, :Tf]))
+    if tables_bulk.shape[0]:
+        parts.append(embedding_bag_ref(tables_bulk, indices_perm[:, Tf:]))
+    pooled = torch.cat(parts, dim=1)
+    inv = torch.as_tensor(inv_perm, dtype=torch.long, device=pooled.device)
+    return interactions_ref(bot_out, pooled.index_select(1, inv))

@@ -11,12 +11,18 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 200 \\
       --qps 300 --max-batch-queries 4 --max-wait-ms 2
 
+  # planner placement: profile the stream, place tables in the fast and
+  # bulk tiers, serve through the tiered fused kernel; prints "[plan] ..."
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan auto --alpha 1.05
+
   # the reduced config on the CPU, through the plain PyTorch path
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The reference launcher's plan, host-tier, fleet and online flags are
-accepted so that they fail loudly: each names the ROADMAP item that will
-bring it.
+The "[plan]" line's predicted_qps is the paper's performance model for
+its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
+it: a ranking of placements, not a prediction for the card. The
+reference launcher's host-tier, fleet and online flags are accepted so
+that they fail loudly: each names the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -30,7 +36,6 @@ from repro_torch.engine import Engine
 
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
-    "plan": "A4, planner and tiered serving",
     "host_capacity_mb": "A5, host tier",
     "replicas": "A7, cluster/fabric/online",
     "fleet_mode": "A7, cluster/fabric/online",
@@ -62,14 +67,22 @@ def _parser() -> argparse.ArgumentParser:
                     help="auto: serve through the fused gather->pool->"
                          "interaction kernel; off: the composed path")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan", choices=["none", "auto"], default="none",
+                    help="auto: profile + place tables, execute placements")
     ap.add_argument("--alpha", type=float, default=0.0,
-                    help="zipf skew of the query index stream (0 = uniform)")
+                    help="zipf skew of the query index stream (0 = uniform, "
+                         "the paper's zero-locality case; try 1.05 with "
+                         "--plan auto)")
+    ap.add_argument("--fast-mb", type=float, default=None,
+                    help="fast-tier capacity (MiB) for --plan auto")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="micro-batch pipeline depth inside the serve step; "
+                         "0 = auto (planner-resolved per flushed batch "
+                         "shape under the engine's plan)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     not_ported = ap.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
-    not_ported.add_argument("--plan", choices=["none", "auto"],
-                            default="none")
     not_ported.add_argument("--host-capacity-mb", type=float, default=None)
     not_ported.add_argument("--replicas", type=int, default=1)
     not_ported.add_argument("--fleet-mode",
@@ -100,12 +113,18 @@ def main(argv: Optional[list] = None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as err:          # no CUDA device
         raise SystemExit(f"[serve] {err}")
-    engine = Engine(cfg, seed=args.seed, alpha=args.alpha,
-                    fused_serve=args.fused_serve, device=device)
+    engine = Engine(cfg, plan=args.plan, seed=args.seed, alpha=args.alpha,
+                    fast_mb=args.fast_mb,
+                    pipeline_depth=args.pipeline_depth or None,
+                    fused_serve=args.fused_serve, device=device,
+                    verbose=True)
     session = engine.serve_session(max_batch_queries=args.max_batch_queries,
                                    max_wait_ms=args.max_wait_ms)
+    capacity = args.max_batch_queries * session.query_size
     print(f"[serve] serve_kernel={session.serve_kernel} "
-          f"device={session.device}")
+          f"device={session.device} pipeline_depth="
+          f"{session.depth_for_samples(capacity)} (capacity batch, "
+          f"{capacity} samples)")
     if args.qps > 0:
         report = session.run_open_loop(args.queries, args.qps,
                                        sla_ms=args.sla_ms)

@@ -6,7 +6,9 @@ Serve mode returns ``step(params, dense, indices) -> probs (B,)`` over
 -> interaction kernel -> top MLP; otherwise the composed path pools
 through ``exchange.forward`` and runs ``dlrm_forward_from_pooled``. The
 micro-batches run in sequence on one device, so the result does not
-depend on the depth. Training steps come with a later slice.
+depend on the depth. A placed plan selects the tiered exchange, whose
+params are plan-split (``tables_fast``, ``tables_bulk``; see
+``shard_dlrm_params``). Training steps come with a later slice.
 """
 from __future__ import annotations
 
@@ -16,9 +18,23 @@ import torch
 
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm as dlrm_lib
+from repro_torch.core.planner import ShardingPlan
 from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
+from repro_torch.parallel.plan import (plan_table_groups,
+                                       split_dlrm_params_by_plan)
 
 Params = Dict[str, object]
+
+
+def shard_dlrm_params(params: Params,
+                      plan: Optional[ShardingPlan] = None) -> Params:
+    """Place DLRM params for the step on one device. With a placed
+    ``plan``, stacked params ({"tables": ...}) are split into the plan's
+    fast/bulk table groups (new tensors on the tables' device); params
+    already split, or no placed plan, pass through unchanged."""
+    if plan is not None and plan.placements and "tables" in params:
+        params = split_dlrm_params_by_plan(params, plan_table_groups(plan, 1))
+    return params
 
 
 def _mb_slices(x: torch.Tensor, depth: int) -> List[torch.Tensor]:
@@ -35,10 +51,11 @@ def build_step(cfg: DLRMConfig, *, mode: str = "serve",
                pipeline_depth: int = 1, fused: bool = True) -> Callable:
     """Compose the exchange with the dense compute into one serve step.
 
-    ``fused``: run the forward through the exchange's fused kernel when it
-    supports one; ``fused=False`` forces the composed path. The returned
-    step's ``serve_kernel`` attribute ("fused" or "composed") names the
-    branch it runs."""
+    ``exchange`` defaults to ``make_exchange(cfg)``, the config's own
+    layout; a planned session passes its tiered exchange. ``fused``: run the forward through the exchange's
+    fused kernel when it supports one; ``fused=False`` forces the composed
+    path. The returned step's ``serve_kernel`` attribute ("fused" or
+    "composed") names the branch it runs."""
     if mode == "train":
         raise NotImplementedError(
             "training steps are not ported yet (ROADMAP A3, training)")

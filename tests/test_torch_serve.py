@@ -164,6 +164,19 @@ def test_launcher_serves_on_cpu_when_asked():
     assert "serve_kernel=fused" in proc.stdout
 
 
+@pytest.mark.parametrize("flags,depth", [
+    (["--plan", "auto", "--alpha", "1.05"], 8),
+    (["--plan", "auto", "--fast-mb", "0.01", "--pipeline-depth", "2"], 2)])
+def test_launcher_serves_a_planned_session(flags, depth):
+    proc = _launch("--device", "cpu", "--queries", "3", *flags)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    plan_line = proc.stdout.splitlines()[0]
+    assert plan_line.startswith("[plan] mode=table_wise"), proc.stdout
+    assert "predicted_qps=" in plan_line
+    assert (f"serve_kernel=fused device=cpu pipeline_depth={depth}"
+            in proc.stdout)
+
+
 def test_launcher_without_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -184,14 +197,13 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    {"plan": "auto"}, {"host_capacity_mb": 1.0}, {"dp_axes": ("data",)},
-    {"model_axis": 2}, {"pipeline_depth": None}])
+    {"host_capacity_mb": 1.0}, {"dp_axes": ("data",)}, {"model_axis": 2}])
 def test_features_not_ported_fail_loudly(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--replicas", "2"],
+@pytest.mark.parametrize("flag", [["--replicas", "2"],
                                   ["--online-every-s", "1"]])
 def test_launcher_flags_not_ported_fail_loudly(flag):
     from repro_torch.launch import serve
