@@ -33,19 +33,41 @@ Phases; any failure exits non-zero:
   6. the tiered runtime at full width: a two-tier store built from the
      same weights by ``measure_row_freq`` (alpha 1.05) with 65,536 hot
      rows a table serves 4 batches of the stream through the cached-bag
-     kernel and 4 through the packed embedding-bag kernel (4 launches
-     each), all against ``embedding_bag_ref``; both kernels are also held
-     against their plain versions and timed.
+     kernel (6a) and, once the stacked tables are freed, 4 through the
+     packed embedding-bag kernel (6b; 4 launches each), all against
+     ``embedding_bag_ref``; both kernels are also held against their
+     plain versions and timed;
+  7. the kernels API's other four ops, each through ``kernels.ops`` with
+     the launch counts zeroed just before and read just after:
+     a. (run between phases 6a and 6b, while the stacked tables and the
+        store are both resident) fused_cached_bag_interactions on the store at
+        B = 25, 100, 200 and 800 of the alpha = 1.05 stream, held against
+        its plain version and against fused_bag_interactions on the
+        stacked tables, and interactions on pooled rows of the same
+        batches; a bf16 store, d = 128, non-zero pad rows and other edge
+        shapes; both timed;
+     b. (last) flash_attention at mixtral-8x7b's widths (Hq = 32, Hkv = 8,
+        hd = 128, window 4,096, causal, bf16) at the prefill_32k length
+        (T = S = 32,768, batch cut from 32 to 1), held against its plain
+        version at T = S = 8,192 and on sampled rows at 32,768, with edge
+        cases (hd = 120, internlm2-1.8b's 16/8 heads, non-causal, T != S,
+        fully masked rows, fp32), each row also held to its own norm;
+        flash_decode at decode_32k (B = 128,
+        S = 32,768, lengths in [1, S]), held against its plain version at
+        B = 8 with lengths 0 and S, a poisoned tail and edge shapes; both
+        timed.
 
 Each phase prints its peak device memory. The line before the last holds
-the per-kernel JSON; the last line is ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX or of the JAX package ``repro``.
+the per-kernel JSON (every TPU kernel of the JAX package: the eight ported
+and the one still to port); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -67,10 +89,30 @@ RTOL = ATOL = 1e-5
 # are also held to their own scale, max|err| <= SCALED_TOL * max|want|
 # over the pooled.pooled block of an interaction output, or over a pool.
 SCALED_TOL = 1e-5
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
-# outside the tensor cores.
+# Attention kernel vs plain version: the contract of tests/test_kernels.py.
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# An attention row that weighs n keys of N(0, 1) values has |out| ~
+# sqrt(e / n), ~0.026 over a 4,096-key window, so ATTN_TOL alone would
+# pass an error the size of the answer there: each (b, t, h) row is also
+# held to its own scale, ||got - want|| <= ATTN_ROW_TOL * ||want||. bf16
+# rounding of the output (and of P on the tensor cores) reads ~2e-3.
+ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, fp32
+# outside the tensor cores, and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+# mixtral-8x7b (src/repro/configs/mixtral_8x7b.py) and the LM shape cells
+# prefill_32k and decode_32k (src/repro/configs/base.py:184-185).
+MIXTRAL = dict(Hq=32, Hkv=8, hd=128, window=4096)
+PREFILL_T = DECODE_S = 32_768
+DECODE_B = 128
+# The plain version of flash attention holds (Hkv, G, T, S) fp32 scores:
+# 8.6 GB at T = S = 8,192 (137 GB at 32,768), and the library's GQA path
+# expands K and V per query head: flash decode is timed beside both at 16
+# caches of S rows.
+CHECK_T = 8192
+TIME_DECODE_B = 16
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -79,6 +121,9 @@ KERNELS = {
     "fused_bag_interactions": (
         "src/repro_torch/kernels/csrc/fused_serve.cu",
         "src/repro/kernels/fused_serve.py:134"),
+    "fused_cached_bag_interactions": (
+        "src/repro_torch/kernels/csrc/fused_serve.cu",
+        "src/repro/kernels/fused_serve.py:181"),
     "fused_grouped_bag_interactions": (
         "src/repro_torch/kernels/csrc/fused_serve.cu",
         "src/repro/kernels/fused_serve.py:244"),
@@ -88,7 +133,19 @@ KERNELS = {
     "cached_embedding_bag": (
         "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "src/repro/kernels/cached_embedding_bag.py:47"),
+    "interactions": (
+        "src/repro_torch/kernels/csrc/interactions.cu",
+        "src/repro/kernels/interactions.py:31"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:90"),
+    "flash_decode": (
+        "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:75"),
 }
+NOT_PORTED = [{"name": "embedding_bag_blocked",
+               "replaces": "src/repro/kernels/embedding_bag.py:107",
+               "status": "to port (ROADMAP B5)"}]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -150,7 +207,14 @@ def close(kernel, name, got, want, errs, nan_ok=False, pairs=None):
               f"(rtol={RTOL}, atol={ATOL})")
     check(ok_scaled, f"{kernel} {name}: pooled features off by "
                      f"{scaled:.3e} of their scale (limit {SCALED_TOL})")
+    record(errs, kernel, abs_err, scaled)
+
+
+def record(errs, kernel, abs_err, scaled):
+    """Keep a case's errors: the largest absolute error and the largest
+    error against its own scale go into the kernels line."""
     errs.setdefault(kernel, []).append(abs_err)
+    errs.setdefault((kernel, "scaled"), []).append(scaled)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -514,13 +578,17 @@ def phase_interleaved(none, auto_plan):
 
 
 # ---------------------------------------------------------------- phase 5
-def library_version(tables, ids, bot, li, lj):
-    """F.embedding_bag(mode="sum") + torch.bmm + the tril gather: the
-    library yardstick, timed here and never called by the port."""
-    pooled = library_bag(tables, ids)
-    a = torch.cat([bot[:, None, :], pooled], dim=1)
+def library_pairs(bot, pooled, li, lj):
+    """torch.bmm + the tril gather: the interaction's library yardstick,
+    timed here and never called by the port."""
+    a = torch.cat([bot[:, None, :], pooled], dim=1).float()
     f = torch.bmm(a, a.transpose(1, 2))
-    return torch.cat([bot, f[:, li, lj]], dim=1)
+    return torch.cat([bot.float(), f[:, li, lj]], dim=1)
+
+
+def library_version(tables, ids, bot, li, lj):
+    """F.embedding_bag(mode="sum") + the interaction's yardstick."""
+    return library_pairs(bot, library_bag(tables, ids), li, lj)
 
 
 def library_bag(tables, ids):
@@ -539,9 +607,7 @@ def library_grouped(tf, tb, ids, bot, inv, li, lj):
     n = tf.shape[0]
     pooled = torch.cat([library_bag(tf, ids[:, :n]),
                         library_bag(tb, ids[:, n:])], dim=1)
-    a = torch.cat([bot[:, None, :], pooled.index_select(1, inv)], dim=1)
-    f = torch.bmm(a, a.transpose(1, 2))
-    return torch.cat([bot, f[:, li, lj]], dim=1)
+    return library_pairs(bot, pooled.index_select(1, inv), li, lj)
 
 
 def distinct_rows(ids, rows_per_table):
@@ -551,12 +617,13 @@ def distinct_rows(ids, rows_per_table):
         * rows_per_table).numel()
 
 
-def least_time(nbytes, flops):
-    """(ms, "bytes" | "operations"): the larger of bytes over HBM bandwidth
-    and fp32 operations over the fp32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def least_time(nbytes, flops, peak=FP32_FLOP_PER_S):
+    """(ms, "bytes" | "operations", bytes, operations): the larger of bytes
+    over HBM bandwidth and operations over their type's peak (fp32 by
+    default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
 def bound(tables, ids, bot):
@@ -571,7 +638,7 @@ def bound(tables, ids, bot):
     nbytes = (distinct_rows(ids, R) * d * tables.element_size()
               + ids.numel() * 4 + bot.numel() * 4 + B * (d + pairs) * 4)
     flops = B * T * L * d + B * pairs * 2 * d
-    return (*least_time(nbytes, flops), nbytes)
+    return least_time(nbytes, flops)
 
 
 def time_ms(fn, n_sets, iters=40):
@@ -588,15 +655,50 @@ def time_ms(fn, n_sets, iters=40):
     return start.elapsed_time(end) / iters
 
 
-def report_time(name, shape, k_ms, p_ms, l_ms, bounds):
+def kernel_ms(fn, n_sets, iters=40):
+    """(CUDA-event ms a call as ``time_ms`` takes it, device ms a call):
+    the second is the sum of the kernels' own times under torch.profiler
+    over ``iters`` calls, so it leaves out the host time between launches,
+    which the first includes where a call is shorter than its launch. The
+    profiler now and then records no kernel of a short run; it is asked
+    three times, and the device time is None if it never sees one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    event = time_ms(fn, n_sets, iters)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_sets)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return event, busy / iters / 1e3
+    return event, None
+
+
+def report_time(name, shape, k_times, p_ms, l_ms, bounds):
+    """Print and return one kernel's times (``kernel_ms``) beside the mean
+    of its bounds over the input sets (``least_time`` tuples). ``p_ms`` and
+    ``l_ms`` may be None where a shape is too large for the plain or
+    library version."""
+    k_ms, d_ms = k_times
     b_ms = float(np.mean([b[0] for b in bounds]))
+    dev, per = ("not measured", k_ms) if d_ms is None else (
+        f"{d_ms:.4f} ms", d_ms)
     nbytes = float(np.mean([b[2] for b in bounds]))
-    print(f"[time] {name} {shape}: kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
-          f"ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s, {bounds[0][1]}; "
-          f"{b_ms / k_ms:.1%} of it), plain {p_ms:.4f} ms, library "
-          f"{l_ms:.4f} ms, kernel rate {nbytes / k_ms / 1e9:.3f} TB/s")
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=bounds[0][1])
+    flops = float(np.mean([b[3] for b in bounds]))
+    plain = "not run" if p_ms is None else f"{p_ms:.4f} ms"
+    library = "not run" if l_ms is None else f"{l_ms:.4f} ms"
+    print(f"[time] {name} {shape}: kernel {k_ms:.4f} ms (device {dev}), "
+          f"bound {b_ms:.4f} ms ({bounds[0][1]}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP; {b_ms / per:.1%} of the "
+          f"{'kernel' if d_ms is None else 'device'} time), plain {plain}, "
+          f"library {library}; rate {nbytes / per / 1e9:.3f} TB/s, "
+          f"{flops / per / 1e9:.3f} TFLOP/s")
+    return dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=bounds[0][1], shape=shape)
 
 
 BATCHES = (25, 100, 200, 800)
@@ -636,7 +738,7 @@ def phase_timing(none, auto, dev):
               "grouped library yardstick disagrees with the plain version")
         rows["fused_bag_interactions"][B] = report_time(
             "fused_bag_interactions", shape,
-            time_ms(lambda k: fused_serve.fused_bag_interactions(
+            kernel_ms(lambda k: fused_serve.fused_bag_interactions(
                 tables, *sets[k]), len(sets)),
             time_ms(lambda k: ref.fused_bag_interactions_ref(
                 tables, *sets[k]), len(sets), iters=16),
@@ -647,7 +749,7 @@ def phase_timing(none, auto, dev):
             "fused_grouped_bag_interactions",
             f"B={B} Tf={tf.shape[0]} Tb={tb.shape[0]} L={L} d={d} R={R} "
             f"fp32",
-            time_ms(lambda k: fused_serve.fused_grouped_bag_interactions(
+            kernel_ms(lambda k: fused_serve.fused_grouped_bag_interactions(
                 tf, tb, *gsets[k], pos), len(gsets)),
             time_ms(lambda k: ref.fused_grouped_bag_interactions_ref(
                 tf, tb, *gsets[k], groups.inv_perm), len(gsets), iters=16),
@@ -687,18 +789,28 @@ def profile_flushes(sess, label, table=False, n=5):
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_tiered(none, dev):
-    """The tiered runtime at full width on the plan=none session's weights.
-    The other serve sessions are gone; the plan=none session hands its
-    stacked tables over once the store's bulk tier holds them, so no more
-    than ~45 GB are resident."""
+def tiered_stream(cfg, dev):
+    """The 4 batches of the alpha = 1.05 stream that phase 6 looks up, and
+    uniform ids of the same shape."""
+    from repro_torch.data.recsys import make_recsys_batch
+    stream = [make_recsys_batch(cfg, 10 + s, 0, TIERED_ALPHA)["indices"]
+              for s in range(4)]
+    uniform = torch.randint(0, cfg.rows_per_table, stream[0].shape,
+                            device=dev, dtype=torch.int32,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(7))
+    return stream, uniform
+
+
+def phase_tiered(tables, cfg, dev):
+    """Phase 6a: the tiered runtime at full width on the plan=none
+    session's weights, through the cached-bag kernel. The other serve
+    sessions are gone; the store is returned for phases 7a and 6b."""
     from repro_torch.core import tiered_embedding as te
     from repro_torch.data.recsys import make_recsys_batch
     from repro_torch.kernels import embedding_bags, ops, ref
 
-    cfg = none.cfg
-    tables = none.params["tables"]
-    T, R, d = tables.shape
+    R = tables.shape[1]
     t0 = time.perf_counter()
     counts = te.measure_row_freq(cfg, TIERED_ALPHA, seed=0, n_batches=4,
                                  device=dev)
@@ -710,8 +822,7 @@ def phase_tiered(none, dev):
           f"{te.expected_hit_ratio(counts, store):.4f}")
     check(torch.equal(store.bulk[:, :R], tables),
           "the bulk tier does not hold the tables")
-    stream = [make_recsys_batch(cfg, 10 + s, 0, TIERED_ALPHA)["indices"]
-              for s in range(4)]
+    stream, uniform = tiered_stream(cfg, dev)
     hits = float(torch.stack([te.hit_mask(store, i) for i in stream])
                  .float().mean())
     print(f"[tiered] measured hit ratio on 4 batches of the alpha="
@@ -727,10 +838,6 @@ def phase_tiered(none, dev):
               got, want, errs)
     check(launches["cached_embedding_bag"] == 4,
           f"{launches} cached-bag launches for 4 batches")
-    uniform = torch.randint(0, R, stream[0].shape, device=dev,
-                            dtype=torch.int32,
-                            generator=torch.Generator(device=dev)
-                            .manual_seed(7))
     for tag, ids in ((f"alpha={TIERED_ALPHA}", stream[0]),
                      ("uniform", uniform)):
         fi, bi = te.translate_indices(store, ids)
@@ -742,16 +849,25 @@ def phase_tiered(none, dev):
     sets = [te.translate_indices(store, make_recsys_batch(
         cfg, 100 + s, 0, TIERED_ALPHA)["indices"]) for s in range(8)]
     times = {"cached_embedding_bag": time_b6(store, sets)}
-    del tables, wants, counts
-    none.params.clear()
-    torch.cuda.empty_cache()
     peak_line("phase 6a (tiered store, cached bag)")
+    return store, (launches, times, {k: max(v) for k, v in errs.items()})
 
+
+def phase_packed(store, cfg, dev):
+    """Phase 6b: the store packed into one array a table, looked up
+    through the embedding-bag kernel; the stacked tables are gone."""
+    from repro_torch.core import tiered_embedding as te
+    from repro_torch.data.recsys import make_recsys_batch
+    from repro_torch.kernels import embedding_bags, ops, ref
+
+    R = cfg.rows_per_table
+    stream, uniform = tiered_stream(cfg, dev)
+    errs = {}
     packed = te.packed_tables(store)
     bulk_view = store.bulk[:, :R]
     ops.reset_launch_counts()
     pools = [te.tiered_embedding_bag_packed(packed, store, i) for i in stream]
-    launches["embedding_bag"] = ops.launch_counts["embedding_bag"]
+    launches = {"embedding_bag": ops.launch_counts["embedding_bag"]}
     for k, (got, ids) in enumerate(zip(pools, stream)):
         close("tiered_embedding_bag_packed",
               f"batch {k} vs embedding_bag_ref", got,
@@ -766,8 +882,8 @@ def phase_tiered(none, dev):
               ref.embedding_bag_ref(packed, phys), errs)
     psets = [te.translate_indices_packed(store, make_recsys_batch(
         cfg, 100 + s, 0, TIERED_ALPHA)["indices"]) for s in range(8)]
-    times["embedding_bag"] = time_b4(packed, psets)
-    print(f"[tiered] launches {launches} (4 batches each)")
+    times = {"embedding_bag": time_b4(packed, psets)}
+    print(f"[tiered] launches {launches} (4 batches)")
     peak_line("phase 6b (packed store, embedding bag)")
     return launches, times, {k: max(v) for k, v in errs.items()}
 
@@ -788,12 +904,12 @@ def time_b6(store, sets):
             bi, bulk.shape[1])
         nbytes = (rows * d * fast.element_size() + 2 * fi.numel() * 4
                   + B * T * d * 4)
-        bounds.append((*least_time(nbytes, 2 * B * T * L * d), nbytes))
+        bounds.append(least_time(nbytes, 2 * B * T * L * d))
     return report_time(
         "cached_embedding_bag",
         f"B={B} T={T} L={L} d={d} S+1={fast.shape[1]} R+1={bulk.shape[1]} "
         f"fp32, alpha={TIERED_ALPHA} stream",
-        time_ms(lambda k: embedding_bags.cached_embedding_bag(
+        kernel_ms(lambda k: embedding_bags.cached_embedding_bag(
             fast, bulk, *sets[k]), len(sets)),
         time_ms(lambda k: ref.cached_embedding_bag_ref(fast, bulk, *sets[k]),
                 len(sets), iters=16),
@@ -814,12 +930,12 @@ def time_b4(packed, sets):
     for ids in sets:
         nbytes = (distinct_rows(ids, packed.shape[1]) * d
                   * packed.element_size() + ids.numel() * 4 + B * T * d * 4)
-        bounds.append((*least_time(nbytes, B * T * L * d), nbytes))
+        bounds.append(least_time(nbytes, B * T * L * d))
     return report_time(
         "embedding_bag",
         f"B={B} T={T} L={L} d={d} rows={packed.shape[1]} (packed store) "
         f"fp32, alpha={TIERED_ALPHA} stream",
-        time_ms(lambda k: embedding_bags.embedding_bag(packed, sets[k]),
+        kernel_ms(lambda k: embedding_bags.embedding_bag(packed, sets[k]),
                 len(sets)),
         time_ms(lambda k: ref.embedding_bag_ref(packed, sets[k]), len(sets),
                 iters=16),
@@ -827,14 +943,531 @@ def time_b4(packed, sets):
         bounds)
 
 
+# ---------------------------------------------------------------- phase 7
+def serve_batches(cfg, first, n):
+    """n batches of the alpha = 1.05 stream, 200 samples each, then the
+    main path's shapes cut from them: B = 25, 100, 200 from one batch, 800
+    from four."""
+    from repro_torch.data.recsys import make_recsys_batch
+    return [make_recsys_batch(cfg, first + s, 0, TIERED_ALPHA)["indices"]
+            for s in range(n)]
+
+
+def cut(batches, B, k):
+    """Input set k of batch size B: a slice of batch k, or four batches."""
+    if B <= batches[0].shape[0]:
+        return batches[k % len(batches)][:B]
+    n = B // batches[0].shape[0]
+    return torch.cat([batches[(n * k + j) % len(batches)] for j in range(n)])
+
+
+def pairs_bound(bot, pooled):
+    """Least time of the interaction: bot_out and pooled read once, the
+    output written once, against its fp32 operations."""
+    B, T, d = pooled.shape
+    pairs = (T + 1) * T // 2
+    nbytes = (bot.numel() * bot.element_size()
+              + pooled.numel() * pooled.element_size() + B * (d + pairs) * 4)
+    return least_time(nbytes, B * pairs * 2 * d)
+
+
+def cached_pairs_bound(fast, bulk, fi, bi, bot):
+    """Least time of the two-tier fused op: the distinct rows of each tier
+    that the ids touch, both id tensors, bot_out and the output."""
+    B, T, L = fi.shape
+    d = fast.shape[2]
+    pairs = (T + 1) * T // 2
+    rows = distinct_rows(fi, fast.shape[1]) + distinct_rows(bi, bulk.shape[1])
+    nbytes = (rows * d * fast.element_size() + 2 * fi.numel() * 4
+              + bot.numel() * 4 + B * (d + pairs) * 4)
+    return least_time(nbytes, 2 * B * T * L * d + B * pairs * 2 * d)
+
+
+def draw_store(T, S, R, d, dtype, gen, dev):
+    """A small two-tier store whose pad slots (S, R) are not zero, so a
+    kernel that skipped them would differ from the plain version."""
+    fast = torch.empty((T, S + 1, d), device=dev).uniform_(-1, 1,
+                                                           generator=gen)
+    bulk = torch.empty((T, R + 1, d), device=dev).uniform_(-1, 1,
+                                                           generator=gen)
+    fast[:, S], bulk[:, R] = 0.5, 0.5
+    return fast.to(dtype), bulk.to(dtype)
+
+
+def phase_api_serve(tables, store, cfg, dev):
+    """Phase 7a: the two-tier fused op (row 2) and the interaction op (row
+    7) on phase 6's store and the stacked tables it was built from."""
+    from repro_torch.core import tiered_embedding as te
+    from repro_torch.kernels import (embedding_bags, feature_interactions,
+                                     fused_serve, ops, ref)
+    interactions_kernel = feature_interactions.interactions
+
+    t0 = time.perf_counter()
+    T, R, d = tables.shape
+    gen = torch.Generator(device=dev).manual_seed(77)
+    batches = serve_batches(cfg, 20, 4)
+    ids = {B: cut(batches, B, 0) for B in BATCHES}
+    tiers = {B: te.translate_indices(store, i) for B, i in ids.items()}
+    bots = {B: torch.empty((B, d), device=dev).uniform_(-1, 1, generator=gen)
+            for B in BATCHES}
+    errs = {}
+    ops.reset_launch_counts()
+    got2 = {B: ops.fused_cached_bag_interactions(store.fast, store.bulk,
+                                                 *tiers[B], bots[B])
+            for B in BATCHES}
+    pooled = {B: ops.embedding_bag(tables, ids[B]) for B in BATCHES}
+    got7 = {B: ops.interactions(bots[B], pooled[B]) for B in BATCHES}
+    launches = {k: ops.launch_counts[k]
+                for k in ("fused_cached_bag_interactions", "interactions")}
+    print(f"[api] launches {launches} (4 batch sizes each)")
+    check(launches == {k: len(BATCHES) for k in launches},
+          f"{launches}: not one launch a batch size")
+    for B in BATCHES:
+        shape = f"B={B} T={T} L={ids[B].shape[2]} d={d} S+1=" \
+                f"{store.fast.shape[1]} R+1={store.bulk.shape[1]} fp32"
+        close("fused_cached_bag_interactions", f"{shape} vs plain", got2[B],
+              ref.fused_cached_bag_interactions_ref(
+                  store.fast, store.bulk, *tiers[B], bots[B]), errs,
+              pairs=(T, d))
+        close("fused_cached_bag_interactions",
+              f"B={B} vs fused_bag_interactions on the stacked tables",
+              got2[B], fused_serve.fused_bag_interactions(tables, ids[B],
+                                                          bots[B]),
+              errs, pairs=(T, d))
+        close("interactions", f"B={B} T={T} d={d} fp32 pooled of the batch",
+              got7[B], ref.interactions_ref(bots[B], pooled[B]), errs,
+              pairs=(T, d))
+        half = pooled[B].bfloat16()
+        close("interactions", f"B={B} T={T} d={d} bf16 pooled",
+              interactions_kernel(bots[B], half),
+              ref.interactions_ref(bots[B], half), errs, pairs=(T, d))
+    del got2, got7
+
+    # RM2-large's width, d = 128: rows cut to 262,144 a table for memory,
+    # at the model's init scale, looked up with the same batches' ids
+    R128 = 262_144
+    wide = torch.empty((T, R128, 128), device=dev).uniform_(
+        -R ** -0.5, R ** -0.5, generator=gen)
+    for B in BATCHES:
+        pooled128 = embedding_bags.embedding_bag(wide, ids[B] % R128)
+        bot128 = torch.empty((B, 128), device=dev).uniform_(-1, 1,
+                                                            generator=gen)
+        for p in (pooled128, pooled128.bfloat16()):
+            close("interactions", f"B={B} T={T} d=128 {p.dtype}",
+                  interactions_kernel(bot128, p),
+                  ref.interactions_ref(bot128, p), errs, pairs=(T, 128))
+    del wide, pooled128
+    for B, Tn, dn in ((1, 1, 8), (3, 2, 32), (16, 100, 128)):
+        x = torch.randn((B, Tn, dn), device=dev, generator=gen)
+        bot = torch.randn((B, dn), device=dev, generator=gen)
+        for bdt in (torch.float32, torch.bfloat16):
+            close("interactions", f"B={B} T={Tn} d={dn} bot_out {bdt}",
+                  interactions_kernel(bot.to(bdt), x),
+                  ref.interactions_ref(bot.to(bdt), x), errs,
+                  pairs=(Tn, dn))
+
+    # the store in bf16, at the query's B = 200
+    B = BATCHES[2]
+    fast16, bulk16 = store.fast.bfloat16(), store.bulk.bfloat16()
+    close("fused_cached_bag_interactions", f"B={B} bf16 store",
+          fused_serve.fused_cached_bag_interactions(fast16, bulk16,
+                                                    *tiers[B], bots[B]),
+          ref.fused_cached_bag_interactions_ref(fast16, bulk16, *tiers[B],
+                                                bots[B]),
+          errs, pairs=(T, d))
+    del fast16, bulk16
+    torch.cuda.empty_cache()
+    # edge shapes: d = 128 and 256, non-zero pad rows read and summed, 52 KB
+    # of shared memory at T = 100, ids outside a tier read as NaN
+    for B, Tn, L, dn, S, Rn in ((16, 8, 4, 128, 9, 50), (8, 4, 8, 256, 5, 64),
+                                (4, 100, 2, 128, 3, 20), (37, 3, 5, 32, 4,
+                                                          1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            fast, bulk = draw_store(Tn, S, Rn, dn, dtype, gen, dev)
+            fi = torch.randint(0, S + 1, (B, Tn, L), generator=gen,
+                               device=dev, dtype=torch.int32)
+            bi = torch.randint(0, Rn + 1, (B, Tn, L), generator=gen,
+                               device=dev, dtype=torch.int32)
+            bot = torch.empty((B, dn), device=dev).uniform_(-1, 1,
+                                                            generator=gen)
+            close("fused_cached_bag_interactions",
+                  f"B={B} T={Tn} L={L} d={dn} S={S} R={Rn} pad rows 0.5 "
+                  f"{dtype}",
+                  fused_serve.fused_cached_bag_interactions(fast, bulk, fi,
+                                                            bi, bot),
+                  ref.fused_cached_bag_interactions_ref(fast, bulk, fi, bi,
+                                                        bot),
+                  errs, pairs=(Tn, dn))
+    fi[0, 0, 0], bi[1, 1, 1], bi[2, 2, 2] = -1, Rn + 1, -(Rn + 2)
+    close("fused_cached_bag_interactions",
+          "out-of-range ids read as jnp.take does",
+          fused_serve.fused_cached_bag_interactions(fast, bulk, fi, bi, bot),
+          ref.fused_cached_bag_interactions_ref(fast, bulk, fi, bi, bot),
+          errs, nan_ok=True, pairs=(Tn, dn))
+    times = time_api_serve(tables, store, cfg, dev)
+    peak_line(f"phase 7a (kernels API: two-tier fused op, interaction; "
+              f"{time.perf_counter() - t0:.1f} s)")
+    return launches, times, {k: max(v) for k, v in errs.items()}
+
+
+def time_api_serve(tables, store, cfg, dev):
+    """Rows 2 and 7 at the main path's batch sizes, 8 input sets in turn
+    (at B >= 200 their rows overflow the 50 MB L2)."""
+    from repro_torch.core import tiered_embedding as te
+    from repro_torch.kernels import (embedding_bags, feature_interactions,
+                                     fused_serve, ref)
+    interactions_kernel = feature_interactions.interactions
+    T, _, d = tables.shape
+    fast, bulk = store.fast, store.bulk
+    li, lj = torch.tril_indices(T + 1, T + 1, offset=-1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    batches = serve_batches(cfg, 200, 16)
+    rows = {"fused_cached_bag_interactions": {}, "interactions": {}}
+    for B in BATCHES:
+        sets = []
+        for k in range(8):
+            fi, bi = te.translate_indices(store, cut(batches, B, k))
+            bot = torch.empty((B, d), device=dev).uniform_(-1, 1,
+                                                           generator=gen)
+            sets.append((fi, bi, bot))
+        want = ref.fused_cached_bag_interactions_ref(fast, bulk, *sets[0])
+        check(torch.allclose(library_pairs(
+            sets[0][2], library_bag(fast, sets[0][0])
+            + library_bag(bulk, sets[0][1]), li, lj), want, rtol=RTOL,
+            atol=ATOL),
+            "two-tier library yardstick disagrees with the plain version")
+        shape = f"B={B} T={T} L={sets[0][0].shape[2]} d={d} " \
+                f"S+1={fast.shape[1]} R+1={bulk.shape[1]} fp32, " \
+                f"alpha={TIERED_ALPHA} stream"
+        rows["fused_cached_bag_interactions"][B] = report_time(
+            "fused_cached_bag_interactions", shape,
+            kernel_ms(lambda k: fused_serve.fused_cached_bag_interactions(
+                fast, bulk, *sets[k]), len(sets)),
+            time_ms(lambda k: ref.fused_cached_bag_interactions_ref(
+                fast, bulk, *sets[k]), len(sets), iters=16),
+            time_ms(lambda k: library_pairs(
+                sets[k][2], library_bag(fast, sets[k][0])
+                + library_bag(bulk, sets[k][1]), li, lj), len(sets),
+                iters=16),
+            [cached_pairs_bound(fast, bulk, *s) for s in sets])
+        psets = [(s[2], embedding_bags.embedding_bag(tables, cut(batches, B,
+                                                                 k)))
+                 for k, s in enumerate(sets)]
+        check(torch.allclose(library_pairs(*psets[0], li, lj),
+                             ref.interactions_ref(*psets[0]), rtol=RTOL,
+                             atol=ATOL),
+              "interaction library yardstick disagrees with the plain "
+              "version")
+        rows["interactions"][B] = report_time(
+            "interactions", f"B={B} T={T} d={d} fp32 pooled",
+            kernel_ms(lambda k: interactions_kernel(*psets[k]), len(psets)),
+            time_ms(lambda k: ref.interactions_ref(*psets[k]), len(psets),
+                    iters=16),
+            time_ms(lambda k: library_pairs(*psets[k], li, lj), len(psets),
+                    iters=16),
+            [pairs_bound(*p) for p in psets])
+    return rows
+
+
+def attention_pairs(T, S, causal, window):
+    """The (query, key) pairs the attention function weighs: those its
+    masks keep, and all S keys for a row whose every key is masked."""
+    t = np.arange(T)
+    lo = np.maximum(0, t - window + 1) if window is not None else 0 * t
+    hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1)
+    return int(np.where(lo > hi, S, hi - lo + 1).sum())
+
+
+def attention_bound(q, k, causal, window):
+    """Least time of flash attention: q, k, v read and the output written
+    once, against 4 hd operations a weighed pair and head (q.k and p.v) at
+    the peak of the inputs' type (bf16 on the tensor cores)."""
+    B, T, Hq, hd = q.shape
+    S = k.shape[1]
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    flops = 4 * B * Hq * hd * attention_pairs(T, S, causal, window)
+    return least_time(nbytes, flops, BF16_FLOP_PER_S
+                      if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+
+
+def decode_bound(q, k_cache, lengths):
+    """Least time of flash decode: the valid prefix of both caches (all S
+    rows where the length is 0), q, lengths and the output, against 4 hd
+    operations a row and query head."""
+    _, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    n = lengths.clamp(max=S)
+    rows = int(torch.where(n <= 0, S, n).sum())
+    nbytes = (2 * rows * Hkv * hd * k_cache.element_size()
+              + 2 * q.numel() * q.element_size()
+              + lengths.numel() * lengths.element_size())
+    return least_time(nbytes, 4 * Hq * hd * rows, BF16_FLOP_PER_S
+                      if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+
+
+def close_attention(kernel, name, got, want, errs):
+    """Hold an attention output against its plain version: same shape and
+    dtype, finite, allclose at the tests' tolerance for the dtype, and each
+    row (the last dim) within ATTN_ROW_TOL of its own norm."""
+    torch.cuda.synchronize()
+    tol, row_tol = ATTN_TOL[want.dtype], ATTN_ROW_TOL[want.dtype]
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{kernel} {name}: {tuple(got.shape)} {got.dtype}, want "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{kernel} {name}: not finite")
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    ok = bool(torch.allclose(g, w, rtol=tol, atol=tol))
+    hd = w.shape[-1]
+    scaled = ((g - w).reshape(-1, hd).norm(dim=1)
+              / w.reshape(-1, hd).norm(dim=1).clamp_min(1e-30)).max().item()
+    ok_rows = scaled <= row_tol
+    print(f"[kernel] {kernel} {name}: max_abs_err={err:.3e} (tol {tol}) "
+          f"row err/scale={scaled:.3e} (limit {row_tol}) "
+          f"{'ok' if ok and ok_rows else 'OVER TOLERANCE'}")
+    check(ok, f"{kernel} {name}: kernel disagrees with its plain version")
+    check(ok_rows, f"{kernel} {name}: a row is off by {scaled:.3e} of its "
+                   f"norm (limit {row_tol})")
+    record(errs, kernel, err, scaled)
+
+
+def attention_inputs(B, T, S, Hq, Hkv, hd, dtype, gen, dev):
+    return (torch.randn((B, T, Hq, hd), device=dev, generator=gen).to(dtype),
+            torch.randn((B, S, Hkv, hd), device=dev, generator=gen).to(dtype),
+            torch.randn((B, S, Hkv, hd), device=dev, generator=gen).to(dtype))
+
+
+def sdpa_attention(q, k, v, causal, window):
+    """F.scaled_dot_product_attention with enable_gqa and a boolean mask:
+    the library yardstick, timed here and never called by the port."""
+    T, S = q.shape[1], k.shape[1]
+    t = torch.arange(T, device=q.device)[:, None]
+    s = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= s <= t
+    if window is not None:
+        ok &= t - s < window
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=ok, enable_gqa=True).transpose(1, 2)
+
+
+def sdpa_decode(q, k_cache, v_cache, lengths):
+    """The decode yardstick: one query token, the lengths as a mask."""
+    S = k_cache.shape[1]
+    ok = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+        attn_mask=ok[:, None, None], enable_gqa=True)[:, :, 0]
+
+
+def rows_by_hand(q, k, v, rows, window):
+    """Causal windowed attention of a few (b, t, h) rows, computed alone in
+    fp32: the check of the prefill_32k output, too large for the plain
+    version."""
+    hd = q.shape[3]
+    G = q.shape[2] // k.shape[2]
+    out = []
+    for b, t, h in rows:
+        lo = max(0, t - window + 1)
+        kk = k[b, lo:t + 1, h // G].float()
+        s = kk @ q[b, t, h].float() / math.sqrt(hd)
+        out.append(torch.softmax(s, 0) @ v[b, lo:t + 1, h // G].float())
+    return torch.stack(out)
+
+
+def phase_api_attention(dev):
+    """Phase 7b: flash attention (row 8) and flash decode (row 9) at
+    mixtral-8x7b's widths, alone on the card."""
+    from repro_torch.kernels import attention, ops, ref
+    attention_kernel, decode_kernel = (attention.flash_attention,
+                                       attention.flash_decode)
+    Hq, Hkv, hd, win = (MIXTRAL[k] for k in ("Hq", "Hkv", "hd", "window"))
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    errs = {}
+    q, k, v = attention_inputs(1, PREFILL_T, PREFILL_T, Hq, Hkv, hd,
+                               torch.bfloat16, gen, dev)
+    kc, vc = (torch.randn((DECODE_B, DECODE_S, Hkv, hd), device=dev,
+                          generator=gen).bfloat16() for _ in range(2))
+    dq = torch.randn((DECODE_B, Hq, hd), device=dev, generator=gen).bfloat16()
+    lens = torch.randint(1, DECODE_S + 1, (DECODE_B,), generator=gen,
+                         device=dev)
+    ops.reset_launch_counts()
+    prefill = ops.flash_attention(q, k, v, causal=True, window=win)
+    decode = ops.flash_decode(dq, kc, vc, lens)
+    launches = {n: ops.launch_counts[n]
+                for n in ("flash_attention", "flash_decode")}
+    print(f"[api] launches {launches} (prefill_32k, decode_32k)")
+    check(launches == {"flash_attention": 1, "flash_decode": 1},
+          f"{launches}: not one launch each")
+    T = PREFILL_T
+    # the window's edges, then 52 rows drawn from its interior (t >= win,
+    # where each row weighs a full window of keys)
+    rows = [(0, t, h) for t in (0, 1, win - 1, win, T // 2 + 3, T - 1)
+            for h in (0, Hq - 1)]
+    rows += [(0, int(t), int(h)) for t, h in zip(
+        torch.randint(win, T, (52,), generator=gen, device=dev).tolist(),
+        torch.randint(0, Hq, (52,), generator=gen, device=dev).tolist())]
+    close_attention("flash_attention", f"T=S={T} {len(rows)} sampled rows "
+                    f"by hand",
+                    torch.stack([prefill[b, t, h] for b, t, h in rows]),
+                    rows_by_hand(q, k, v, rows, win).bfloat16(), errs)
+    picks = (0, DECODE_B // 2, DECODE_B - 1)
+    close_attention("flash_decode", f"B={DECODE_B} S={DECODE_S} samples "
+                    f"{picks} vs plain", decode[list(picks)],
+                    torch.cat([ref.flash_decode_ref(
+                        dq[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                        lens[b:b + 1]) for b in picks]), errs)
+    times = {"flash_attention": {}, "flash_decode": {}}
+    times["flash_attention"][PREFILL_T] = report_time(
+        "flash_attention", f"B=1 T=S={T} Hq={Hq} Hkv={Hkv} hd={hd} causal "
+        f"window={win} bf16 (prefill_32k, batch cut from 32)",
+        kernel_ms(lambda _: attention_kernel(q, k, v, causal=True, window=win),
+                1, iters=3), None, None,
+        [attention_bound(q, k, True, win)])
+    times["flash_decode"][DECODE_B] = report_time(
+        "flash_decode", f"B={DECODE_B} S={DECODE_S} Hq={Hq} Hkv={Hkv} "
+        f"hd={hd} bf16, lengths in [1, S] (decode_32k)",
+        kernel_ms(lambda _: decode_kernel(dq, kc, vc, lens), 1, iters=10),
+        None, None, [decode_bound(dq, kc, lens)])
+    del q, k, v, prefill, kc, vc, dq, decode
+    torch.cuda.empty_cache()
+    peak_line("phase 7b (kernels API: attention at prefill_32k, "
+              "decode_32k)")
+
+    # T = S = CHECK_T: kernel, plain version and library, mixtral's widths
+    T = CHECK_T
+    q, k, v = attention_inputs(1, T, T, Hq, Hkv, hd, torch.bfloat16, gen,
+                               dev)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+    close_attention("flash_attention", f"B=1 T=S={T} mixtral bf16",
+                    attention_kernel(q, k, v, causal=True, window=win), want,
+                    errs)
+    lib = sdpa_attention(q, k, v, True, win)
+    check(torch.allclose(lib.float(), want.float(), rtol=3e-2, atol=3e-2),
+          "attention library yardstick disagrees with the plain version")
+    del want, lib
+    torch.cuda.empty_cache()
+    shape = f"B=1 T=S={T} Hq={Hq} Hkv={Hkv} hd={hd} causal window={win} bf16"
+    times["flash_attention"][T] = report_time(
+        "flash_attention", shape,
+        kernel_ms(lambda _: attention_kernel(q, k, v, causal=True, window=win),
+                1, iters=10),
+        time_ms(lambda _: ref.flash_attention_ref(q, k, v, causal=True,
+                                                  window=win), 1, iters=3),
+        time_ms(lambda _: sdpa_attention(q, k, v, True, win), 1, iters=3),
+        [attention_bound(q, k, True, win)])
+    del q, k, v
+    torch.cuda.empty_cache()
+    # edge cases: hd = 120 (h2o-danube-3-4b), internlm2-1.8b's 16/8 heads
+    # without a window, non-causal with and without a window, T not a
+    # multiple of the 64-row tile, T != S (fully masked rows when T > S
+    # with a window), fp32 inputs (the CUDA-core path), a window of 1,
+    # B = 2, bf16 at hd = 36 (not a multiple of 8: the CUDA-core path)
+    for B, T, S, hq, hkv, d, causal, w, dtype in (
+            (1, 1000, 1000, 32, 8, 120, True, 256, torch.bfloat16),
+            (1, 1000, 1000, 32, 8, 120, True, 256, torch.float32),
+            (1, 2048, 2048, 16, 8, 128, True, None, torch.bfloat16),
+            (2, 512, 512, 32, 8, 128, False, None, torch.bfloat16),
+            (1, 700, 700, 32, 8, 128, False, 100, torch.bfloat16),
+            (1, 300, 1000, 32, 8, 128, True, 128, torch.bfloat16),
+            (1, 1000, 300, 32, 8, 128, True, 64, torch.bfloat16),
+            (1, 1000, 300, 8, 2, 64, False, 64, torch.float32),
+            (1, 1024, 1024, 32, 8, 128, True, 256, torch.float32),
+            (1, 130, 130, 4, 1, 32, True, 1, torch.float32),
+            (2, 77, 200, 6, 3, 16, False, None, torch.float32),
+            (1, 100, 100, 4, 2, 36, True, 16, torch.bfloat16)):
+        q, k, v = attention_inputs(B, T, S, hq, hkv, d, dtype, gen, dev)
+        close_attention(
+            "flash_attention", f"B={B} T={T} S={S} Hq={hq} Hkv={hkv} hd={d} "
+            f"causal={causal} window={w} {str(dtype)[6:]}",
+            attention_kernel(q, k, v, causal=causal, window=w),
+            ref.flash_attention_ref(q, k, v, causal=causal, window=w), errs)
+    # bf16 q not 16-byte aligned (a view 2 bytes into its storage): the
+    # fp32 path takes it, as it takes hd = 36 above
+    buf = torch.randn((1 + 300 * 8 * 64,), device=dev, generator=gen)
+    q = buf.bfloat16()[1:].view(1, 300, 8, 64)
+    _, k, v = attention_inputs(1, 300, 300, 8, 2, 64, torch.bfloat16, gen, dev)
+    close_attention("flash_attention", "bf16 q 2 bytes off 16-byte alignment",
+                    attention_kernel(q, k, v, causal=True, window=64),
+                    ref.flash_attention_ref(q, k, v, causal=True, window=64),
+                    errs)
+
+    # decode: B = 8 against the plain version (lengths 0, S and above S
+    # among them), a poisoned tail, and TIME_DECODE_B caches for the timing
+    # beside the plain version and the library
+    S = DECODE_S
+    kc, vc = (torch.randn((8, S, Hkv, hd), device=dev, generator=gen)
+              .bfloat16() for _ in range(2))
+    dq = torch.randn((8, Hq, hd), device=dev, generator=gen).bfloat16()
+    lens = torch.randint(1, S + 1, (8,), generator=gen, device=dev)
+    lens[0], lens[1], lens[2] = 0, S, S + 100
+    got = decode_kernel(dq, kc, vc, lens)
+    close_attention("flash_decode", f"B=8 S={S} mixtral bf16 lengths "
+                    f"{lens.tolist()}", got,
+                    ref.flash_decode_ref(dq, kc, vc, lens), errs)
+    n = int(lens[3])
+    kc[3, n:], vc[3, n:] = 1e9, -1e9
+    poisoned = decode_kernel(dq, kc, vc, lens)
+    torch.cuda.synchronize()
+    check(torch.equal(poisoned, got), "flash_decode read past a length")
+    close_attention("flash_decode", f"B=8 poisoned tail past length {n}",
+                    poisoned, ref.flash_decode_ref(dq, kc, vc, lens), errs)
+    del kc, vc
+    for B, S, hq, hkv, d, dtype in ((4, 3000, 32, 8, 120, torch.bfloat16),
+                                    (4, 3000, 16, 8, 128, torch.bfloat16),
+                                    (3, 2000, 32, 4, 128, torch.float32),
+                                    (5, 77, 8, 8, 64, torch.float32),
+                                    (2, 100, 4, 1, 16, torch.float32)):
+        kc, vc = (torch.randn((B, S, hkv, d), device=dev, generator=gen)
+                  .to(dtype) for _ in range(2))
+        dq = torch.randn((B, hq, d), device=dev, generator=gen).to(dtype)
+        lens = torch.randint(0, S + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        close_attention("flash_decode", f"B={B} S={S} Hq={hq} Hkv={hkv} "
+                        f"hd={d} {str(dtype)[6:]} int32 lengths "
+                        f"{lens.tolist()}", decode_kernel(dq, kc, vc, lens),
+                        ref.flash_decode_ref(dq, kc, vc, lens), errs)
+    B, S = TIME_DECODE_B, DECODE_S
+    kc, vc = (torch.randn((B, S, Hkv, hd), device=dev, generator=gen)
+              .bfloat16() for _ in range(2))
+    dq = torch.randn((B, Hq, hd), device=dev, generator=gen).bfloat16()
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    want = ref.flash_decode_ref(dq, kc, vc, lens)
+    close_attention("flash_decode", f"B={B} S={S} mixtral bf16", decode_kernel(
+        dq, kc, vc, lens), want, errs)
+    check(torch.allclose(sdpa_decode(dq, kc, vc, lens).float(), want.float(),
+                         rtol=3e-2, atol=3e-2),
+          "decode library yardstick disagrees with the plain version")
+    times["flash_decode"][B] = report_time(
+        "flash_decode", f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16, "
+        f"lengths in [1, S]",
+        kernel_ms(lambda _: decode_kernel(dq, kc, vc, lens), 1, iters=20),
+        time_ms(lambda _: ref.flash_decode_ref(dq, kc, vc, lens), 1,
+                iters=3),
+        time_ms(lambda _: sdpa_decode(dq, kc, vc, lens), 1, iters=3),
+        [decode_bound(dq, kc, lens)])
+    peak_line(f"phase 7b (kernels API: attention checks and timing; "
+              f"{time.perf_counter() - t0:.1f} s in all)")
+    return launches, times, {k: max(v) for k, v in errs.items()}
+
+
 def build_all():
     """One nvcc per kernel source, all started together."""
-    from repro_torch.kernels import _build, embedding_bags, fused_serve
+    from repro_torch.kernels import (_build, attention, embedding_bags,
+                                     feature_interactions, fused_serve)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(_build.build, ("fused_serve", "embedding_bag")))
-    fused_serve._lib()
-    embedding_bags._lib()
+        libs = list(pool.map(_build.build, (
+            "fused_serve", "embedding_bag", "interactions", "flash_attention",
+            "flash_decode")))
+    for load in (fused_serve._lib, embedding_bags._lib,
+                 feature_interactions._lib, attention._attention_lib,
+                 attention._decode_lib):
+        load()
     print(f"[build] {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -872,24 +1505,44 @@ def main() -> int:
     del auto, auto_d1
     torch.cuda.empty_cache()
     phase_interleaved(none, auto_plan)
-    tiered_launches, tiered_times, tiered_errs = phase_tiered(none, dev)
-    del none
-    for name, err in tiered_errs.items():     # the run's largest per kernel
-        errs[name] = max(err, errs.get(name, 0.0))
+    # 6a and 7a share the stacked tables and the store; the plan=none
+    # session then hands its tables over, so 6b holds no more than ~45 GB
+    cfg, tables = none.cfg, none.params["tables"]
+    store, tiered = phase_tiered(tables, cfg, dev)
+    api_serve = phase_api_serve(tables, store, cfg, dev)
+    none.params.clear()
+    del tables, none
+    torch.cuda.empty_cache()
+    packed = phase_packed(store, cfg, dev)
+    del store
+    torch.cuda.empty_cache()
+    api_attention = phase_api_attention(dev)
+    for more in (tiered[2], api_serve[2], packed[2], api_attention[2]):
+        for name, err in more.items():       # the run's largest per kernel
+            errs[name] = max(err, errs.get(name, 0.0))
 
     launches = {"fused_bag_interactions":
                 none_launches["fused_bag_interactions"],
                 "fused_grouped_bag_interactions":
                 auto_run["launches"]["fused_grouped_bag_interactions"],
-                **tiered_launches}
-    measured = {name: rows[25] for name, rows in times.items()}
-    measured.update(tiered_times)
-    print(json.dumps({"by_batch": times}))
+                **tiered[0], **packed[0], **api_serve[0], **api_attention[0]}
+    # each kernel's row: the serve kernels at the depth-8 micro-batch
+    # B = 25, the bags at B = 200, attention at the largest shape where
+    # the plain version and the library also run
+    by_shape = {**times, **api_serve[1], **api_attention[1]}
+    measured = {name: rows[25] for name, rows in by_shape.items()
+                if 25 in rows}
+    measured.update({**tiered[1], **packed[1]})
+    measured["flash_attention"] = api_attention[1]["flash_attention"][CHECK_T]
+    measured["flash_decode"] = api_attention[1]["flash_decode"][
+        TIME_DECODE_B]
+    print(json.dumps({"by_batch": by_shape}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], **measured[name]}
-        for name in KERNELS]}))
+         "max_abs_err": errs[name], "max_scaled_err": errs[(name, "scaled")],
+         **measured[name]}
+        for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

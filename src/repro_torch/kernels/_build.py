@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/kernels/<name>-<hash>.so`` under the checkout
-root. The hash covers the source and the compiler flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+root. The hash covers the source, the shared headers ``csrc/*.cuh`` and
+the compiler flags, so an edited source rebuilds and an unchanged one
+loads the library already built.
 ``check_inputs`` is the wrappers' shared check of what they hand a kernel.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,7 +41,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built for
     the current source and flags; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if out.exists():
@@ -68,28 +70,35 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_inputs(op: str, *, tables: Dict[str, torch.Tensor],
-                 ids: Dict[str, torch.Tensor],
-                 fp32: Optional[Dict[str, torch.Tensor]] = None) -> None:
+                 ids: Optional[Dict[str, torch.Tensor]] = None,
+                 fp32: Optional[Dict[str, torch.Tensor]] = None,
+                 other: Optional[Dict[str, Tuple[torch.Tensor,
+                                                 Tuple[torch.dtype, ...]]]]
+                 = None) -> None:
     """Raise ValueError unless every tensor lies contiguous on one CUDA
     device, the ``tables`` share one dtype of fp32 or bf16, the ``ids``
-    are int32 and the ``fp32`` tensors fp32."""
-    want = ((tables, (torch.float32, torch.bfloat16)), (ids, (torch.int32,)),
-            (fp32 or {}, (torch.float32,)))
+    are int32, the ``fp32`` tensors fp32 and each of the ``other`` tensors
+    one of the dtypes given beside it."""
+    want = [(x, name, (torch.float32, torch.bfloat16))
+            for name, x in tables.items()]
+    want += [(x, name, (torch.int32,)) for name, x in (ids or {}).items()]
+    want += [(x, name, (torch.float32,)) for name, x in (fp32 or {}).items()]
+    want += [(x, name, dtypes)
+             for name, (x, dtypes) in (other or {}).items()]
     first = next(iter(tables.values()))
-    for group, dtypes in want:
-        for name, x in group.items():
-            if x.device.type != "cuda":
-                raise ValueError(f"{op}: {name} must be a CUDA tensor, got "
-                                 f"device {x.device}")
-            if x.device != first.device:
-                raise ValueError(f"{op}: {name} is on {x.device}, the "
-                                 f"tables on {first.device}")
-            if not x.is_contiguous():
-                raise ValueError(f"{op}: {name} must be contiguous")
-            if x.dtype not in dtypes:
-                raise ValueError(f"{op}: {name} must be "
-                                 f"{' or '.join(map(str, dtypes))}, got "
-                                 f"{x.dtype}")
+    for x, name, dtypes in want:
+        if x.device.type != "cuda":
+            raise ValueError(f"{op}: {name} must be a CUDA tensor, got "
+                             f"device {x.device}")
+        if x.device != first.device:
+            raise ValueError(f"{op}: {name} is on {x.device}, the "
+                             f"tables on {first.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+        if x.dtype not in dtypes:
+            raise ValueError(f"{op}: {name} must be "
+                             f"{' or '.join(map(str, dtypes))}, got "
+                             f"{x.dtype}")
     if len({x.dtype for x in tables.values()}) > 1:
         raise ValueError(f"{op}: the tables' dtypes differ: "
                          f"{[x.dtype for x in tables.values()]}")

@@ -2,10 +2,12 @@
 
 ``csrc/fused_serve.cu`` computes gather -> sum-pool -> pairwise
 interaction in one launch, one block per sample, the pooled accumulator
-kept in shared memory. Its two entry points replace two TPU kernels:
+kept in shared memory. Its three entry points replace three TPU kernels:
 
   fused_bag_interactions          <- ``fused_bag_interactions_pallas``
                                      (``src/repro/kernels/fused_serve.py:134``)
+  fused_cached_bag_interactions   <- ``fused_cached_bag_interactions_pallas``
+                                     (``src/repro/kernels/fused_serve.py:181``)
   fused_grouped_bag_interactions  <- ``fused_grouped_bag_interactions_pallas``
                                      (``src/repro/kernels/fused_serve.py:244``)
 
@@ -34,6 +36,10 @@ def _lib() -> ctypes.CDLL:
         p, p, i, ctypes.c_longlong, i, ctypes.c_longlong, i, p, p, p, p, i,
         i, i, p]
     lib.fused_grouped_bag_interactions_launch.restype = i
+    lib.fused_cached_bag_interactions_launch.argtypes = [
+        p, p, i, ctypes.c_longlong, ctypes.c_longlong, p, p, p, p, i, i, i,
+        i, p]
+    lib.fused_cached_bag_interactions_launch.restype = i
     lib.fused_serve_error_string.argtypes = [i]
     lib.fused_serve_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,6 +86,53 @@ def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
         raise RuntimeError(f"fused_bag_interactions launch failed "
                            f"(cudaError {err}: {msg}) at B={B} T={T} "
                            f"R={R} L={L} d={d} {tables.dtype}")
+    return out
+
+
+def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
+                                  fast_idx: torch.Tensor,
+                                  bulk_idx: torch.Tensor,
+                                  bot_out: torch.Tensor) -> torch.Tensor:
+    """fast (T, S+1, d) and bulk (T, R+1, d) of one dtype (fp32|bf16),
+    fast_idx and bulk_idx (B, T, L) int32 pre-translated slots, bot_out
+    (B, d) fp32, all contiguous on one CUDA device -> (B, d + (T+1)T/2)
+    fp32: both rows of every lookup read and summed, then the interaction.
+
+    Launches on the current stream and does not synchronise. Raises if
+    the kernel does not build or its launch is refused."""
+    op = "fused_cached_bag_interactions"
+    _build.check_inputs(op, tables={"fast": fast, "bulk": bulk},
+                        ids={"fast_idx": fast_idx, "bulk_idx": bulk_idx},
+                        fp32={"bot_out": bot_out})
+    if fast.dim() != 3 or bulk.dim() != 3 or fast_idx.dim() != 3:
+        raise ValueError(f"{op}: want tiers (T, rows, d) and ids (B, T, L)")
+    T, S1, d = fast.shape
+    B, _, L = fast_idx.shape
+    if (bulk.shape[0] != T or bulk.shape[2] != d
+            or fast_idx.shape != bulk_idx.shape or fast_idx.shape[1] != T
+            or tuple(bot_out.shape) != (B, d)
+            or min(B, T, S1, bulk.shape[1], L, d) < 1):
+        raise ValueError(
+            f"{op}: shapes disagree or are empty: fast {tuple(fast.shape)}, "
+            f"bulk {tuple(bulk.shape)}, fast_idx {tuple(fast_idx.shape)}, "
+            f"bulk_idx {tuple(bulk_idx.shape)}, bot_out "
+            f"{tuple(bot_out.shape)}")
+    R1 = bulk.shape[1]
+    out = torch.empty((B, d + (T + 1) * T // 2), device=fast.device,
+                      dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(fast.device):
+        stream = torch.cuda.current_stream(fast.device).cuda_stream
+        err = lib.fused_cached_bag_interactions_launch(
+            fast.data_ptr(), bulk.data_ptr(),
+            int(fast.dtype == torch.bfloat16), S1, R1, fast_idx.data_ptr(),
+            bulk_idx.data_ptr(), bot_out.data_ptr(), out.data_ptr(), B, T,
+            L, d, stream)
+    if err != 0:
+        msg = lib.fused_serve_error_string(err).decode()
+        raise RuntimeError(f"{op} launch failed (cudaError {err}: {msg}) at "
+                           f"B={B} T={T} S+1={S1} R+1={R1} L={L} d={d} "
+                           f"{fast.dtype}")
     return out
 
 

@@ -12,18 +12,23 @@ its plain version) are not counted.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import attention
 from repro_torch.kernels import embedding_bags as bag_kernels
-from repro_torch.kernels import fused_serve, ref
+from repro_torch.kernels import feature_interactions, fused_serve, ref
 
 launch_counts: Dict[str, int] = {
     "fused_bag_interactions": 0,
+    "fused_cached_bag_interactions": 0,
     "fused_grouped_bag_interactions": 0,
     "embedding_bag": 0,
     "cached_embedding_bag": 0,
+    "interactions": 0,
+    "flash_attention": 0,
+    "flash_decode": 0,
 }
 
 
@@ -65,6 +70,19 @@ def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
     raise _no_path("cached_embedding_bag", fast)
 
 
+def interactions(bot_out: torch.Tensor,
+                 pooled: torch.Tensor) -> torch.Tensor:
+    """(B, d) x (B, T, d) -> (B, d + (T+1)T/2) fp32; one launch on the
+    card."""
+    if pooled.device.type == "cuda":
+        out = feature_interactions.interactions(bot_out, pooled)
+        launch_counts["interactions"] += 1
+        return out
+    if pooled.device.type == "cpu":
+        return ref.interactions_ref(bot_out, pooled)
+    raise _no_path("interactions", pooled)
+
+
 def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
                            bot_out: torch.Tensor) -> torch.Tensor:
     """(T, R, d) x (B, T, L) x (B, d) -> (B, d + (T+1)T/2) fp32 fused
@@ -76,6 +94,24 @@ def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
     if tables.device.type == "cpu":
         return ref.fused_bag_interactions_ref(tables, indices, bot_out)
     raise _no_path("fused_bag_interactions", tables)
+
+
+def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
+                                  fast_idx: torch.Tensor,
+                                  bulk_idx: torch.Tensor,
+                                  bot_out: torch.Tensor) -> torch.Tensor:
+    """Two-tier fused serve path: (T, S+1, d) x (T, R+1, d) x 2 x (B, T, L)
+    x (B, d) -> (B, d + (T+1)T/2) fp32 interaction features; one launch on
+    the card."""
+    if fast.device.type == "cuda":
+        out = fused_serve.fused_cached_bag_interactions(
+            fast, bulk, fast_idx, bulk_idx, bot_out)
+        launch_counts["fused_cached_bag_interactions"] += 1
+        return out
+    if fast.device.type == "cpu":
+        return ref.fused_cached_bag_interactions_ref(fast, bulk, fast_idx,
+                                                     bulk_idx, bot_out)
+    raise _no_path("fused_cached_bag_interactions", fast)
 
 
 def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
@@ -100,3 +136,31 @@ def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
         return ref.fused_grouped_bag_interactions_ref(
             tables_fast, tables_bulk, indices_perm, bot_out, inv_perm)
     raise _no_path("fused_grouped_bag_interactions", bot_out)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """(B, T, Hq, hd) x (B, S, Hkv, hd)^2 -> (B, T, Hq, hd) in q's dtype;
+    one launch on the card, which picks its own tiles."""
+    if q.device.type == "cuda":
+        out = attention.flash_attention(q, k, v, causal=causal, window=window)
+        launch_counts["flash_attention"] += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    raise _no_path("flash_attention", q)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """(B, Hq, hd) x (B, S, Hkv, hd)^2 x (B,) -> (B, Hq, hd) in q's dtype;
+    one launch on the card."""
+    if q.device.type == "cuda":
+        out = attention.flash_decode(q, k_cache, v_cache, lengths)
+        launch_counts["flash_decode"] += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.flash_decode_ref(q, k_cache, v_cache, lengths)
+    raise _no_path("flash_decode", q)

@@ -8,6 +8,9 @@ on the card.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 
@@ -57,6 +60,15 @@ def fused_bag_interactions_ref(tables: torch.Tensor, indices: torch.Tensor,
     return interactions_ref(bot_out, embedding_bag_ref(tables, indices))
 
 
+def fused_cached_bag_interactions_ref(fast: torch.Tensor, bulk: torch.Tensor,
+                                      fast_idx: torch.Tensor,
+                                      bulk_idx: torch.Tensor,
+                                      bot_out: torch.Tensor) -> torch.Tensor:
+    """Two-tier composed version: the cached bag, then interactions."""
+    return interactions_ref(
+        bot_out, cached_embedding_bag_ref(fast, bulk, fast_idx, bulk_idx))
+
+
 def fused_grouped_bag_interactions_ref(tables_fast: torch.Tensor,
                                        tables_bulk: torch.Tensor,
                                        indices_perm: torch.Tensor,
@@ -76,3 +88,55 @@ def fused_grouped_bag_interactions_ref(tables_fast: torch.Tensor,
     pooled = torch.cat(parts, dim=1)
     inv = torch.as_tensor(inv_perm, dtype=torch.long, device=pooled.device)
     return interactions_ref(bot_out, pooled.index_select(1, inv))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Naive softmax attention with GQA. q (B, T, Hq, hd), k/v (B, S, Hkv,
+    hd) -> (B, T, Hq, hd): fp32 scores and sums, cast back to q's dtype.
+
+    Query head h reads KV head h // (Hq // Hkv). Causal is top-left
+    (kpos <= qpos, also when T != S); the window keeps qpos - kpos <
+    window, with or without ``causal``. Masked scores are -1e30, so a row
+    whose every key is masked weighs all S keys equally."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qr = q.reshape(B, T, Hkv, G, hd).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qr, k.float())
+    s.div_(math.sqrt(hd))
+    qpos = torch.arange(T, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    s.masked_fill_(~ok, -1e30)
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bhgts,bshd->bthgd", p, v.float())
+    return out.reshape(B, T, Hq, hd).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention over a KV cache. q (B, Hq, hd), caches
+    (B, S, Hkv, hd), lengths (B,) valid-prefix lengths -> (B, Hq, hd) in
+    q's dtype, fp32 inside.
+
+    A length above S acts as S. A length of 0 masks every key at -1e30,
+    so the answer is the mean of v over all S rows."""
+    B, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qr = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float())
+    s.div_(math.sqrt(hd))
+    ok = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s.masked_fill_(~ok[:, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)

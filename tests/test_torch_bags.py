@@ -188,8 +188,10 @@ def test_ops_on_cpu_take_plain_versions_and_count_nothing():
         ref.fused_grouped_bag_interactions_ref(t(tf), t(tb), t(gidx), t(bot),
                                                inv).numpy(), **TOL)
     assert set(ops.launch_counts) == {
-        "fused_bag_interactions", "fused_grouped_bag_interactions",
-        "embedding_bag", "cached_embedding_bag"}
+        "fused_bag_interactions", "fused_cached_bag_interactions",
+        "fused_grouped_bag_interactions", "embedding_bag",
+        "cached_embedding_bag", "interactions", "flash_attention",
+        "flash_decode"}
     assert all(v == 0 for v in ops.launch_counts.values())
 
 

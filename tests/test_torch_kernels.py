@@ -125,7 +125,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("name", ["ops.py", "fused_serve.py", "_build.py",
-                                  "embedding_bags.py"])
+                                  "embedding_bags.py",
+                                  "feature_interactions.py", "attention.py"])
 def test_no_environment_switch(name):
     """The path is chosen by the tensors' device alone: the kernel layer
     reads no environment variable."""
@@ -133,3 +134,18 @@ def test_no_environment_switch(name):
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute):
             assert node.attr not in ("environ", "getenv"), name
+
+
+def test_kernels_api_has_the_reference_ops_each_counted():
+    """repro_torch.kernels exports the eight ops of repro.kernels, and
+    each has a launch counter."""
+    import repro.kernels as jax_kernels
+    import repro_torch.kernels as port_kernels
+
+    def op_names(module):
+        return {n for n in dir(module)
+                if not n.startswith("_") and callable(getattr(module, n))}
+
+    assert op_names(port_kernels) == op_names(jax_kernels)
+    assert len(op_names(port_kernels)) == 8
+    assert set(ops.launch_counts) == op_names(port_kernels)
