@@ -1,4 +1,4 @@
-"""Engine: one session API from config -> plan -> step -> serve.
+"""Engine: one session API from config -> plan -> step -> serve or train.
 
     from repro_torch.configs import get_dlrm
     from repro_torch.engine import Engine
@@ -8,15 +8,19 @@
     serve = eng.serve_session(max_batch_queries=4, max_wait_ms=2.0)
     report = serve.run_open_loop(n_queries=200, qps=400.0, sla_ms=50.0)
 
+    train = eng.train_session(ckpt_dir="ckpt")
+    train.run(100)
+
 ``plan=`` accepts "none" (execute cfg.sharding as-is), "auto" (profile
 the step-indexed stream and run the placement planner) or a concrete
 ``ShardingPlan`` (reconciled against the device count). A placed plan
 serves through the tiered exchange: fast and bulk table groups, fused
 into one kernel launch per micro-batch. The serve step's pipeline depth
 is the planner's, resolved per flushed batch shape, unless
-``pipeline_depth`` pins it.
+``pipeline_depth`` pins it; a train step's is the planner's training
+depth under plan="auto", else 1.
 
-The port serves DLRM on one device. Options of the reference's
+The port serves and trains DLRM on one device. Options of the reference's
 ``Engine`` that it does not carry raise ``NotImplementedError`` naming
 the ROADMAP item that brings them.
 """
@@ -31,6 +35,7 @@ from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.planning import (PlanReport, build_auto_plan,
                                          resolve_depth_for_batch)
 from repro_torch.engine.serving import ServeSession
+from repro_torch.engine.training import TrainSession
 from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
 PlanArg = Union[None, str, ShardingPlan]
@@ -54,17 +59,25 @@ class Engine:
                      interaction kernel whenever the exchange is local;
                      "off" forces the composed path. The choice is recorded
                      on ``ServeSession.serve_kernel`` and on the plan report.
-    pipeline_depth : micro-batches a serve step splits into. None (the
-                     default) = planner-resolved per batch shape; an int
-                     pins every shape.
+    pipeline_depth : micro-batches a step splits into. None (the default)
+                     = planner-resolved: per batch shape when serving, the
+                     plan report's depth when training under plan="auto"
+                     (else 1); an int pins it, clamped to a divisor of
+                     the batch.
+    exchange       : the reference's row-wise wire mode; only its default
+                     "partial_pool" is accepted, since row-wise sharding is
+                     not ported (ROADMAP A6).
+    optimizer      : sparse optimizer of training sessions ("sgd" |
+                     "adagrad").
+    lr             : learning rate of training sessions.
     seed           : parameter init + data stream seed.
     alpha          : Zipf skew of the synthetic stream (profiling AND data).
     device         : None (the CUDA device; raises without one) or an
                      explicit device such as "cpu".
     verbose        : print the plan summary when a plan is built.
-    model_axis, dp_axes, host_capacity_mb : the reference's multi-device
-                     and host-tier options; only their single-device
-                     defaults are accepted.
+    model_axis, dp_axes, host_capacity_mb, compress_grads : the
+                     reference's multi-device and host-tier options; only
+                     their single-device defaults are accepted.
     """
 
     def __init__(self, cfg, *, plan: PlanArg = "none",
@@ -72,8 +85,10 @@ class Engine:
                  fused_serve: str = "auto",
                  pipeline_depth: Optional[int] = None, seed: int = 0,
                  alpha: float = 0.0, device: DeviceArg = None,
-                 verbose: bool = False, model_axis: int = 1,
-                 dp_axes: Tuple[str, ...] = (), host_capacity_mb=None):
+                 exchange: str = _ROW_WISE_EXCHANGE, optimizer: str = "sgd",
+                 lr: float = 0.01, verbose: bool = False,
+                 model_axis: int = 1, dp_axes: Tuple[str, ...] = (),
+                 host_capacity_mb=None, compress_grads: bool = False):
         if not isinstance(cfg, DLRMConfig):
             raise NotImplementedError(
                 "LM configs are not ported yet (ROADMAP A8, LM substrate)")
@@ -84,10 +99,18 @@ class Engine:
             raise NotImplementedError(
                 "host_capacity_mb (the host chunk tier) is not ported yet "
                 "(ROADMAP A5, host tier)")
-        if model_axis != 1 or dp_axes:
+        if model_axis != 1 or dp_axes or compress_grads:
             raise NotImplementedError(
-                "more than one device (model_axis > 1, dp_axes) is not "
-                "ported yet (ROADMAP A6, distributed)")
+                "more than one device (model_axis > 1, dp_axes, "
+                "compress_grads) is not ported yet (ROADMAP A6, "
+                "distributed)")
+        if exchange != _ROW_WISE_EXCHANGE:
+            raise NotImplementedError(
+                f"exchange={exchange!r} (the row-wise wire mode) is not "
+                f"ported yet (ROADMAP A6, distributed)")
+        if optimizer not in ("sgd", "adagrad"):
+            raise ValueError(f"optimizer must be 'sgd' or 'adagrad', got "
+                             f"{optimizer!r}")
         if cfg.sharding != "table_wise":
             raise NotImplementedError(
                 f"sharding={cfg.sharding!r} is not ported yet (ROADMAP A6, "
@@ -105,6 +128,8 @@ class Engine:
         self.pipeline_depth = pipeline_depth
         self.seed = seed
         self.alpha = alpha
+        self.optimizer = optimizer
+        self.lr = lr
         self.verbose = verbose
         self.device = resolve_device(device)
         self._plan_arg: PlanArg = plan
@@ -156,6 +181,21 @@ class Engine:
 
         return resolve
 
+    def resolve_pipeline_depth(self, mode: str,
+                               local_batch_samples: int) -> int:
+        """The depth a session executes: the explicit engine setting, or
+        the planner's choice (``PlanReport.pipeline_depth``) under an auto
+        plan (else 1), clamped to the largest depth that splits the
+        batch into whole micro-batches."""
+        depth = self.pipeline_depth
+        if depth is None:
+            report = self._reports.get(mode)
+            depth = report.pipeline_depth if report is not None else 1
+        depth = min(int(depth), max(1, local_batch_samples))
+        while depth > 1 and local_batch_samples % depth:
+            depth -= 1
+        return depth
+
     # -- sessions ----------------------------------------------------------
     def serve_session(self, *, max_batch_queries: int = 8,
                       max_wait_ms: float = 2.0, query_size=None,
@@ -185,6 +225,19 @@ class Engine:
                 rep, serve_kernel=sess.serve_kernel)
         return sess
 
-    def train_session(self, **_):
-        raise NotImplementedError(
-            "training sessions are not ported yet (ROADMAP A3, training)")
+    def train_session(self, *, ckpt_dir: Optional[str] = None,
+                      ckpt_every: int = 50, ckpt_keep: int = 3
+                      ) -> TrainSession:
+        """Build the training pipeline: the plan for "training" (profiled
+        in that mode under plan="auto") -> train step at the resolved
+        depth -> params and optimizer state on the engine's device ->
+        TrainLoop with checkpoint-resume, keeping ``ckpt_keep``
+        snapshots. A session's ``params`` serve through
+        ``serve_session(params=...)`` of the same engine."""
+        plan = self.build_plan("training")
+        depth = self.resolve_pipeline_depth("training", self.cfg.batch_size)
+        return TrainSession(
+            self.cfg, device=self.device, plan=plan,
+            optimizer=self.optimizer, lr=self.lr, seed=self.seed,
+            alpha=self.alpha, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            ckpt_keep=ckpt_keep, pipeline_depth=depth)

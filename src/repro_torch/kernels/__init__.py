@@ -27,10 +27,13 @@
 
 ``ops`` dispatches by device: CUDA tensors launch the kernel, CPU tensors
 run the plain version in ``ref``. The eight names are those of the JAX
-package's ``repro.kernels`` (the wrapper modules are named apart from the
-ops, so an op never shadows its module here); the TPU kernels' tile arguments (``block_b``,
-``block_q``, ``block_k``) are not carried over, since each kernel picks
-its own tiles.
+package's ``repro.kernels`` (the wrapper modules are named apart from
+the ops, so an op never shadows its module here). A ninth op,
+``ops.embedding_bag_blocked`` (the bag read ``lblk`` aligned rows at a
+time, csrc/embedding_bag.cu's third entry point), is a function of the
+embedding-bag module in the JAX package and stays out of this list too.
+The TPU kernels' tile arguments (``block_b``, ``block_q``, ``block_k``)
+are not carried over, since each kernel picks its own tiles.
 """
 from repro_torch.kernels.ops import (  # noqa: F401
     cached_embedding_bag, embedding_bag, flash_attention, flash_decode,

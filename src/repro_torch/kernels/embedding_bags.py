@@ -1,12 +1,14 @@
 """Wrappers of the hand-written Hopper embedding-bag kernels.
 
-``csrc/embedding_bag.cu`` pools one warp per (sample, table) bag. Its two
-entry points replace two TPU kernels:
+``csrc/embedding_bag.cu`` pools one warp per (sample, table) bag. Its three
+entry points replace three TPU kernels:
 
   embedding_bag         <- ``embedding_bag_pallas``
                            (``src/repro/kernels/embedding_bag.py:45``)
   cached_embedding_bag  <- ``cached_embedding_bag_pallas``
                            (``src/repro/kernels/cached_embedding_bag.py:47``)
+  embedding_bag_blocked <- ``embedding_bag_pallas_blocked``
+                           (``src/repro/kernels/embedding_bag.py:107``)
 
 The source file says what bounds them and how the design answers that.
 The wrappers take CUDA tensors only; ``kernels.ops`` routes CPU tensors
@@ -31,6 +33,9 @@ def _lib() -> ctypes.CDLL:
     lib.cached_embedding_bag_launch.argtypes = [
         p, p, i, ll, ll, p, p, p, i, i, i, i, p]
     lib.cached_embedding_bag_launch.restype = i
+    lib.embedding_bag_blocked_launch.argtypes = [p, i, ll, p, p, p, i, i, i,
+                                                 i, i, p]
+    lib.embedding_bag_blocked_launch.restype = i
     lib.embedding_bag_error_string.argtypes = [i]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
     return lib
@@ -107,3 +112,48 @@ def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
     _raise_on(err, f"{op} at B={B} T={T} S+1={S1} R+1={R1} L={L} d={d} "
                    f"{fast.dtype}")
     return out
+
+
+def check_lblk(op: str, n_lookups: int, lblk: int) -> None:
+    """The blocked bag reads whole L-blocks: lblk >= 1 must divide L."""
+    if lblk < 1 or n_lookups % lblk:
+        raise ValueError(f"{op}: lblk={lblk} must be >= 1 and divide the "
+                         f"lookups a bag (L={n_lookups})")
+
+
+def embedding_bag_blocked_flag(tables: torch.Tensor, indices: torch.Tensor,
+                               *, lblk: int = 8):
+    """``embedding_bag_blocked``, plus the one-element int32 flag the card
+    computed: 0 when the stream was aligned and pooled block by block, 1
+    when the whole batch took the per-row branch. Nothing here waits for
+    the device."""
+    op = "embedding_bag_blocked"
+    _build.check_inputs(op, tables={"tables": tables},
+                        ids={"indices": indices})
+    B, T, R, L, d = _shapes(op, tables, indices)
+    check_lblk(op, L, lblk)
+    out = torch.empty((B, T, d), device=tables.device, dtype=torch.float32)
+    flag = torch.empty((1,), device=tables.device, dtype=torch.int32)
+    with torch.cuda.device(tables.device):
+        stream = torch.cuda.current_stream(tables.device).cuda_stream
+        err = _lib().embedding_bag_blocked_launch(
+            tables.data_ptr(), int(tables.dtype == torch.bfloat16), R,
+            indices.data_ptr(), flag.data_ptr(), out.data_ptr(), B, T, L, d,
+            lblk, stream)
+    _raise_on(err, f"{op} at B={B} T={T} R={R} L={L} d={d} lblk={lblk} "
+                   f"{tables.dtype}")
+    return out, flag
+
+
+def embedding_bag_blocked(tables: torch.Tensor, indices: torch.Tensor, *,
+                          lblk: int = 8) -> torch.Tensor:
+    """tables (T, R, d) fp32|bf16, indices (B, T, L) int32 with L % lblk
+    == 0, contiguous on one CUDA device -> pooled (B, T, d) fp32.
+
+    When every L-block of ``lblk`` lookups is exactly the rows [k*lblk,
+    (k+1)*lblk) of its table (and inside it), the kernel reads whole
+    blocks; otherwise the whole batch pools row by row, as
+    ``embedding_bag``. The card decides which: no host sync. Launches on
+    the current stream and does not synchronise. Raises if the kernel does
+    not build or its launch is refused."""
+    return embedding_bag_blocked_flag(tables, indices, lblk=lblk)[0]

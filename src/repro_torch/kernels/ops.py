@@ -26,6 +26,7 @@ launch_counts: Dict[str, int] = {
     "fused_grouped_bag_interactions": 0,
     "embedding_bag": 0,
     "cached_embedding_bag": 0,
+    "embedding_bag_blocked": 0,
     "interactions": 0,
     "flash_attention": 0,
     "flash_decode": 0,
@@ -52,6 +53,20 @@ def embedding_bag(tables: torch.Tensor,
     if tables.device.type == "cpu":
         return ref.embedding_bag_ref(tables, indices)
     raise _no_path("embedding_bag", tables)
+
+
+def embedding_bag_blocked(tables: torch.Tensor, indices: torch.Tensor, *,
+                          lblk: int = 8) -> torch.Tensor:
+    """(T, R, d) x (B, T, L) -> (B, T, d) pooled, fp32, read ``lblk``
+    consecutive rows at a time when the stream is aligned; one launch on
+    the card. L % lblk != 0 raises ValueError."""
+    if tables.device.type == "cuda":
+        out = bag_kernels.embedding_bag_blocked(tables, indices, lblk=lblk)
+        launch_counts["embedding_bag_blocked"] += 1
+        return out
+    if tables.device.type == "cpu":
+        return ref.embedding_bag_blocked_ref(tables, indices, lblk)
+    raise _no_path("embedding_bag_blocked", tables)
 
 
 def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,

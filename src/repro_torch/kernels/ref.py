@@ -30,6 +30,46 @@ def embedding_bag_ref(tables: torch.Tensor,
     return rows.sum(dim=2)
 
 
+def blocked_stream_aligned(indices: torch.Tensor, lblk: int,
+                           n_rows: Optional[int] = None) -> torch.Tensor:
+    """0-dim bool tensor: every L-block of ``lblk`` lookups is exactly the
+    consecutive rows [k*lblk, (k+1)*lblk) for some k (the reference's
+    predicate, ``repro.kernels.embedding_bag.blocked_stream_aligned``).
+    With ``n_rows`` every block must also lie inside [0, n_rows): a block
+    past the table is not aligned."""
+    B, T, L = indices.shape
+    blocks = indices.reshape(B, T, L // lblk, lblk)
+    base = blocks[..., :1]
+    expect = base + torch.arange(lblk, dtype=indices.dtype,
+                                 device=indices.device)
+    ok = (base % lblk == 0).all() & (blocks == expect).all()
+    if n_rows is not None:
+        ok &= ((base >= 0) & (base + lblk <= n_rows)).all()
+    return ok
+
+
+def embedding_bag_blocked_ref(tables: torch.Tensor, indices: torch.Tensor,
+                              lblk: int = 8) -> torch.Tensor:
+    """The blocked bag: on a stream aligned inside the tables
+    (``blocked_stream_aligned(indices, lblk, R)``), each L-block's rows
+    summed in the tables' dtype, then the block sums in L order in fp32;
+    on any other stream ``embedding_bag_ref``. tables (T, R, d), indices
+    (B, T, L) with L % lblk == 0 -> (B, T, d) fp32."""
+    T, R, _ = tables.shape
+    B, _, L = indices.shape
+    if lblk < 1 or L % lblk:
+        raise ValueError(f"embedding_bag_blocked: lblk={lblk} must be >= 1 "
+                         f"and divide the lookups a bag (L={L})")
+    if not bool(blocked_stream_aligned(indices, lblk, R)):
+        return embedding_bag_ref(tables, indices)
+    base = indices.reshape(B, T, L // lblk, lblk)[..., 0].long()
+    t = torch.arange(T, device=tables.device)[None, :, None, None]
+    rows = base[..., None] + torch.arange(lblk, device=tables.device)
+    # a block's sum is taken in the tables' dtype (one rounding for bf16,
+    # as the reference's ``rows_ref[...].sum(axis=1)``), the blocks in fp32
+    return tables[t, rows].sum(dim=3).float().sum(dim=2)
+
+
 def cached_embedding_bag_ref(fast: torch.Tensor, bulk: torch.Tensor,
                              fast_idx: torch.Tensor,
                              bulk_idx: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,19 @@
 """EmbeddingExchange: where the tables live, and the forward that follows.
 
 An exchange owns what depends on the tables' placement: which param keys
-hold tables, the Alg. 1 forward (indices in, pooled embeddings out), and
-whether the serve path may run as one fused gather -> pool -> interaction
-kernel. The port carries two exchanges on one device: the table-wise one
-(the paper's "unsharded" layout) and the planner's tiered one (fast and
-bulk table groups, as placed by ``plan="auto"`` or a ``ShardingPlan``).
+hold tables, the Alg. 1 forward (indices in, pooled embeddings and a
+backward context out), the Alg. 2 backward (pooled-output grads expanded
+to flat (row id, row grad) pairs per table group, and applied by a sparse
+optimizer), and whether the serve path may run as one fused gather ->
+pool -> interaction kernel. The port carries two exchanges on one
+device: the table-wise one (the paper's "unsharded" layout) and the
+planner's tiered one (fast and bulk table groups, as placed by
+``plan="auto"`` or a ``ShardingPlan``).
 The distributed and row-wise exchanges are a later ROADMAP item (A6).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +26,51 @@ from repro_torch.kernels.fused_serve import grouped_pos
 from repro_torch.parallel.plan import plan_table_groups
 
 Tables = Dict[str, torch.Tensor]
+# table key -> (flat_idx (T, N), flat_g (T, N, d))
+FlatGrads = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def acc_key(table_key: str) -> str:
+    """Param key -> its AdaGrad accumulator's key ("tables" ->
+    "table_acc", "tables_fast" -> "table_acc_fast", ...)."""
+    return table_key.replace("tables", "table_acc", 1)
+
+
+def table_wise_expand_grads(ctx: torch.Tensor, g_pooled: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 2 for whole local tables: the (B, T, d) pooled grads copied to
+    every looked-up row. ctx (B, T, L) ids -> (flat_idx (T, B*L),
+    flat_g (T, B*L, d)) in the grads' dtype."""
+    B, T, L = ctx.shape
+    d = g_pooled.shape[-1]
+    flat_idx = ctx.transpose(0, 1).reshape(T, B * L)
+    flat_g = g_pooled.transpose(0, 1)[:, :, None, :].expand(
+        T, B, L, d).reshape(T, B * L, d)
+    return flat_idx, flat_g
+
+
+def row_wise_expand_grads(n_rows: int, ctx: torch.Tensor,
+                          g_pooled: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 2 for row-sharded tables at n=1, where this device owns every
+    row [0, n_rows): grads of ids outside that range are zeroed and sent
+    to row 0, as ``primitives.row_wise_expand_grads`` masks rows owned
+    elsewhere. ``dtype`` casts the SMALL (T, B, d) grads before the L-fold
+    expansion, as ``row_wise_backward_update`` does (the tables' dtype);
+    None keeps theirs."""
+    B, T, L = ctx.shape
+    d = g_pooled.shape[-1]
+    mine = (ctx >= 0) & (ctx < n_rows)
+    safe = torch.where(mine, ctx, torch.zeros((), dtype=ctx.dtype,
+                                              device=ctx.device))
+    g_t = g_pooled.transpose(0, 1)
+    if dtype is not None:
+        g_t = g_t.to(dtype)
+    g_rows = g_t[:, :, None, :].expand(T, B, L, d)
+    g_rows = g_rows * mine.transpose(0, 1)[..., None].to(g_rows.dtype)
+    return (safe.transpose(0, 1).reshape(T, B * L),
+            g_rows.reshape(T, B * L, d))
 
 
 class EmbeddingExchange:
@@ -38,6 +86,21 @@ class EmbeddingExchange:
                 indices: torch.Tensor) -> Tuple[torch.Tensor, Any]:
         """(B, T, L) indices -> ((B, T, d) pooled, backward context)."""
         raise NotImplementedError
+
+    def expand_grads(self, tables: Tables, ctx: Any,
+                     g_pooled: torch.Tensor) -> FlatGrads:
+        """Route the (B, T, d) pooled-output grads to the rows they came
+        from: flat (row id, row grad) pairs per table key."""
+        raise NotImplementedError
+
+    def sparse_apply(self, tables: Tables, ctx: Any, g_pooled: torch.Tensor,
+                     update_fn: Callable) -> Tables:
+        """A stateless (SGD) sparse update of every table group, in place:
+        ``update_fn(table, flat_idx, flat_g)`` on each group's flat
+        grads."""
+        for k, (fi, fg) in self.expand_grads(tables, ctx, g_pooled).items():
+            tables[k] = update_fn(tables[k], fi, fg)
+        return tables
 
     # A LOCAL exchange (every looked-up row on this device, no collectives
     # in the forward) can serve through the fused kernel, which never
@@ -67,6 +130,9 @@ class TableWiseExchange(EmbeddingExchange):
     def forward(self, tables, indices):
         return dlrm_lib.embedding_bag(tables["tables"], indices), indices
 
+    def expand_grads(self, tables, ctx, g_pooled):
+        return {"tables": table_wise_expand_grads(ctx, g_pooled)}
+
     def supports_fused_forward(self) -> bool:
         return True
 
@@ -85,6 +151,10 @@ class PlannedTieredExchange(EmbeddingExchange):
     once here, on ``device`` (None = the card), not once per batch."""
 
     table_keys = ("tables_fast", "tables_bulk")
+    # samples a chunk of the bulk group's sparse update (the reference's
+    # ``lookup_chunk``): the expanded (chunk, Tb, L, d) grad block is the
+    # only L-sized tensor
+    lookup_chunk = 4096
 
     def __init__(self, cfg: DLRMConfig, n: int, plan: ShardingPlan,
                  device: DeviceArg = None):
@@ -104,17 +174,57 @@ class PlannedTieredExchange(EmbeddingExchange):
 
     def forward(self, tables, indices):
         """Pool each group, concatenate, restore the original table order
-        (``planned_forward`` of the reference at n=1)."""
+        (``planned_forward`` of the reference at n=1). The backward context
+        is each group's ids: (fast (B, Tf, L), bulk (B, Tb, L))."""
         n_fast = len(self.groups.fast_ids)
         idx = indices.index_select(1, self._perm)
+        ctx = (idx[:, :n_fast], idx[:, n_fast:])
         parts = []
         if n_fast:
             parts.append(dlrm_lib.embedding_bag(tables["tables_fast"],
-                                                idx[:, :n_fast]))
+                                                ctx[0]))
         if self.groups.bulk_ids:
             parts.append(dlrm_lib.embedding_bag(tables["tables_bulk"],
-                                                idx[:, n_fast:]))
-        return torch.cat(parts, dim=1).index_select(1, self._inv), indices
+                                                ctx[1]))
+        return torch.cat(parts, dim=1).index_select(1, self._inv), ctx
+
+    def _split_g(self, g_pooled):
+        g = g_pooled.index_select(1, self._perm)
+        n_fast = len(self.groups.fast_ids)
+        return g[:, :n_fast], g[:, n_fast:]
+
+    def expand_grads(self, tables, ctx, g_pooled):
+        """The fast group table-wise, the bulk group row-wise (at n=1 this
+        device owns every row), as the reference's tiered exchange."""
+        g_f, g_b = self._split_g(g_pooled)
+        out = {}
+        if self.groups.fast_ids:
+            out["tables_fast"] = table_wise_expand_grads(ctx[0], g_f)
+        if self.groups.bulk_ids:
+            out["tables_bulk"] = row_wise_expand_grads(
+                tables["tables_bulk"].shape[1], ctx[1], g_b)
+        return out
+
+    def sparse_apply(self, tables, ctx, g_pooled, update_fn):
+        """As ``expand_grads``, then ``update_fn`` on each group in place.
+        The bulk group follows ``row_wise_backward_update``: its pooled
+        grads are cast to the table dtype BEFORE the L-fold expansion (for
+        bf16 tables, another rounding than the fast group's), in batch
+        chunks of at most ``lookup_chunk`` samples."""
+        g_f, g_b = self._split_g(g_pooled)
+        if self.groups.fast_ids:
+            tables["tables_fast"] = update_fn(
+                tables["tables_fast"], *table_wise_expand_grads(ctx[0], g_f))
+        if self.groups.bulk_ids:
+            bulk = tables["tables_bulk"]
+            B = g_b.shape[0]
+            chunk = _divisor_chunk(B, self.lookup_chunk)
+            for s in range(0, B, chunk):
+                bulk = update_fn(bulk, *row_wise_expand_grads(
+                    bulk.shape[1], ctx[1][s:s + chunk], g_b[s:s + chunk],
+                    dtype=bulk.dtype))
+            tables["tables_bulk"] = bulk
+        return tables
 
     def supports_fused_forward(self) -> bool:
         return True
@@ -124,6 +234,14 @@ class PlannedTieredExchange(EmbeddingExchange):
             tables["tables_fast"], tables["tables_bulk"],
             indices.index_select(1, self._perm), bot_out,
             inv_perm=self.inv_perm, pos=self._pos)
+
+
+def _divisor_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (>= 1)."""
+    c = max(1, min(n, target))
+    while n % c:
+        c -= 1
+    return c
 
 
 def make_exchange(cfg: DLRMConfig, n: int = 1, *,

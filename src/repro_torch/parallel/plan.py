@@ -111,6 +111,35 @@ def split_dlrm_params_by_plan(params: Params, groups: PlanGroups) -> Params:
     }
 
 
+def split_dlrm_params_in_place(params: Params, groups: PlanGroups) -> Params:
+    """``split_dlrm_params_by_plan`` without a second copy of the tables:
+    the stacked (T, R, d) tables are permuted IN PLACE into concat(fast,
+    bulk) order, one table at a time through a one-table buffer, and the
+    two groups are views of them. For params the caller owns and gives
+    up (a fresh init): at full width the copy would be another 21.5 GB."""
+    tables = params["tables"]
+    perm = groups.fast_ids + groups.bulk_ids        # new slot i <- perm[i]
+    done = [False] * len(perm)
+    for start in range(len(perm)):
+        if done[start] or perm[start] == start:
+            continue
+        held = tables[start].clone()
+        i = start
+        while True:
+            done[i] = True
+            src = perm[i]
+            if src == start:
+                tables[i].copy_(held)
+                break
+            tables[i].copy_(tables[src])
+            i = src
+    n_fast = len(groups.fast_ids)
+    return {
+        "bot_mlp": params["bot_mlp"], "top_mlp": params["top_mlp"],
+        "tables_fast": tables[:n_fast], "tables_bulk": tables[n_fast:],
+    }
+
+
 def merge_dlrm_params_by_plan(params: Params, groups: PlanGroups) -> Params:
     """Inverse of `split_dlrm_params_by_plan` (checkpoint / equivalence)."""
     both = torch.cat([params["tables_fast"], params["tables_bulk"]], 0)

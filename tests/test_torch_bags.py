@@ -190,8 +190,8 @@ def test_ops_on_cpu_take_plain_versions_and_count_nothing():
     assert set(ops.launch_counts) == {
         "fused_bag_interactions", "fused_cached_bag_interactions",
         "fused_grouped_bag_interactions", "embedding_bag",
-        "cached_embedding_bag", "interactions", "flash_attention",
-        "flash_decode"}
+        "cached_embedding_bag", "embedding_bag_blocked", "interactions",
+        "flash_attention", "flash_decode"}
     assert all(v == 0 for v in ops.launch_counts.values())
 
 

@@ -11,6 +11,13 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The training slice's modules: each must exist and import alone, in a
+# fresh interpreter, without JAX or the JAX package.
+TRAINING_MODULES = (
+    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+    "repro_torch.runtime", "repro_torch.runtime.straggler",
+    "repro_torch.runtime.trainer", "repro_torch.parallel.updates",
+    "repro_torch.engine.training", "repro_torch.launch.train")
 
 
 def _forbidden(module: str) -> bool:
@@ -35,7 +42,30 @@ def test_import_leaves_jax_and_repro_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 28, proc.stdout
+
+
+def test_training_modules_import_without_jax_or_repro():
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in sys.argv[1:]:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    for name in TRAINING_MODULES:
+        rel = Path(*name.split(".")[1:])
+        assert ((PORT / rel).with_suffix(".py").exists()
+                or (PORT / rel / "__init__.py").exists()), name
+        assert any(p == (PORT / rel).with_suffix(".py")
+                   or p == PORT / rel / "__init__.py" for p in SOURCES), name
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -138,7 +138,9 @@ def test_no_environment_switch(name):
 
 def test_kernels_api_has_the_reference_ops_each_counted():
     """repro_torch.kernels exports the eight ops of repro.kernels, and
-    each has a launch counter."""
+    each has a launch counter; so has ``ops.embedding_bag_blocked``, which
+    the JAX package keeps in its embedding-bag module, out of
+    repro.kernels."""
     import repro.kernels as jax_kernels
     import repro_torch.kernels as port_kernels
 
@@ -148,4 +150,6 @@ def test_kernels_api_has_the_reference_ops_each_counted():
 
     assert op_names(port_kernels) == op_names(jax_kernels)
     assert len(op_names(port_kernels)) == 8
-    assert set(ops.launch_counts) == op_names(port_kernels)
+    assert set(ops.launch_counts) == op_names(port_kernels) | {
+        "embedding_bag_blocked"}
+    assert "embedding_bag_blocked" not in op_names(jax_kernels)
