@@ -10,9 +10,13 @@ Phases; any failure exits non-zero:
      name and power limit);
   2. hold each kernel's wrapper against its plain PyTorch version on the
      card: the serve kernels (fused_bag_interactions and
-     fused_grouped_bag_interactions) at the main path's shapes, and all
-     four kernels at edge shapes (d = 128 and 256, empty groups, repeated,
-     poisoned-row and out-of-range ids);
+     fused_grouped_bag_interactions, the latter in both call forms: ids
+     permuted with a slot map, and ids in table order) at the main path's
+     shapes, and all four kernels at edge shapes (d = 128 and 256, empty
+     groups, repeated, poisoned-row and out-of-range ids); the serve
+     kernels also at the cluster split's edges (T = 3, 37, 100, B = 1)
+     and at row widths that are not a power of two of 16-byte vectors or
+     not whole vectors, or tables off 16-byte alignment;
   3. drive the plan="none" main path:
      ``Engine(get_dlrm("dlrm-rm2-small-unsharded"))`` at full width (40
      tables x 4,194,304 rows x 32, fp32, random weights from a seed), at
@@ -51,7 +55,10 @@ Phases; any failure exits non-zero:
         (T = S = 32,768, batch cut from 32 to 1), held against its plain
         version at T = S = 8,192 and on sampled rows at 32,768, with edge
         cases (hd = 120, internlm2-1.8b's 16/8 heads, non-causal, T != S,
-        fully masked rows, fp32), each row also held to its own norm;
+        fully masked rows, fp32), each row also held to its own norm, and
+        timed at prefill_32k beside the library (K and V repeated to the
+        query heads, F.scaled_dot_product_attention on its memory-efficient
+        backend, held to the sampled rows too);
         flash_decode at decode_32k (B = 128,
         S = 32,768, lengths in [1, S]), held against its plain version at
         B = 8 with lengths 0 and S, a poisoned tail and edge shapes; both
@@ -288,13 +295,21 @@ def compare(name, tables, ids, bot, errs, nan_ok=False):
 
 
 def compare_grouped(name, tf, tb, ids, bot, inv, errs, nan_ok=False):
-    """The grouped kernel on (tf, tb) against its plain version."""
+    """The grouped kernel on (tf, tb) against its plain version, in both
+    call forms: ``ids`` in concat(fast, bulk) order with the slot map
+    ``pos`` (the kernels API's op), and the same ids in original table
+    order with the per-table map ``src`` (the serve path's)."""
     from repro_torch.kernels import fused_serve, ref
+    want = ref.fused_grouped_bag_interactions_ref(tf, tb, ids, bot, inv)
     pos = fused_serve.grouped_pos(inv, ids.device)
     got = fused_serve.fused_grouped_bag_interactions(tf, tb, ids, bot, pos)
-    want = ref.fused_grouped_bag_interactions_ref(tf, tb, ids, bot, inv)
     close("fused_grouped_bag_interactions", name, got, want, errs, nan_ok,
           pairs=(ids.shape[1], bot.shape[1]))
+    orig = ids.index_select(1, torch.as_tensor(inv, device=ids.device))
+    got = fused_serve.fused_grouped_bag_interactions_unpermuted(
+        tf, tb, orig, bot, fused_serve.grouped_src(inv, ids.device))
+    close("fused_grouped_bag_interactions", f"{name}, ids in table order",
+          got, want, errs, nan_ok, pairs=(ids.shape[1], bot.shape[1]))
 
 
 def compare_bags(name, tables, ids, gen, errs, nan_ok=False):
@@ -369,6 +384,35 @@ def phase_kernels(dev) -> dict:
                             tables, ids, bot, shuffled(T, gen), errs)
             compare_grouped(f"B={B} Tf={T} Tb=0 L={L} d={d} {tag}", tables,
                             empty, ids, bot, shuffled(T, gen), errs)
+    # the cluster split (C = min(8, T) blocks a sample, T/C tables each):
+    # T < 8 (a bag split over warps; empty segments at L < 8 above), T not a
+    # multiple of C, B = 1; rows of 16-byte vectors not a power of two of
+    # them (d = 36 fp32: 9, d = 24 bf16: 3, d = 24 and 20 fp32: 6 and 5),
+    # and rows not whole 16-byte vectors (d = 30 fp32; d = 36, 30 and 20
+    # bf16), which take the scalar path
+    for B, T, L, d, R in ((1, 37, 80, 32, 4096), (3, 3, 80, 32, 4096),
+                          (2, 100, 80, 32, 512),
+                          (8, 40, 80, 36, 4096), (8, 40, 80, 24, 4096),
+                          (6, 37, 7, 30, 512), (4, 5, 9, 20, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            tables, ids, bot = draw_case(B, T, L, d, R, dtype, gen, dev)
+            name = f"B={B} T={T} L={L} d={d} R={R} {tag}"
+            compare(name, tables, ids, bot, errs)
+            compare_grouped(f"{name} Tf={T // 3}", tables[:T // 3],
+                            tables[T // 3:], ids, bot, shuffled(T, gen),
+                            errs)
+    # tables 4 (fp32) and 2 (bf16) bytes off 16-byte alignment: the scalar
+    # path at d = 32
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.empty((1 + 8 * 512 * 32,), device=dev).uniform_(
+            -0.05, 0.05, generator=gen).to(dtype)
+        tables = buf[1:].view(8, 512, 32)
+        _, ids, bot = draw_case(4, 8, 16, 32, 512, dtype, gen, dev, tables)
+        name = f"tables {buf.element_size()} bytes off 16-byte alignment"
+        compare(name, tables, ids, bot, errs)
+        compare_grouped(name, tables[:3], tables[3:], ids, bot,
+                        shuffled(8, gen), errs)
     tables, ids, bot = draw_case(16, 8, 4, 32, 128, torch.float32, gen, dev)
     ids[:] = ids[:, :, :1]                       # one row, L times a bag
     compare("repeated ids", tables, ids, bot, errs)
@@ -1303,6 +1347,29 @@ def sdpa_attention(q, k, v, causal, window):
         attn_mask=ok, enable_gqa=True).transpose(1, 2)
 
 
+def sdpa_attention_expanded(q, k, v, causal, window):
+    """The library yardstick where ``sdpa_attention`` does not fit (T = S
+    = 32,768: enable_gqa with a mask takes the math path, whose Hq x T x S
+    fp32 scores are 137 GB): K and V repeated to the query heads, then one
+    F.scaled_dot_product_attention with the boolean mask on the
+    memory-efficient backend. Timed here, never called by the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    T, S = q.shape[1], k.shape[1]
+    G = q.shape[2] // k.shape[2]
+    t = torch.arange(T, device=q.device)[:, None]
+    s = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= s <= t
+    if window is not None:
+        ok &= t - s < window
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.repeat_interleave(G, 2).transpose(1, 2),
+            v.repeat_interleave(G, 2).transpose(1, 2),
+            attn_mask=ok).transpose(1, 2)
+
+
 def sdpa_decode(q, k_cache, v_cache, lengths):
     """The decode yardstick: one query token, the lengths as a mask."""
     S = k_cache.shape[1]
@@ -1371,12 +1438,20 @@ def phase_api_attention(dev):
                     torch.cat([ref.flash_decode_ref(
                         dq[b:b + 1], kc[b:b + 1], vc[b:b + 1],
                         lens[b:b + 1]) for b in picks]), errs)
+    lib = sdpa_attention_expanded(q, k, v, True, win)
+    close_attention("flash_attention", f"T=S={T} library yardstick, "
+                    f"{len(rows)} sampled rows by hand",
+                    torch.stack([lib[b, t, h] for b, t, h in rows]),
+                    rows_by_hand(q, k, v, rows, win).bfloat16(), {})
+    del lib
     times = {"flash_attention": {}, "flash_decode": {}}
     times["flash_attention"][PREFILL_T] = report_time(
         "flash_attention", f"B=1 T=S={T} Hq={Hq} Hkv={Hkv} hd={hd} causal "
         f"window={win} bf16 (prefill_32k, batch cut from 32)",
         kernel_ms(lambda _: attention_kernel(q, k, v, causal=True, window=win),
-                1, iters=3), None, None,
+                1, iters=3), None,
+        time_ms(lambda _: sdpa_attention_expanded(q, k, v, True, win), 1,
+                iters=3),
         [attention_bound(q, k, True, win)])
     times["flash_decode"][DECODE_B] = report_time(
         "flash_decode", f"B={DECODE_B} S={DECODE_S} Hq={Hq} Hkv={Hkv} "

@@ -1,1 +1,2 @@
-from repro_torch.data.recsys import make_recsys_batch  # noqa: F401
+from repro_torch.data.recsys import (  # noqa: F401
+    RecSysBatch, make_recsys_batch, recsys_batch_iterator)

@@ -17,7 +17,7 @@ uniforms, it gives the reference's ids.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -100,3 +100,15 @@ def make_recsys_batch(cfg: DLRMConfig, step: int, seed: int = 0,
     p = teacher_click_probs(cfg, dense, indices, seed)
     labels = torch.bernoulli(p, generator=g)
     return {"dense": dense, "indices": indices, "labels": labels}
+
+
+def recsys_batch_iterator(cfg: DLRMConfig, seed: int = 0, alpha: float = 0.0,
+                          start_step: int = 0,
+                          batch_size: Optional[int] = None,
+                          device: DeviceArg = None) -> Iterator[RecSysBatch]:
+    """Infinite deterministic stream of ``make_recsys_batch`` from
+    ``start_step`` on; a restart passes its checkpoint's step."""
+    step = start_step
+    while True:
+        yield make_recsys_batch(cfg, step, seed, alpha, batch_size, device)
+        step += 1

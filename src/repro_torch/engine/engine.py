@@ -43,6 +43,8 @@ PlanArg = Union[None, str, ShardingPlan]
 # The reference's default row-wise wire mode. It enters the depth model
 # only for row-wise sharding, which comes with ROADMAP A6.
 _ROW_WISE_EXCHANGE = "partial_pool"
+# The reference's default mesh axes of the embedding distribution.
+_AXIS = ("data", "model")
 
 
 class Engine:
@@ -75,9 +77,11 @@ class Engine:
     device         : None (the CUDA device; raises without one) or an
                      explicit device such as "cpu".
     verbose        : print the plan summary when a plan is built.
-    model_axis, dp_axes, host_capacity_mb, compress_grads : the
-                     reference's multi-device and host-tier options; only
-                     their single-device defaults are accepted.
+    mesh, axis, model_axis, dp_axes, compress_grads : the reference's
+                     multi-device options (ROADMAP A6); host_capacity_mb,
+                     host_chunk_rows, host_hot_fraction, host_link,
+                     calibration, metrics : its host-tier options (A5).
+                     Only their single-device defaults are accepted.
     """
 
     def __init__(self, cfg, *, plan: PlanArg = "none",
@@ -87,23 +91,35 @@ class Engine:
                  alpha: float = 0.0, device: DeviceArg = None,
                  exchange: str = _ROW_WISE_EXCHANGE, optimizer: str = "sgd",
                  lr: float = 0.01, verbose: bool = False,
-                 model_axis: int = 1, dp_axes: Tuple[str, ...] = (),
-                 host_capacity_mb=None, compress_grads: bool = False):
+                 mesh=None, axis=_AXIS, model_axis: int = 1,
+                 dp_axes: Tuple[str, ...] = (),
+                 compress_grads: bool = False, host_capacity_mb=None,
+                 host_chunk_rows: Optional[int] = None,
+                 host_hot_fraction: float = 0.5, host_link=None,
+                 calibration=None, metrics=None):
         if not isinstance(cfg, DLRMConfig):
             raise NotImplementedError(
                 "LM configs are not ported yet (ROADMAP A8, LM substrate)")
         if isinstance(plan, str) and plan not in ("none", "auto"):
             raise ValueError(f"plan must be 'none', 'auto', or a "
                              f"ShardingPlan; got {plan!r}")
-        if host_capacity_mb is not None:
+        host = dict(host_capacity_mb=host_capacity_mb,
+                    host_chunk_rows=host_chunk_rows, host_link=host_link,
+                    calibration=calibration, metrics=metrics)
+        given = [k for k, v in host.items() if v is not None]
+        if host_hot_fraction != 0.5:
+            given.append("host_hot_fraction")
+        if given:
             raise NotImplementedError(
-                "host_capacity_mb (the host chunk tier) is not ported yet "
-                "(ROADMAP A5, host tier)")
-        if model_axis != 1 or dp_axes or compress_grads:
+                f"{', '.join(given)} (the host chunk tier) is not ported "
+                f"yet (ROADMAP A5, host tier)")
+        axis = (axis,) if isinstance(axis, str) else tuple(axis)
+        if (mesh is not None or axis != _AXIS or model_axis != 1 or dp_axes
+                or compress_grads):
             raise NotImplementedError(
-                "more than one device (model_axis > 1, dp_axes, "
-                "compress_grads) is not ported yet (ROADMAP A6, "
-                "distributed)")
+                "a mesh or more than one device (mesh, axis, model_axis > "
+                "1, dp_axes, compress_grads) is not ported yet (ROADMAP "
+                "A6, distributed)")
         if exchange != _ROW_WISE_EXCHANGE:
             raise NotImplementedError(
                 f"exchange={exchange!r} (the row-wise wire mode) is not "
@@ -208,14 +224,20 @@ class Engine:
         groups. The default is a fresh init from the engine seed on the
         device. ``warmup=True`` runs one untimed capacity batch first."""
         plan = self.build_plan("inference")
-        resolver = (self.make_depth_resolver("inference")
-                    if self.pipeline_depth is None else None)
+        if self.pipeline_depth is None:
+            depth, resolver = None, self.make_depth_resolver("inference")
+        else:
+            # a pinned depth, clamped to a divisor of the capacity batch
+            qs = int(query_size or self.cfg.batch_size)
+            depth = self.resolve_pipeline_depth("inference",
+                                                max_batch_queries * qs)
+            resolver = None
         sess = ServeSession(
             self.cfg, device=self.device, plan=plan,
             max_batch_queries=max_batch_queries, max_wait_ms=max_wait_ms,
             query_size=query_size, params=params, seed=self.seed,
             alpha=self.alpha, warmup=warmup,
-            pipeline_depth=self.pipeline_depth, depth_resolver=resolver,
+            pipeline_depth=depth, depth_resolver=resolver,
             fused=self.fused_serve != "off")
         # record the kernel selection the session resolved on the cached
         # plan report, so plan_report("inference") tells the whole story
@@ -225,15 +247,35 @@ class Engine:
                 rep, serve_kernel=sess.serve_kernel)
         return sess
 
+    def sharded_fleet(self, **kw):
+        """The reference's fleet of boards that together own one
+        partitioned table set: not ported yet."""
+        raise NotImplementedError(
+            "Engine.sharded_fleet (the sharded fabric fleet) is not ported "
+            "yet (ROADMAP A7, cluster/fabric/online)")
+
     def train_session(self, *, ckpt_dir: Optional[str] = None,
-                      ckpt_every: int = 50, ckpt_keep: int = 3
+                      ckpt_every: int = 50, ckpt_keep: int = 3,
+                      batch: Optional[int] = None,
+                      seq: Optional[int] = None,
+                      chain_prob: Optional[float] = None,
+                      schedule_steps: Optional[int] = None
                       ) -> TrainSession:
         """Build the training pipeline: the plan for "training" (profiled
         in that mode under plan="auto") -> train step at the resolved
         depth -> params and optimizer state on the engine's device ->
         TrainLoop with checkpoint-resume, keeping ``ckpt_keep``
         snapshots. A session's ``params`` serve through
-        ``serve_session(params=...)`` of the same engine."""
+        ``serve_session(params=...)`` of the same engine. ``batch``,
+        ``seq``, ``chain_prob`` and ``schedule_steps`` are the reference's
+        LM-session options, not ported yet."""
+        lm = dict(batch=batch, seq=seq, chain_prob=chain_prob,
+                  schedule_steps=schedule_steps)
+        given = [k for k, v in lm.items() if v is not None]
+        if given:
+            raise NotImplementedError(
+                f"{', '.join(given)} (LM training sessions) are not ported "
+                f"yet (ROADMAP A8, LM substrate)")
         plan = self.build_plan("training")
         depth = self.resolve_pipeline_depth("training", self.cfg.batch_size)
         return TrainSession(

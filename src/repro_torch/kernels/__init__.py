@@ -31,7 +31,9 @@ package's ``repro.kernels`` (the wrapper modules are named apart from
 the ops, so an op never shadows its module here). A ninth op,
 ``ops.embedding_bag_blocked`` (the bag read ``lblk`` aligned rows at a
 time, csrc/embedding_bag.cu's third entry point), is a function of the
-embedding-bag module in the JAX package and stays out of this list too.
+embedding-bag module in the JAX package and stays out of this list too,
+as does ``ops.fused_grouped_bag_interactions_unpermuted``, the grouped
+op on ids in original table order (the tiered exchange's serve path).
 The TPU kernels' tile arguments (``block_b``, ``block_q``, ``block_k``)
 are not carried over, since each kernel picks its own tiles.
 """

@@ -1,15 +1,20 @@
 """Wrappers of the hand-written Hopper kernel for the fused serve hot path.
 
 ``csrc/fused_serve.cu`` computes gather -> sum-pool -> pairwise
-interaction in one launch, one block per sample, the pooled accumulator
-kept in shared memory. Its three entry points replace three TPU kernels:
+interaction in one launch, the pooled accumulator kept in shared memory
+(the single-group and grouped entry points: a thread-block cluster a
+sample, the pairs read through distributed shared memory; the two-tier
+one: a block a sample). Its three entry
+points replace three TPU kernels:
 
   fused_bag_interactions          <- ``fused_bag_interactions_pallas``
                                      (``src/repro/kernels/fused_serve.py:134``)
   fused_cached_bag_interactions   <- ``fused_cached_bag_interactions_pallas``
                                      (``src/repro/kernels/fused_serve.py:181``)
   fused_grouped_bag_interactions  <- ``fused_grouped_bag_interactions_pallas``
-                                     (``src/repro/kernels/fused_serve.py:244``)
+                                     (``src/repro/kernels/fused_serve.py:244``),
+                                     and its form on ids in original table
+                                     order, ``..._unpermuted``
 
 The source file says what bounds them and how the design answers that.
 The wrappers take CUDA tensors only; ``kernels.ops`` routes CPU tensors
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -33,8 +39,8 @@ def _lib() -> ctypes.CDLL:
         p, i, p, p, p, i, i, ctypes.c_longlong, i, i, p]
     lib.fused_bag_interactions_launch.restype = i
     lib.fused_grouped_bag_interactions_launch.argtypes = [
-        p, p, i, ctypes.c_longlong, i, ctypes.c_longlong, i, p, p, p, p, i,
-        i, i, p]
+        p, p, i, ctypes.c_longlong, i, ctypes.c_longlong, i, p, p, p, p, p,
+        i, i, i, p]
     lib.fused_grouped_bag_interactions_launch.restype = i
     lib.fused_cached_bag_interactions_launch.argtypes = [
         p, p, i, ctypes.c_longlong, ctypes.c_longlong, p, p, p, p, i, i, i,
@@ -138,9 +144,65 @@ def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
 
 def grouped_pos(inv_perm, device: torch.device) -> torch.Tensor:
     """``pos = [0] + [1 + inv_perm]`` as an int32 tensor on ``device``:
-    the accumulator slot of each output feature (0 = bot_out)."""
+    the accumulator slot of each output feature (0 = bot_out), for ids in
+    concat(fast, bulk) order."""
     inv = torch.as_tensor(inv_perm, dtype=torch.int32).cpu()
     return torch.cat([torch.zeros(1, dtype=torch.int32), inv + 1]).to(device)
+
+
+def grouped_src(inv_perm, device: torch.device) -> torch.Tensor:
+    """``inv_perm`` as an int32 tensor on ``device``: for ids in original
+    table order, the concat(fast, bulk) position each table reads from
+    (fast table c if c < Tf, else bulk table c - Tf)."""
+    return torch.as_tensor(inv_perm, dtype=torch.int32).to(device)
+
+
+def _grouped(op: str, tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
+             indices: torch.Tensor, bot_out: torch.Tensor,
+             src: Optional[torch.Tensor],
+             pos: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check and launch the grouped entry point with one of ``src`` (ids
+    in original order) and ``pos`` (ids in concat order)."""
+    table_map = src if src is not None else pos
+    _build.check_inputs(
+        op, tables={"tables_fast": tables_fast, "tables_bulk": tables_bulk},
+        ids={"indices": indices, "src" if src is not None else "pos":
+             table_map},
+        fp32={"bot_out": bot_out})
+    if tables_fast.dim() != 3 or tables_bulk.dim() != 3 \
+            or indices.dim() != 3:
+        raise ValueError(f"{op}: want tables (T, R, d) and indices (B, T, L)")
+    Tf, Rf, d = tables_fast.shape
+    Tb, Rb, d2 = tables_bulk.shape
+    B, T, L = indices.shape
+    map_len = T if src is not None else T + 1
+    if (d2 != d or T != Tf + Tb or tuple(bot_out.shape) != (B, d)
+            or tuple(table_map.shape) != (map_len,) or min(B, T, L, d) < 1
+            or (Tf and Rf < 1) or (Tb and Rb < 1)):
+        raise ValueError(
+            f"{op}: shapes disagree or are empty: tables_fast "
+            f"{tuple(tables_fast.shape)}, tables_bulk "
+            f"{tuple(tables_bulk.shape)}, indices {tuple(indices.shape)}, "
+            f"bot_out {tuple(bot_out.shape)}, "
+            f"{'src' if src is not None else 'pos'} "
+            f"{tuple(table_map.shape)}")
+    out = torch.empty((B, d + (T + 1) * T // 2), device=bot_out.device,
+                      dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(bot_out.device):
+        stream = torch.cuda.current_stream(bot_out.device).cuda_stream
+        err = lib.fused_grouped_bag_interactions_launch(
+            tables_fast.data_ptr(), tables_bulk.data_ptr(),
+            int(tables_fast.dtype == torch.bfloat16), Rf, Tf, Rb, Tb,
+            None if src is None else src.data_ptr(),
+            None if pos is None else pos.data_ptr(), indices.data_ptr(),
+            bot_out.data_ptr(), out.data_ptr(), B, L, d, stream)
+    if err != 0:
+        msg = lib.fused_serve_error_string(err).decode()
+        raise RuntimeError(f"{op} launch failed (cudaError {err}: {msg}) at "
+                           f"B={B} Tf={Tf} Tb={Tb} Rf={Rf} Rb={Rb} L={L} "
+                           f"d={d} {tables_fast.dtype}")
+    return out
 
 
 def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
@@ -156,39 +218,17 @@ def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
 
     Launches on the current stream and does not synchronise. Raises if
     the kernel does not build or its launch is refused."""
-    op = "fused_grouped_bag_interactions"
-    _build.check_inputs(
-        op, tables={"tables_fast": tables_fast, "tables_bulk": tables_bulk},
-        ids={"indices_perm": indices_perm, "pos": pos},
-        fp32={"bot_out": bot_out})
-    if tables_fast.dim() != 3 or tables_bulk.dim() != 3 \
-            or indices_perm.dim() != 3:
-        raise ValueError(f"{op}: want tables (T, R, d) and indices (B, T, L)")
-    Tf, Rf, d = tables_fast.shape
-    Tb, Rb, d2 = tables_bulk.shape
-    B, T, L = indices_perm.shape
-    if (d2 != d or T != Tf + Tb or tuple(bot_out.shape) != (B, d)
-            or tuple(pos.shape) != (T + 1,) or min(B, T, L, d) < 1
-            or (Tf and Rf < 1) or (Tb and Rb < 1)):
-        raise ValueError(
-            f"{op}: shapes disagree or are empty: tables_fast "
-            f"{tuple(tables_fast.shape)}, tables_bulk "
-            f"{tuple(tables_bulk.shape)}, indices_perm "
-            f"{tuple(indices_perm.shape)}, bot_out {tuple(bot_out.shape)}, "
-            f"pos {tuple(pos.shape)}")
-    out = torch.empty((B, d + (T + 1) * T // 2), device=bot_out.device,
-                      dtype=torch.float32)
-    lib = _lib()
-    with torch.cuda.device(bot_out.device):
-        stream = torch.cuda.current_stream(bot_out.device).cuda_stream
-        err = lib.fused_grouped_bag_interactions_launch(
-            tables_fast.data_ptr(), tables_bulk.data_ptr(),
-            int(tables_fast.dtype == torch.bfloat16), Rf, Tf, Rb, Tb,
-            pos.data_ptr(), indices_perm.data_ptr(), bot_out.data_ptr(),
-            out.data_ptr(), B, L, d, stream)
-    if err != 0:
-        msg = lib.fused_serve_error_string(err).decode()
-        raise RuntimeError(f"{op} launch failed (cudaError {err}: {msg}) at "
-                           f"B={B} Tf={Tf} Tb={Tb} Rf={Rf} Rb={Rb} L={L} "
-                           f"d={d} {tables_fast.dtype}")
-    return out
+    return _grouped("fused_grouped_bag_interactions", tables_fast,
+                    tables_bulk, indices_perm, bot_out, None, pos)
+
+
+def fused_grouped_bag_interactions_unpermuted(
+        tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
+        indices: torch.Tensor, bot_out: torch.Tensor,
+        src: torch.Tensor) -> torch.Tensor:
+    """As ``fused_grouped_bag_interactions``, with indices (B, Tf+Tb, L)
+    int32 in the ORIGINAL table order and src (Tf+Tb) int32 from
+    ``grouped_src``: the kernel walks the tables in their own order, so
+    the ids are never permuted."""
+    return _grouped("fused_grouped_bag_interactions", tables_fast,
+                    tables_bulk, indices, bot_out, src, None)

@@ -153,6 +153,29 @@ def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
     raise _no_path("fused_grouped_bag_interactions", bot_out)
 
 
+def fused_grouped_bag_interactions_unpermuted(
+        tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
+        indices: torch.Tensor, bot_out: torch.Tensor, *, inv_perm,
+        src: torch.Tensor) -> torch.Tensor:
+    """``fused_grouped_bag_interactions`` on indices (B, Tf+Tb, L) in the
+    ORIGINAL table order: the kernel walks the tables in that order, so
+    the ids are never permuted; counted as a launch of
+    ``fused_grouped_bag_interactions``, the same kernel.
+
+    ``src`` is ``fused_serve.grouped_src(inv_perm, device)``, built once by
+    the caller (the tiered exchange); the card reads ``src``, the plain
+    version ``inv_perm``."""
+    if bot_out.device.type == "cuda":
+        out = fused_serve.fused_grouped_bag_interactions_unpermuted(
+            tables_fast, tables_bulk, indices, bot_out, src)
+        launch_counts["fused_grouped_bag_interactions"] += 1
+        return out
+    if bot_out.device.type == "cpu":
+        return ref.fused_grouped_bag_interactions_unpermuted_ref(
+            tables_fast, tables_bulk, indices, bot_out, inv_perm)
+    raise _no_path("fused_grouped_bag_interactions", bot_out)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:

@@ -130,6 +130,20 @@ def fused_grouped_bag_interactions_ref(tables_fast: torch.Tensor,
     return interactions_ref(bot_out, pooled.index_select(1, inv))
 
 
+def fused_grouped_bag_interactions_unpermuted_ref(
+        tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
+        indices: torch.Tensor, bot_out: torch.Tensor,
+        inv_perm) -> torch.Tensor:
+    """``fused_grouped_bag_interactions_ref`` on indices (B, Tf+Tb, L) in
+    the ORIGINAL table order: permuted to concat(fast, bulk) order first
+    (concat position k holds the table t with inv_perm[t] == k)."""
+    inv = torch.as_tensor(inv_perm, dtype=torch.long).cpu()
+    perm = torch.argsort(inv).to(indices.device)
+    return fused_grouped_bag_interactions_ref(
+        tables_fast, tables_bulk, indices.index_select(1, perm), bot_out,
+        inv_perm)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:

@@ -18,34 +18,63 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   # the reduced config on the CPU, through the plain PyTorch path
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+  # observability: a Chrome trace of the run's virtual clock, the metrics
+  # registry's snapshot and the SLA report as JSON
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --trace-out t.json --metrics-out m.json --report-json r.json
+
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
 it: a ranking of placements, not a prediction for the card. The
-reference launcher's host-tier, fleet and online flags are accepted so
-that they fail loudly: each names the ROADMAP item that will bring it.
+reference launcher's multi-device, host-tier, fleet and online flags are
+accepted so that they fail loudly: each names the ROADMAP item that will
+bring it.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Optional
 
 from repro_torch.configs.registry import get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
+from repro_torch.obs import Tracer, default_registry
 
+_A5, _A6, _A7 = ("A5, host tier", "A6, distributed",
+                 "A7, cluster/fabric/online")
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
-    "host_capacity_mb": "A5, host tier",
-    "replicas": "A7, cluster/fabric/online",
-    "fleet_mode": "A7, cluster/fabric/online",
-    "scenario": "A7, cluster/fabric/online",
-    "autoscale": "A7, cluster/fabric/online",
-    "record_trace": "A7, cluster/fabric/online",
-    "replay_trace": "A7, cluster/fabric/online",
-    "online_every_s": "A7, cluster/fabric/online",
-    "replay_deltas": "A7, cluster/fabric/online",
+    "model_axis": _A6, "exchange": _A6,
+    "host_capacity_mb": _A5, "host_chunk_rows": _A5,
+    "host_hot_fraction": _A5, "calibration": _A5,
+    **{dest: _A7 for dest in (
+        "replicas", "fleet_mode", "board_capacity_mb", "fabric_latency_us",
+        "fabric_gbs", "fabric_cache_rows", "scenario", "router", "autoscale",
+        "autoscale_sla_ms", "max_replicas", "min_replicas", "online_every_s",
+        "online_steps", "online_lr", "coherence", "record_deltas",
+        "replay_deltas", "record_trace", "replay_trace")},
 }
+
+
+def _emit_obs(args, tracer, report) -> None:
+    """Write the run's observability artifacts, as the reference launcher
+    does: the Chrome trace (--trace-out), the metrics registry's snapshot
+    (--metrics-out) and the SLA report (--report-json)."""
+    if args.trace_out and tracer is not None:
+        tracer.write(args.trace_out)
+        print(f"[serve] trace -> {args.trace_out} "
+              f"({tracer.n_events} events)")
+    if args.metrics_out:
+        snap = default_registry().snapshot()
+        with open(args.metrics_out, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"[serve] metrics -> {args.metrics_out} ({len(snap)} series)")
+    if args.report_json:
+        report.to_json(args.report_json)
+        print(f"[serve] report -> {args.report_json}")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -63,6 +92,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="micro-batch deadline: oldest query flushes by this")
     ap.add_argument("--sla-ms", type=float, default=50.0,
                     help="C_SLA (paper Eq. 1), milliseconds")
+    ap.add_argument("--sla-percentile", type=float, default=99.0,
+                    help="P of the SLA check PPF(D_Q, P) <= C_SLA")
     ap.add_argument("--fused-serve", choices=["auto", "off"], default="auto",
                     help="auto: serve through the fused gather->pool->"
                          "interaction kernel; off: the composed path")
@@ -81,19 +112,45 @@ def _parser() -> argparse.ArgumentParser:
                          "shape under the engine's plan)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's virtual-clock trace as Chrome "
+                         "trace-event JSON (open in Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry's snapshot as JSON")
+    ap.add_argument("--report-json", default=None, metavar="PATH",
+                    help="write the SLA report (with its per-query blame "
+                         "decomposition) as JSON")
     not_ported = ap.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
-    not_ported.add_argument("--host-capacity-mb", type=float, default=None)
-    not_ported.add_argument("--replicas", type=int, default=1)
-    not_ported.add_argument("--fleet-mode",
-                            choices=["replicated", "sharded"],
-                            default="replicated")
-    not_ported.add_argument("--scenario", default=None)
-    not_ported.add_argument("--autoscale", action="store_true")
-    not_ported.add_argument("--record-trace", default=None)
-    not_ported.add_argument("--replay-trace", default=None)
-    not_ported.add_argument("--online-every-s", type=float, default=0.0)
-    not_ported.add_argument("--replay-deltas", default=None)
+    add = not_ported.add_argument
+    add("--model-axis", type=int, default=1)
+    add("--exchange", default="partial_pool")
+    add("--host-capacity-mb", type=float, default=None)
+    add("--host-chunk-rows", type=int, default=None)
+    add("--host-hot-fraction", type=float, default=0.5)
+    add("--calibration", default=None)
+    add("--replicas", type=int, default=1)
+    add("--fleet-mode", choices=["replicated", "sharded"],
+        default="replicated")
+    add("--board-capacity-mb", type=float, default=None)
+    add("--fabric-latency-us", type=float, default=1.0)
+    add("--fabric-gbs", type=float, default=100.0)
+    add("--fabric-cache-rows", type=int, default=None)
+    add("--scenario", default=None)
+    add("--router", default="round_robin")
+    add("--autoscale", action="store_true")
+    add("--autoscale-sla-ms", type=float, default=None)
+    add("--max-replicas", type=int, default=4)
+    add("--min-replicas", type=int, default=1)
+    add("--online-every-s", type=float, default=0.0)
+    add("--online-steps", type=int, default=1)
+    add("--online-lr", type=float, default=0.05)
+    add("--coherence", choices=["invalidate", "propagate"],
+        default="propagate")
+    add("--record-deltas", default=None)
+    add("--replay-deltas", default=None)
+    add("--record-trace", default=None)
+    add("--replay-trace", default=None)
     return ap
 
 
@@ -125,13 +182,18 @@ def main(argv: Optional[list] = None) -> int:
           f"device={session.device} pipeline_depth="
           f"{session.depth_for_samples(capacity)} (capacity batch, "
           f"{capacity} samples)")
+    tracer = Tracer() if args.trace_out else None
     if args.qps > 0:
-        report = session.run_open_loop(args.queries, args.qps,
-                                       sla_ms=args.sla_ms)
+        report = session.run_open_loop(
+            args.queries, args.qps, sla_ms=args.sla_ms,
+            percentile=args.sla_percentile, tracer=tracer)
     else:
-        report = session.run_serial(args.queries, sla_ms=args.sla_ms)
+        report = session.run_serial(
+            args.queries, sla_ms=args.sla_ms,
+            percentile=args.sla_percentile, tracer=tracer)
     print(f"[serve] {cfg.name}:")
     print(report.summary())
+    _emit_obs(args, tracer, report)
     return 0 if report.ok else 1
 
 

@@ -22,7 +22,7 @@ from repro_torch.core import dlrm as dlrm_lib
 from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_serve import grouped_pos
+from repro_torch.kernels.fused_serve import grouped_src
 from repro_torch.parallel.plan import plan_table_groups
 
 Tables = Dict[str, torch.Tensor]
@@ -146,9 +146,11 @@ class PlannedTieredExchange(EmbeddingExchange):
 
     At n=1 both groups are table-wise local (the reference runs the bulk
     group row-wise over the mesh, which on one device is the whole table),
-    so the forward has no collectives and the fused kernel serves it. The
-    table permutation and the kernel's slot map are device tensors built
-    once here, on ``device`` (None = the card), not once per batch."""
+    so the forward has no collectives and the fused kernel serves it, on
+    the ids in their original table order. The table permutation and the
+    kernel's per-table map to (group, table of the group) are device
+    tensors built once here, on ``device`` (None = the card), not once per
+    batch."""
 
     table_keys = ("tables_fast", "tables_bulk")
     # samples a chunk of the bulk group's sparse update (the reference's
@@ -170,7 +172,7 @@ class PlannedTieredExchange(EmbeddingExchange):
         self._perm = torch.as_tensor(perm, dtype=torch.long, device=device)
         self._inv = torch.as_tensor(self.inv_perm, dtype=torch.long,
                                     device=device)
-        self._pos = grouped_pos(self.inv_perm, device)
+        self._src = grouped_src(self.inv_perm, device)
 
     def forward(self, tables, indices):
         """Pool each group, concatenate, restore the original table order
@@ -230,10 +232,9 @@ class PlannedTieredExchange(EmbeddingExchange):
         return True
 
     def fused_forward(self, tables, bot_out, indices):
-        return ops.fused_grouped_bag_interactions(
-            tables["tables_fast"], tables["tables_bulk"],
-            indices.index_select(1, self._perm), bot_out,
-            inv_perm=self.inv_perm, pos=self._pos)
+        return ops.fused_grouped_bag_interactions_unpermuted(
+            tables["tables_fast"], tables["tables_bulk"], indices, bot_out,
+            inv_perm=self.inv_perm, src=self._src)
 
 
 def _divisor_chunk(n: int, target: int) -> int:

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.data as jax_data
+import repro_torch.data as data
+from repro.configs.registry import get_dlrm as jax_get_dlrm
 from repro.data import recsys as jax_recsys
 from repro_torch.configs import get_dlrm
 from repro_torch.data import recsys
@@ -80,3 +83,33 @@ def test_teacher_follows_reference_formula():
     np.testing.assert_allclose(p.numpy(), 1 / (1 + np.exp(-2 * sig)),
                                rtol=1e-6)
     assert recsys.SPARSE_SIGNAL == jax_recsys.SPARSE_SIGNAL
+
+
+def test_data_exports_the_reference_names():
+    for name in ("RecSysBatch", "make_recsys_batch", "recsys_batch_iterator"):
+        assert getattr(data, name) is getattr(recsys, name)
+        assert hasattr(jax_data, name)
+    assert data.RecSysBatch.__origin__ is jax_data.RecSysBatch.__origin__
+
+
+@pytest.mark.parametrize("start", [0, 5])
+def test_batch_iterator_follows_the_reference(start):
+    """Both iterators yield ``make_recsys_batch`` at start_step, +1, ...:
+    the same keys, shapes and dtypes (through numpy), each batch its own
+    package's batch of that step."""
+    name = "dlrm-rm2-small-unsharded"
+    cfg, jcfg = get_dlrm(name).reduced(), jax_get_dlrm(name).reduced()
+    it = data.recsys_batch_iterator(cfg, 2, 1.05, start, 8, device="cpu")
+    jit = jax_data.recsys_batch_iterator(jcfg, 2, 1.05, start, 8)
+    for k in range(3):
+        got, want = next(it), next(jit)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            g, w = got[key].numpy(), np.asarray(want[key])
+            assert g.shape == w.shape and g.dtype == w.dtype, key
+        again = recsys.make_recsys_batch(cfg, start + k, 2, 1.05, 8, "cpu")
+        jagain = jax_recsys.make_recsys_batch(jcfg, start + k, 2, 1.05, 8)
+        for key in want:
+            assert torch.equal(got[key], again[key])
+            np.testing.assert_array_equal(np.asarray(want[key]),
+                                          np.asarray(jagain[key]))

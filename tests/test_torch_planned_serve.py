@@ -203,7 +203,74 @@ def test_tiered_exchange_defaults_to_the_card():
     cfg = get_dlrm(NAME).reduced()
     plan = _interleaved(ShardingPlan, TablePlacement, cfg.num_tables)
     exch = make_exchange(cfg, plan=plan, device="cpu")
-    assert exch._pos.tolist() == [0] + [1 + i for i in exch.inv_perm]
+    assert exch._src.tolist() == list(exch.inv_perm)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_exchange(cfg, plan=plan)
+
+
+def _tiered(T, fast):
+    """A ShardingPlan with table t in the fast tier iff fast(t)."""
+    return ShardingPlan(
+        config=NAME + "-smoke", mode="table_wise", exchange="unpooled",
+        qps_table_wise=1.0, qps_row_wise_unpooled=0.5,
+        qps_row_wise_partial=0.5,
+        placements=tuple(
+            TablePlacement(t, "fast", "table_wise", 0) if fast(t)
+            else TablePlacement(t, "bulk", "row_wise", None)
+            for t in range(T)),
+        hit_ratio=0.5)
+
+
+TIERS = {"identity": lambda T: lambda t: t < T // 2,
+         "interleaved": lambda T: lambda t: t % 3 != 1,
+         "no_fast": lambda T: lambda t: False,
+         "no_bulk": lambda T: lambda t: True}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiers", sorted(TIERS))
+def test_unpermuted_serve_form_equals_reference_shaped_op(tiers, dtype):
+    """The tiered exchange's fused forward reads the ids in their original
+    table order (``ops.fused_grouped_bag_interactions_unpermuted``); it
+    must equal the reference-shaped op on the permuted ids, the JAX
+    package's ``fused_grouped_bag_interactions_ref`` and the single-group
+    op on the tables in original order, at the reduced config's widths."""
+    from repro.kernels import ref as jax_ref
+    from repro_torch.kernels import fused_serve, ops, ref
+    from repro_torch.parallel import make_exchange
+    cfg = get_dlrm(NAME).reduced()
+    T, R, d, L = (cfg.num_tables, cfg.rows_per_table, cfg.embed_dim,
+                  cfg.lookups_per_table)
+    exch = make_exchange(cfg, plan=_tiered(T, TIERS[tiers](T)), device="cpu")
+    fast_ids, bulk_ids = exch.groups.fast_ids, exch.groups.bulk_ids
+    inv = exch.inv_perm
+    if tiers == "identity":
+        assert list(inv) == list(range(T))
+    rng = np.random.default_rng(sorted(TIERS).index(tiers))
+    B = 2 * cfg.batch_size
+    tables = rng.uniform(-1, 1, (T, R, d)).astype(np.float32)
+    ids = rng.integers(-R, R, (B, T, L)).astype(np.int32)
+    bot = rng.uniform(-1, 1, (B, d)).astype(np.float32)
+    perm = list(fast_ids) + list(bulk_ids)
+    tf = torch.from_numpy(tables[list(fast_ids)]).to(dtype)
+    tb = torch.from_numpy(tables[list(bulk_ids)]).to(dtype)
+    t_ids, t_bot = torch.from_numpy(ids), torch.from_numpy(bot)
+    ops.reset_launch_counts()
+    got = exch.fused_forward({"tables_fast": tf, "tables_bulk": tb}, t_bot,
+                             t_ids)
+    assert ops.launch_counts["fused_grouped_bag_interactions"] == 0
+    shaped = ops.fused_grouped_bag_interactions(
+        tf, tb, t_ids[:, perm], t_bot, inv_perm=inv,
+        pos=fused_serve.grouped_pos(inv, torch.device("cpu")))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jax_ref.fused_grouped_bag_interactions_ref(
+        jnp.asarray(tf.float().numpy(), jdt),
+        jnp.asarray(tb.float().numpy(), jdt), jnp.asarray(ids[:, perm]),
+        jnp.asarray(bot), tuple(inv))
+    stacked = ref.fused_bag_interactions_ref(
+        torch.from_numpy(tables).to(dtype), t_ids, t_bot)
+    assert got.shape == (B, d + (T + 1) * T // 2)
+    np.testing.assert_array_equal(got.numpy(), shaped.numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), stacked.numpy(), **TOL)

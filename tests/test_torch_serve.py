@@ -4,6 +4,7 @@ The JAX session's params go through numpy into the port's session on the
 CPU, and the same numpy queries go to both. Tolerance: fp32 allclose at
 rtol = atol = 1e-5 (tests/test_kernels.py).
 """
+import json
 import os
 import subprocess
 import sys
@@ -209,3 +210,114 @@ def test_launcher_flags_not_ported_fail_loudly(flag):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         serve.main(["--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_pinned_depth_is_clamped_as_the_reference(pair, depth):
+    """A pinned depth is clamped to a divisor of the capacity batch, as
+    the reference's ``resolve_pipeline_depth`` clamps it."""
+    jsess, sess = pair
+    for queries in (1, 2, 3, 4):
+        want = JaxEngine(jsess.cfg, pipeline_depth=depth).serve_session(
+            max_batch_queries=queries, params=jsess.params).pipeline_depth
+        got = Engine(sess.cfg, device="cpu", pipeline_depth=depth) \
+            .serve_session(max_batch_queries=queries,
+                           params=sess.params).pipeline_depth
+        assert got == want, (depth, queries)
+
+
+def test_launcher_serves_a_pinned_depth_that_needs_clamping():
+    proc = _launch("--device", "cpu", "--queries", "3", "--pipeline-depth",
+                   "3")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "pipeline_depth=2 (capacity batch, 64 samples)" in proc.stdout
+
+
+def _serve(capsys, *flags):
+    from repro_torch.launch import serve
+    rc = serve.main(["--smoke", "--device", "cpu", "--queries", "4",
+                     "--max-batch-queries", "2", *flags])
+    return rc, capsys.readouterr().out
+
+
+def test_launcher_sla_percentile(capsys):
+    rc, out = _serve(capsys, "--sla-percentile", "90")
+    assert rc == 0, out
+    assert "SLA check PPF(D_Q, 90)" in out
+
+
+def test_launcher_trace_out(capsys, tmp_path):
+    path = tmp_path / "trace.json"
+    rc, out = _serve(capsys, "--qps", "50", "--trace-out", str(path))
+    assert rc == 0, out
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name") == "serve_batch" for e in events)
+    assert f"trace -> {path}" in out
+
+
+def test_launcher_metrics_out(capsys, tmp_path):
+    path = tmp_path / "metrics.json"
+    rc, out = _serve(capsys, "--metrics-out", str(path))
+    assert rc == 0, out
+    snap = json.loads(path.read_text())
+    assert snap["flush_service_ms"]["count"] >= 4
+    assert f"metrics -> {path}" in out
+
+
+def test_launcher_report_json(capsys, tmp_path):
+    path = tmp_path / "report.json"
+    rc, out = _serve(capsys, "--sla-percentile", "95", "--report-json",
+                     str(path))
+    assert rc == 0, out
+    rep = json.loads(path.read_text())
+    assert rep["n_queries"] == 4 and rep["percentile"] == 95.0
+    assert rep["mode"] == "serial" and rep["ok"] is True
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--model-axis", "2"], "A6"), (["--exchange", "unpooled"], "A6"),
+    (["--host-chunk-rows", "64"], "A5"),
+    (["--host-hot-fraction", "0.25"], "A5"),
+    (["--calibration", "calib.json"], "A5"),
+    (["--router", "p2c"], "A7"), (["--min-replicas", "2"], "A7"),
+    (["--max-replicas", "8"], "A7"), (["--autoscale-sla-ms", "10"], "A7"),
+    (["--board-capacity-mb", "1"], "A7"), (["--fabric-gbs", "50"], "A7"),
+    (["--fabric-latency-us", "2"], "A7"),
+    (["--fabric-cache-rows", "0"], "A7"),
+    (["--coherence", "invalidate"], "A7"), (["--online-lr", "0.1"], "A7"),
+    (["--online-steps", "2"], "A7"),
+    (["--record-deltas", "deltas.jsonl"], "A7")])
+def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        serve.main(["--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"mesh": object()}, "A6"), ({"axis": "model"}, "A6"),
+    ({"host_chunk_rows": 64}, "A5"), ({"host_hot_fraction": 0.25}, "A5"),
+    ({"host_link": object()}, "A5"), ({"calibration": "calib.json"}, "A5"),
+    ({"metrics": object()}, "A5")])
+def test_reference_engine_options_not_ported_name_their_item(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
+
+
+def test_reference_axis_default_is_accepted():
+    Engine(get_dlrm(NAME).reduced(), device="cpu", axis=["data", "model"],
+           host_hot_fraction=0.5)
+
+
+def test_sharded_fleet_names_its_item():
+    eng = Engine(get_dlrm(NAME).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        eng.sharded_fleet(n_boards=2)
+
+
+@pytest.mark.parametrize("kw", [{"batch": 8}, {"seq": 128},
+                                {"chain_prob": 0.8},
+                                {"schedule_steps": 100}])
+def test_lm_train_session_options_name_their_item(kw):
+    eng = Engine(get_dlrm(NAME).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        eng.train_session(**kw)
