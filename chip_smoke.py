@@ -88,7 +88,24 @@ Phases; any failure exits non-zero:
      diverges as the reference does: its first step held as in 8, then
      the step where its loss first is not finite recorded;
   9. checkpoint at step 4 -> resume -> 4 more steps equals an
-     uninterrupted 8-step run, on the card at ``cfg.reduced()`` size.
+     uninterrupted 8-step run, on the card at ``cfg.reduced()`` size;
+ 10. the host chunk tier (last, once every earlier tensor is freed):
+     ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
+     40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
+     x 128 fp32, 85.9 GB of tables in host memory; rows cut only if host
+     memory cannot hold them + 10 GB), a 20 GiB hot slab and a 20 GiB
+     chunk cache on the card: 16 queries at depth 1, then queries at a
+     pinned depth of 4 until the cache has evicted and faulted chunks in
+     again, each printed (service, modeled stall, measured transfer and
+     rate, faults, evictions, writebacks, bytes, chunk hit ratio); three
+     queries' probs held against the per-table plain path; the cached-bag
+     pool mode on the same store (probs against the paired mode, row 6's
+     launches = the sum of resolved depths, row 6 timed at this shape);
+     SGD training at depth 1 on the same store, its first faulting step
+     held against a compact model; at the reduced config, host-tier
+     serving and SGD training bitwise equal to plan="none" (under
+     deterministic algorithms); the host link measured and served
+     through ``calibration=``. Peak device memory and host RSS printed.
 
 Each phase prints its peak device memory. The line before the last holds
 the per-kernel JSON (every TPU kernel of the JAX package, all nine
@@ -201,6 +218,27 @@ TRAIN_STEPS = 20
 # test_adagrad_at_the_launchers_lr_diverges_as_the_reference, at the full
 # widths with the rows cut). Its first step is held like phase 8's.
 DIVERGING_RUN = ("auto", "adagrad", TIERED_ALPHA, 0.01)
+# Phase 10, the host chunk tier: RM2-large (40 x 4,194,304 x 128 fp32,
+# 85.9 GB of tables, more than the card) served and trained from host
+# memory under a 40 GiB device budget (a 20 GiB hot slab + a 20 GiB chunk
+# cache). MemAvailable must hold the tables + HOST_SPARE_BYTES, or the
+# rows are cut. HOST_SPARE_BYTES is what the phase adds to the process
+# beyond the tables and its own RSS at the start: the manager's host
+# mirrors (pos, hot map, chunk arrays: ~2.4 GB at full width), the pinned
+# staging rings and the link probe (~0.8 GB), the CPU side of 10c's
+# compact-model check and the query streams; the phase checks its own
+# peak against it. The perf model's 4-row chunks give the cache
+# 10,485,760 slots, which the stream fills in ~47 queries of 600 samples:
+# the depth-4 run serves until chunks come back after their eviction, at
+# most HOST_MAX_QUERIES. Training (10c) draws its batches from another
+# seed than serving, so its steps fault (and evict) on the full cache.
+HOST_CONFIG = "dlrm-rm2-large-unsharded"
+HOST_BUDGET_MB = 40960
+HOST_SPARE_BYTES = 12 * 10**9
+HOST_MAX_QUERIES = 64
+HOST_TRAIN_LR = 0.01
+HOST_TRAIN_SEED = 1
+HOST_TRAIN_STEPS = 4
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
 
@@ -1811,6 +1849,8 @@ def table_views(sess):
     from repro_torch.parallel import plan_table_groups
     p, o = sess.params, sess.opt_state
     T = sess.cfg.num_tables
+    if "hs_hot" in p:                      # the host tier: SGD only
+        return [HostTableView(sess.exchange_inst, t) for t in range(T)], None
     if "tables" in p:
         tabs = [p["tables"][t] for t in range(T)]
         accs = None if o is None else [o["table_acc"][t] for t in range(T)]
@@ -2221,6 +2261,458 @@ def phase_resume(dev):
     peak_line("phase 9 (checkpoint -> resume on the card)")
 
 
+# --------------------------------------------------------------- phase 10
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def rss_bytes():
+    """The process's host resident set now (/proc/self/statm) and at its
+    peak (getrusage's ru_maxrss), in bytes."""
+    import resource
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rss_line(label: str) -> str:
+    rss, peak = rss_bytes()
+    return (f"[host] {label}: RSS {rss / GB:.2f} GB, peak RSS "
+            f"{peak / GB:.2f} GB, MemAvailable {mem_available() / GB:.2f} GB")
+
+
+def host_tier_config():
+    """RM2-large at full width, unless host memory cannot hold its tables
+    plus HOST_SPARE_BYTES: then its rows are cut to the largest power of
+    two that fits (T, L, d and B never), and the cut tables must still
+    exceed the device budget, so the tier still spills."""
+    from repro_torch.configs import get_dlrm
+    cfg = get_dlrm(HOST_CONFIG)
+    avail = mem_available()
+    row_bytes = cfg.num_tables * cfg.embed_dim * 4
+    rows = cfg.rows_per_table
+    while rows * row_bytes + HOST_SPARE_BYTES > avail:
+        rows //= 2
+    budget = HOST_BUDGET_MB * 2**20
+    print(f"[host] MemAvailable {avail / GB:.2f} GB; {cfg.name} tables "
+          f"{cfg.rows_per_table * row_bytes / GB:.2f} GB + "
+          f"{HOST_SPARE_BYTES / GB:.0f} GB spare "
+          f"{'fit' if rows == cfg.rows_per_table else 'do not fit'}")
+    if rows != cfg.rows_per_table:
+        print(f"[host] rows cut to {rows} a table "
+              f"({rows * row_bytes / GB:.2f} GB of tables)")
+        cfg = dataclasses.replace(cfg, rows_per_table=rows)
+    check(rows * row_bytes > budget, f"the tables ({rows * row_bytes / GB:.2f}"
+          f" GB) fit the device budget: the tier would not spill")
+    return cfg
+
+
+class HostTableView:
+    """Table t of a host-tier session as its step sees it: each row from
+    the hot slab, the chunk cache or the host store, whichever holds its
+    live value. Indexed like a (R, d) tensor on the card."""
+
+    def __init__(self, ex, t):
+        self.ex, self.t = ex, t
+        self.shape = (ex.mgr.R, ex.mgr.d)
+        self.is_cuda = True
+
+    def __getitem__(self, rows):
+        ex, t, dev = self.ex, self.t, self.ex.device
+        one = isinstance(rows, int)
+        r = torch.as_tensor(rows).reshape(-1).long().cpu()
+        slot = torch.from_numpy(ex._hot_map_np[t])[r]
+        pos = torch.from_numpy(ex.mgr.host_pos[t])[r]
+        out = ex.mgr.host[t][r].to(dev)
+        hot = slot >= 0
+        cached = ~hot & (pos < ex.mgr.pad_pos)
+        out[hot.to(dev)] = ex.hot_slab[t][slot[hot].to(dev)]
+        out[cached.to(dev)] = ex.mgr.device_cache[pos[cached].long().to(dev)]
+        return out[0] if one else out
+
+
+def serve_host_queries(sess, steps, label, stop=None):
+    """Serve one query a flush for each stream step of ``steps`` (until
+    ``stop()`` says so) and print, for each, the service time, the
+    modeled stall, the measured transfer and its rate, and the chunk
+    accounting. Returns {step: (query, probs, modeled stall)}."""
+    ex = sess.exchange
+    out, services = {}, []
+    for step in steps:
+        q = sess._make_query(step)
+        probs, service, stall = sess._execute([q])
+        plan = ex._last_plan
+        st = plan.stats
+        need = sum(s.needed_chunks for s in st)
+        hits = sum(s.hit_chunks for s in st)
+        bytes_in = sum(s.bytes_in for s in st)
+        copy_s = plan.copy_s
+        rate = f"{bytes_in / copy_s / GB:.2f} GB/s" if copy_s else "-"
+        print(f"[host] {label} step {step}: service "
+              f"{service * 1e3:.3f} ms (modeled stall {stall * 1e3:.3f} "
+              f"ms), transfer {copy_s * 1e3:.3f} ms at {rate}, faults "
+              f"{plan.faulted_chunks}, evictions "
+              f"{sum(s.evicted_chunks for s in st)}, writebacks "
+              f"{sum(s.writebacks for s in st)}, bytes moved "
+              f"{plan.bytes_moved}, chunk hit ratio "
+              f"{hits / need if need else 1.0:.4f}")
+        check(np.isfinite(probs).all() and (probs > 0).all()
+              and (probs < 1).all(), f"{label} step {step}: probs not "
+                                     f"finite in (0, 1)")
+        out[step] = (q, probs, stall)
+        services.append(service)
+        if stop is not None and stop():
+            break
+    ms = np.array(services) * 1e3
+    print(f"[host] {label}: {len(ms)} queries, service p50 "
+          f"{np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms")
+    return out
+
+
+def per_table_reference(mgr, mlps, served, dev):
+    """The probs of ``served`` ({step: (query, probs)}) by the plain path,
+    a table at a time: each table copied from the host store to the card,
+    its plain embedding_bag, then the plain MLPs. Prints and checks
+    allclose at RTOL/ATOL."""
+    from repro_torch.core import dlrm
+    T, R, d = mgr.T, mgr.R, mgr.d
+    table = torch.empty((R, d), device=dev)
+    pooled = {s: torch.empty((q["indices"].shape[0], T, d), device=dev)
+              for s, (q, *_) in served.items()}
+    t0 = time.perf_counter()
+    for t in range(T):
+        mgr.rows_to_device(np.arange(t * R, (t + 1) * R), table)
+        for s, (q, *_) in served.items():
+            pooled[s][:, t] = dlrm.embedding_bag(
+                table[None], q["indices"][:, t:t + 1])[:, 0]
+    for s, (q, probs, _) in served.items():
+        want = torch.sigmoid(dlrm.dlrm_forward_from_pooled(
+            mlps, q["dense"], pooled[s])).cpu().numpy()
+        err = float(np.abs(probs[0] - want).max())
+        ok = np.allclose(probs[0], want, rtol=RTOL, atol=ATOL)
+        print(f"[host] step {s}: served probs vs the per-table plain path "
+              f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"host-tier probs of step {s} disagree with the "
+                  f"per-table plain path")
+    print(f"[host] per-table reference over {T} tables in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def measure_host_link(dev):
+    """This card's host link as a calibration artifact: the event time of
+    a one-row (512 B) pinned copy to the card, and the rate of 256 MiB
+    pinned copies."""
+    def per_copy_ms(n_floats, iters):
+        src = torch.empty(n_floats, pin_memory=True)
+        dst = torch.empty(n_floats, device=dev)
+        return time_ms(lambda _: dst.copy_(src, non_blocking=True), 1,
+                       iters)
+
+    lat_ms = per_copy_ms(128, 200)
+    big = 64 * 2**20
+    bw = big * 4 / (per_copy_ms(big, 10) / 1e3)
+    link = {"latency_us": lat_ms * 1e3, "bandwidth_gbs": bw / 1e9}
+    print(f"[host] measured host link: {link['latency_us']:.3f} us a "
+          f"512 B pinned copy, {link['bandwidth_gbs']:.2f} GB/s pinned "
+          f"256 MiB copies")
+    return {"host_link": link}
+
+
+def host_bitwise(dev, calib):
+    """At RM2-large's reduced config, over its budget: host-tier serving
+    equals Engine(plan="none") at the same depth, bitwise, cold and warm;
+    host-tier SGD training (6 steps), flushed back, equals plan-none
+    training: tables, MLPs, losses. Run under deterministic algorithms,
+    so both sides scatter in the order of their ids (CUDA's index_add_
+    otherwise adds repeated rows in no fixed order). The plan-none
+    session serves the composed path, as the host tier does. Also serves
+    one session with the measured ``calib``. Batch 8, as the reference's
+    own tests of these contracts (``tests/test_hoststore.py``)."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine import Engine
+    cfg = dataclasses.replace(get_dlrm(HOST_CONFIG).reduced(), batch_size=8)
+    cap = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim * 4 / 1.6
+    cap_mb = cap / 2**20
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = Engine(cfg, pipeline_depth=4, fused_serve="off") \
+            .serve_session(max_batch_queries=1)
+        host = Engine(cfg, pipeline_depth=4, alpha=TIERED_ALPHA,
+                      host_capacity_mb=cap_mb, host_hot_fraction=0.25,
+                      host_chunk_rows=1).serve_session(max_batch_queries=1)
+        queries = [ref._make_query(s, alpha=TIERED_ALPHA) for s in range(24)]
+        faults = []
+        for _ in ("cold", "warm"):
+            before = host.exchange.mgr.stats.faulted_chunks
+            for q in queries:
+                check(np.array_equal(ref._execute([q])[0],
+                                     host._execute([q])[0]),
+                      "host-tier serving differs from plan=none")
+            faults.append(host.exchange.mgr.stats.faulted_chunks - before)
+        st = host.exchange.mgr.stats
+        check(st.evicted_chunks > 0 and faults[1] < faults[0],
+              f"the reduced host tier did not turn over: {st}")
+        print(f"[host] reduced {cfg.name}: host-tier serving == plan=none "
+              f"at depth 4, bitwise, 24 queries cold ({faults[0]} faults) "
+              f"and warm ({faults[1]}), {st.evicted_chunks} evictions")
+        kw = dict(lr=0.05, pipeline_depth=4)
+        plain = Engine(cfg, **kw).train_session()
+        rep_p = plain.run(6)
+        tier = Engine(cfg, host_capacity_mb=cap_mb, host_hot_fraction=0.25,
+                      host_chunk_rows=2, **kw).train_session()
+        rep_t = tier.run(6)
+        flushed = tier.exchange_inst.flush_host_weights()
+        check(torch.equal(flushed, plain.params["tables"].cpu()),
+              "host-tier training's flushed tables differ from plan=none")
+        check(all(torch.equal(a[n], b[n]) for k in ("bot_mlp", "top_mlp")
+                  for a, b in zip(plain.params[k], tier.params[k])
+                  for n in a), "host-tier training's MLPs differ")
+        lp = [float(h["loss"]) for h in rep_p.history]
+        check(lp == [float(h["loss"]) for h in rep_t.history],
+              "host-tier training's losses differ")
+        wb = tier.exchange_inst.mgr.stats.writebacks
+        check(wb > 0, "the reduced training wrote nothing back")
+        print(f"[host] reduced {cfg.name}: host-tier SGD (6 steps, depth "
+              f"4, {wb} writebacks) + flush == plan=none training, "
+              f"bitwise: tables, MLPs, losses {lp[0]:.6f} .. {lp[-1]:.6f}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cal = Engine(cfg, alpha=TIERED_ALPHA, host_capacity_mb=cap_mb,
+                 host_hot_fraction=0.25, host_chunk_rows=1,
+                 calibration=calib).serve_session(max_batch_queries=1)
+    link = cal.exchange.link
+    check(abs(link.bandwidth / 1e9 - calib["host_link"]["bandwidth_gbs"])
+          < 1e-6, "the calibrated session does not use the measured link")
+    cal._execute([cal._make_query(5)])
+    print(f"[host] Engine(calibration=measured): {cal.exchange.summary()}")
+
+
+def host_serve_paired(cfg, dev, card):
+    """Phase 10a: ``Engine(cfg, host_capacity_mb=HOST_BUDGET_MB,
+    alpha=1.05).serve_session()`` draws the store and serves 16 queries
+    at depth 1, then a depth-4 session on the same exchange serves until
+    chunks fault in again after their eviction; three queries are held
+    against the per-table plain path. Returns both sessions and the
+    checked queries ({step: (query, probs, modeled stall)})."""
+    from repro_torch.engine import Engine, ServeSession
+    from repro_torch.kernels import ops
+
+    table_bytes = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim * 4
+    budget = HOST_BUDGET_MB * 2**20
+    t0 = time.perf_counter()
+    eng = Engine(cfg, host_capacity_mb=HOST_BUDGET_MB, alpha=TIERED_ALPHA)
+    sess = eng.serve_session(max_batch_queries=1)
+    torch.cuda.synchronize()
+    ex = sess.exchange
+    store = ex.mgr.host
+    print(f"[host] {cfg.name}: T={cfg.num_tables} R={cfg.rows_per_table} "
+          f"d={cfg.embed_dim} L={cfg.lookups_per_table} B={cfg.batch_size}, "
+          f"tables {table_bytes / GB:.2f} GB fp32 in host memory, device "
+          f"budget {budget / GB:.2f} GB; session built in "
+          f"{time.perf_counter() - t0:.2f} s; {ex.summary()}; device "
+          f"allocated {torch.cuda.memory_allocated() / GB:.2f} GB")
+    print(rss_line("store drawn"))
+    check(sess.serve_kernel == "composed" and sess.pipeline_depth == 1,
+          f"the host tier serves {sess.serve_kernel} at depth "
+          f"{sess.pipeline_depth}")
+    check(store.device.type == "cpu" and tuple(store.shape) == (
+        cfg.num_tables, cfg.rows_per_table, cfg.embed_dim),
+          "the tables are not one store in host memory")
+    check(torch.cuda.memory_allocated() < budget + 2 * GB,
+          "the device holds more than the budget + 2 GB")
+    # note evictions, and chunks faulted in again after theirs
+    evicted = np.zeros(ex.mgr.n_chunks, bool)
+    refaulted = [0]
+    evict, load = ex.mgr._evict, ex.mgr._load
+
+    def note_evict(slots, st):
+        evicted[ex.mgr._slot_chunk[slots]] = True
+        return evict(slots, st)
+
+    def note_load(chunks, slots):
+        refaulted[0] += int(evicted[chunks].sum())
+        return load(chunks, slots)
+
+    ex.mgr._evict, ex.mgr._load = note_evict, note_load
+    ops.reset_launch_counts()
+    served = serve_host_queries(sess, range(16), "depth 1")
+    sess4 = ServeSession(cfg, device=dev, exchange=ex, pipeline_depth=4,
+                         max_batch_queries=1, params=sess.params,
+                         alpha=TIERED_ALPHA)
+    check(sess4.depth_for_samples(cfg.batch_size) == 4, "depth 4 not pinned")
+    served4 = serve_host_queries(
+        sess4, range(16, 16 + HOST_MAX_QUERIES), "depth 4 (150 samples a "
+        "micro-batch)", stop=lambda: refaulted[0] > 0)
+    del ex.mgr._evict, ex.mgr._load          # the manager's own again
+    launches = dict(ops.launch_counts)
+    st = ex.mgr.stats
+    print(f"[host] paired serving: {st.ensures} ensures, "
+          f"{st.faulted_chunks} faults, {st.evicted_chunks} evictions, "
+          f"{refaulted[0]} chunks faulted again after their eviction, "
+          f"{st.writebacks} writebacks, {st.bytes_in / GB:.2f} GB in, "
+          f"transfers {st.copy_s:.2f} s ({st.bytes_in / st.copy_s / GB:.2f}"
+          f" GB/s); chunk hit ratio {st.chunk_hit_ratio:.4f}; kernel "
+          f"launches {sum(launches.values())} ({card})")
+    check(st.evicted_chunks > 0 and refaulted[0] > 0,
+          "the chunk cache did not evict and fault again")
+    check(not any(launches.values()), f"paired serving launched {launches}")
+    last = max(served4)
+    checked = {4: served[4], 15: served[15], last: served4[last]}
+    per_table_reference(ex.mgr, sess.params, checked, dev)
+    return (sess, sess4), checked
+
+
+def host_serve_cached_bag(sessions, checked, calib, errs, dev):
+    """Phase 10b: 10a's sessions and exchange switched to the cached-bag
+    pool mode, the link the measured one: the checked queries' probs
+    against the paired mode's and row 6's launches against the resolved
+    depths; then row 6 at this shape (its hot slab past 2**31 elements)
+    held against its plain version and timed."""
+    import types
+
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import embedding_bags, ops, ref
+
+    ex = sessions[0].exchange
+    ex.pool_mode = "cached_bag"
+    ex.link = perf_model.host_link(calibration=calib)
+    ops.reset_launch_counts()
+    first, *rest, last = sorted(checked)
+    depths = []
+    for sess, steps in zip(sessions, ((first, *rest), (last,))):
+        for s in steps:
+            q, paired, _ = checked[s]
+            probs, service, stall = sess._execute([q])
+            depths.append(sess.depth_for_samples(q["indices"].shape[0]))
+            err = float(np.abs(probs - paired).max())
+            ok = np.allclose(probs, paired, rtol=RTOL, atol=ATOL)
+            print(f"[host] cached_bag step {s} (depth {depths[-1]}): probs "
+                  f"vs paired max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; service {service * 1e3:.3f} "
+                  f"ms; modeled stall {stall * 1e3:.3f} ms on the measured "
+                  f"link ({ex._last_plan.faulted_chunks} faults)")
+            check(ok, f"cached_bag probs of step {s} differ from paired")
+    launches = ops.launch_counts["cached_embedding_bag"]
+    print(f"[host] cached_bag: {launches} cached_embedding_bag launches "
+          f"over flushes at depths {depths} (sum {sum(depths)}); "
+          f"{ex.summary()}")
+    check(launches == sum(depths),
+          "cached-bag launches differ from the sum of resolved depths")
+    # row 6 at this shape: the hot slab and one query's bulk slab, made
+    # of its cache rows as the pool mode makes it
+    params = sessions[0].params
+    idx = checked[first][0]["indices"]
+    ex.begin_batch(params, idx, 1)
+    _, (fast_idx, pos) = ex.forward(params, idx)
+    fast = params["hs_hot"]
+    B, T, L = fast_idx.shape
+    d = fast.shape[2]
+    fake = params["hs_cache"][pos.long()].transpose(0, 1).reshape(
+        T, B * L, d)
+    fake_idx = (torch.arange(B, device=dev)[:, None, None] * L
+                + torch.arange(L, device=dev)[None, None, :]).to(
+        torch.int32).expand(B, T, L).contiguous()
+    hit = fast_idx < fast.shape[1] - 1
+    t_of = torch.arange(T, device=dev)[None, :, None].expand(B, T, L)
+    far = int(((t_of[hit] * fast.shape[1] + fast_idx[hit].long()) * d).max())
+    check(far >= 2**31, f"the query's hot rows stop at element {far}, "
+                        f"short of 2**31")
+    close("cached_embedding_bag",
+          f"host tier B={B} T={T} L={L} d={d}, hot slab S+1="
+          f"{fast.shape[1]} ({fast.numel():.3e} elements, rows read to "
+          f"element {far:.3e}), bulk slab the query's {B * L} cache rows a "
+          f"table, {int(hit.sum())} of {hit.numel()} lookups hot",
+          embedding_bags.cached_embedding_bag(fast, fake, fast_idx, fake_idx),
+          ref.cached_embedding_bag_ref(fast, fake, fast_idx, fake_idx), errs)
+    row6 = time_b6(types.SimpleNamespace(fast=fast, bulk=fake),
+                   [(fast_idx, fake_idx)])
+    ex.pool_mode = "paired"
+    return {"launches": launches, "time": row6}
+
+
+def host_train(cfg, ex, dev, card):
+    """Phase 10c: SGD at depth 1 on the same exchange, its cache full of
+    10a's chunks, over another seed's stream: the first step held
+    against a compact model of its touched rows, then more steps."""
+    from repro_torch.engine import TrainSession
+    from repro_torch.kernels import ops
+
+    sess = TrainSession(cfg, device=dev, exchange=ex, lr=HOST_TRAIN_LR,
+                        alpha=TIERED_ALPHA, seed=HOST_TRAIN_SEED)
+    st = ex.mgr.stats
+    before = (st.faulted_chunks, st.evicted_chunks, st.writebacks)
+    ops.reset_launch_counts()
+    loss0, _ = check_one_step(sess, "sgd", HOST_TRAIN_LR, HOST_TRAIN_SEED,
+                              TIERED_ALPHA, dev)
+    check(st.faulted_chunks > before[0] and st.evicted_chunks > before[1],
+          "the checked step did not fault and evict")
+    rep = sess.run(HOST_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    losses = [loss0] + [h["loss"] for h in rep.history]
+    dts = np.array([h["dt"] for h in rep.history]) * 1e3
+    check(all(math.isfinite(x) for x in losses),
+          f"a host-tier training loss is not finite: {losses}")
+    check(not any(launches.values()),
+          f"host-tier training launched {launches}")
+    print(f"[host] training, SGD at depth 1, lr {HOST_TRAIN_LR}, seed "
+          f"{HOST_TRAIN_SEED}: step 0 checked, then {len(dts)} steps p50 "
+          f"{np.percentile(dts, 50):.3f} ms p99 {np.percentile(dts, 99):.3f} "
+          f"ms; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{st.faulted_chunks - before[0]} faults, "
+          f"{st.evicted_chunks - before[1]} evictions, "
+          f"{st.writebacks - before[2]} writebacks, "
+          f"{len(ex.mgr.dirty_chunks)} dirty chunks; kernel launches "
+          f"{sum(launches.values())} ({card})")
+
+
+def phase_host_tier(dev, card):
+    """Phase 10: the host chunk tier at full width on RM2-large (see the
+    module doc) on one exchange and its one store in host memory: 10a
+    paired serving, 10b the cached-bag pool mode, 10c SGD training; then
+    the reduced config's bitwise contracts. Returns row 6's host-tier
+    launches and time, and its errors."""
+    import gc
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = host_tier_config()
+    rss0, _ = rss_bytes()
+    print(rss_line("phase 10 begins"))
+    errs = {}
+    sessions, checked = host_serve_paired(cfg, dev, card)
+    calib = measure_host_link(dev)
+    row6 = host_serve_cached_bag(sessions, checked, calib, errs, dev)
+    ex = sessions[0].exchange
+    del sessions, checked
+    host_train(cfg, ex, dev, card)
+    tables = ex.mgr.host.numel() * ex.mgr.host.element_size()
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, peak = rss_bytes()
+    print(rss_line("after the host tier at full width"))
+    print(f"[host] peak RSS {peak / GB:.2f} GB: {rss0 / GB:.2f} GB held "
+          f"before the phase, {tables / GB:.2f} GB of tables and "
+          f"{(peak - rss0 - tables) / GB:.2f} GB more (HOST_SPARE_BYTES "
+          f"{HOST_SPARE_BYTES / GB:.0f} GB)")
+    check(peak - rss0 - tables <= HOST_SPARE_BYTES,
+          "phase 10 grew past the tables + HOST_SPARE_BYTES that "
+          "host_tier_config allows for")
+    check(torch.cuda.memory_allocated() < 1 * GB,
+          f"{torch.cuda.memory_allocated() / GB:.2f} GB still allocated on "
+          f"the card after the host tier")
+    host_bitwise(dev, calib)
+    print(f"[host] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    peak_line("phase 10 (host chunk tier)")
+    return row6, {k: max(v) for k, v in errs.items()}
+
+
 def leaves(tree, path=""):
     if tree is None:
         return []
@@ -2299,8 +2791,9 @@ def main() -> int:
     train = phase_train(dev, card)
     first_bad = phase_train_diverging(dev, card)
     phase_resume(dev)
+    host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
-                 blocked[2]):
+                 blocked[2], host_errs):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -2337,7 +2830,10 @@ def main() -> int:
          **({"max_bf16_block_err_over_bound":
              errs[(name, "bf16_blocks")]}
             if (name, "bf16_blocks") in errs else {}),
-         **measured[name]}
+         **measured[name],
+         **({"host_tier_launches": host["launches"],
+             "host_tier": host["time"]}
+            if name == "cached_embedding_bag" else {})}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

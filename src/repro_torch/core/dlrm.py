@@ -45,17 +45,36 @@ def _mlp_init(dims: Tuple[int, ...], d_in: int,
     return layers
 
 
-def init_dlrm(cfg: DLRMConfig, generator: torch.Generator) -> Params:
-    """Random params on ``generator.device``, with the reference's uniform
-    bounds. The tables are drawn in place on that device: at full width
-    they are never built on the host."""
+def init_mlps(cfg: DLRMConfig, generator: torch.Generator) -> Params:
+    """The bottom and top MLPs of ``init_dlrm``: its first draws from
+    ``generator``, so the tables follow them in the stream."""
     return {
         "bot_mlp": _mlp_init(cfg.bot_mlp_dims, cfg.num_dense, generator),
         "top_mlp": _mlp_init(cfg.top_mlp, cfg.top_mlp_in, generator),
-        "tables": _uniform(
-            (cfg.num_tables, cfg.rows_per_table, cfg.embed_dim),
-            math.sqrt(1.0 / cfg.rows_per_table), generator),
     }
+
+
+def draw_table(out: torch.Tensor, cfg: DLRMConfig,
+               generator: torch.Generator) -> torch.Tensor:
+    """Draw one (R, d) table of ``init_dlrm`` into ``out`` (on the
+    generator's device), in place: the next table of the stream."""
+    bound = math.sqrt(1.0 / cfg.rows_per_table)
+    return out.uniform_(-bound, bound, generator=generator)
+
+
+def init_dlrm(cfg: DLRMConfig, generator: torch.Generator) -> Params:
+    """Random params on ``generator.device``, with the reference's uniform
+    bounds: the MLPs, then the tables one table at a time, in place on
+    that device (at full width they are never built on the host). A
+    caller who draws the same tables one by one elsewhere (the host tier,
+    ``hoststore.draw_host_tables``) gets them bitwise."""
+    params = init_mlps(cfg, generator)
+    tables = torch.empty((cfg.num_tables, cfg.rows_per_table, cfg.embed_dim),
+                         device=generator.device)
+    for t in range(cfg.num_tables):
+        draw_table(tables[t], cfg, generator)
+    params["tables"] = tables
+    return params
 
 
 def mlp_forward(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,

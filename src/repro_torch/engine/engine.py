@@ -20,6 +20,15 @@ is the planner's, resolved per flushed batch shape, unless
 ``pipeline_depth`` pins it; a train step's is the planner's training
 depth under plan="auto", else 1.
 
+``host_capacity_mb`` turns the host chunk tier on (``repro_torch.
+hoststore``): the full weights stay in host memory, a hot slab and a
+chunk cache fill the device budget, and chunks swap in ahead of every
+step, so a model bigger than the card serves and trains:
+
+    eng = Engine(get_dlrm("dlrm-rm2-large-unsharded"),
+                 host_capacity_mb=40960, alpha=1.05)
+    serve = eng.serve_session(max_batch_queries=1)
+
 The port serves and trains DLRM on one device. Options of the reference's
 ``Engine`` that it does not carry raise ``NotImplementedError`` naming
 the ROADMAP item that brings them.
@@ -30,12 +39,14 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
 from repro_torch.configs.base import DLRMConfig
+from repro_torch.core import perf_model
 from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.planning import (PlanReport, build_auto_plan,
                                          resolve_depth_for_batch)
 from repro_torch.engine.serving import ServeSession
-from repro_torch.engine.training import TrainSession
+from repro_torch.engine.training import HOST_TIER_CKPT, TrainSession
+from repro_torch.hoststore import HostTieredExchange, build_host_exchange
 from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
 PlanArg = Union[None, str, ShardingPlan]
@@ -77,11 +88,27 @@ class Engine:
     device         : None (the CUDA device; raises without one) or an
                      explicit device such as "cpu".
     verbose        : print the plan summary when a plan is built.
+    host_capacity_mb : device-memory budget (MiB) that turns the HOST
+                     CHUNK TIER on: sessions serve and train through a
+                     fresh ``hoststore.HostTieredExchange`` each -- full
+                     weights in host memory, a hot slab + a device chunk
+                     cache inside the budget, chunks swapping in ahead of
+                     every step. Models BIGGER than the budget (and the
+                     card) serve fine; that is the point. plan="none" and
+                     SGD only; serving runs at depth 1 unless
+                     ``pipeline_depth`` pins another.
+    host_chunk_rows : rows per swap chunk (default: the perf model's pick).
+    host_hot_fraction : budget share of the hot slab (default 0.5).
+    host_link      : a ``perf_model.host_link(...)`` Interconnect pricing
+                     the swaps (default: PCIe 4.0 x16, 16 GB/s).
+    calibration    : path to (or dict of) a calibration artifact
+                     (``core.calibration``) whose "host_link" entry
+                     overrides the link's terms.
+    metrics        : the MetricsRegistry the host tier's swap tallies go
+                     to (None: the process-wide ``default_registry()``).
     mesh, axis, model_axis, dp_axes, compress_grads : the reference's
-                     multi-device options (ROADMAP A6); host_capacity_mb,
-                     host_chunk_rows, host_hot_fraction, host_link,
-                     calibration, metrics : its host-tier options (A5).
-                     Only their single-device defaults are accepted.
+                     multi-device options (ROADMAP A6). Only their
+                     single-device defaults are accepted.
     """
 
     def __init__(self, cfg, *, plan: PlanArg = "none",
@@ -103,16 +130,19 @@ class Engine:
         if isinstance(plan, str) and plan not in ("none", "auto"):
             raise ValueError(f"plan must be 'none', 'auto', or a "
                              f"ShardingPlan; got {plan!r}")
-        host = dict(host_capacity_mb=host_capacity_mb,
-                    host_chunk_rows=host_chunk_rows, host_link=host_link,
-                    calibration=calibration, metrics=metrics)
-        given = [k for k, v in host.items() if v is not None]
-        if host_hot_fraction != 0.5:
-            given.append("host_hot_fraction")
-        if given:
-            raise NotImplementedError(
-                f"{', '.join(given)} (the host chunk tier) is not ported "
-                f"yet (ROADMAP A5, host tier)")
+        if host_capacity_mb is not None:
+            if host_capacity_mb <= 0:
+                raise ValueError(f"host_capacity_mb must be > 0, got "
+                                 f"{host_capacity_mb}")
+            if plan not in (None, "none"):
+                raise ValueError(
+                    "host_capacity_mb composes the memory tiers itself "
+                    "(hot slab + chunk cache + host store); it requires "
+                    "plan='none'")
+            if optimizer != "sgd":
+                raise ValueError(
+                    "host-tier training is SGD-only (AdaGrad accumulators "
+                    "would need their own chunked host tier)")
         axis = (axis,) if isinstance(axis, str) else tuple(axis)
         if (mesh is not None or axis != _AXIS or model_axis != 1 or dp_axes
                 or compress_grads):
@@ -148,6 +178,12 @@ class Engine:
         self.lr = lr
         self.verbose = verbose
         self.device = resolve_device(device)
+        self.host_capacity_mb = host_capacity_mb
+        self.host_chunk_rows = host_chunk_rows
+        self.host_hot_fraction = host_hot_fraction
+        self.host_link = host_link
+        self.calibration = calibration
+        self.metrics = metrics
         self._plan_arg: PlanArg = plan
         self._reports: Dict[str, PlanReport] = {}
 
@@ -170,6 +206,22 @@ class Engine:
             if self.verbose:
                 print(report.summary())
         return self._reports[mode].plan
+
+    def _host_exchange(self) -> HostTieredExchange:
+        """A FRESH host-tier exchange (each session owns its own host
+        weights, hot slab and chunk-cache state), sized for the engine's
+        ``host_capacity_mb`` on its device."""
+        link = self.host_link
+        if link is None:
+            link = perf_model.host_link(calibration=self.calibration)
+        return build_host_exchange(
+            self.cfg,
+            device_capacity_bytes=int(self.host_capacity_mb * 2**20),
+            alpha=self.alpha, seed=self.seed,
+            chunk_rows=self.host_chunk_rows,
+            hot_fraction=self.host_hot_fraction, link=link,
+            profile_batches=max(1, self.profile_batches),
+            metrics=self.metrics, device=self.device)
 
     def plan_report(self, mode: str = "inference") -> Optional[PlanReport]:
         """The cached profile/prediction report for an auto plan (None when
@@ -222,9 +274,17 @@ class Engine:
         table groups under a placed plan, else used without a copy) or
         plan-split ``{"tables_fast", "tables_bulk"}`` matching this plan's
         groups. The default is a fresh init from the engine seed on the
-        device. ``warmup=True`` runs one untimed capacity batch first."""
+        device. Under the host tier the session serves a fresh host
+        exchange's tables and takes only the MLPs of ``params``.
+        ``warmup=True`` runs one untimed capacity batch first."""
         plan = self.build_plan("inference")
-        if self.pipeline_depth is None:
+        exchange = (self._host_exchange() if self.host_capacity_mb is not None
+                    else None)
+        if exchange is not None and self.pipeline_depth is None:
+            # host tier without a pinned depth: depth 1 (synchronous
+            # faulting); pin pipeline_depth to overlap the swaps
+            depth, resolver = 1, None
+        elif self.pipeline_depth is None:
             depth, resolver = None, self.make_depth_resolver("inference")
         else:
             # a pinned depth, clamped to a divisor of the capacity batch
@@ -238,7 +298,7 @@ class Engine:
             query_size=query_size, params=params, seed=self.seed,
             alpha=self.alpha, warmup=warmup,
             pipeline_depth=depth, depth_resolver=resolver,
-            fused=self.fused_serve != "off")
+            fused=self.fused_serve != "off", exchange=exchange)
         # record the kernel selection the session resolved on the cached
         # plan report, so plan_report("inference") tells the whole story
         rep = self._reports.get("inference")
@@ -276,10 +336,14 @@ class Engine:
             raise NotImplementedError(
                 f"{', '.join(given)} (LM training sessions) are not ported "
                 f"yet (ROADMAP A8, LM substrate)")
+        if ckpt_dir and self.host_capacity_mb is not None:
+            raise NotImplementedError(HOST_TIER_CKPT)
         plan = self.build_plan("training")
         depth = self.resolve_pipeline_depth("training", self.cfg.batch_size)
         return TrainSession(
             self.cfg, device=self.device, plan=plan,
             optimizer=self.optimizer, lr=self.lr, seed=self.seed,
             alpha=self.alpha, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-            ckpt_keep=ckpt_keep, pipeline_depth=depth)
+            ckpt_keep=ckpt_keep, pipeline_depth=depth,
+            exchange=(self._host_exchange()
+                      if self.host_capacity_mb is not None else None))

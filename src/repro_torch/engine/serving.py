@@ -34,7 +34,7 @@ from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.obs.trace import Tracer
 from repro_torch.parallel.build import build_step, shard_dlrm_params
-from repro_torch.parallel.exchange import make_exchange
+from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import plan_table_groups
 
 Query = Dict[str, torch.Tensor]
@@ -112,6 +112,14 @@ class ServeSession:
     resolves the depth PER BATCH SHAPE through ``depth_resolver`` (the
     planner's executed-schedule sweep at the flushed sample count, which
     ``Engine`` wires), falling back to 1.
+
+    ``exchange``: an ``EmbeddingExchange`` instance to serve through (the
+    host tier, which ``Engine(host_capacity_mb=...)`` builds); None makes
+    the plan's or the config's own. Its session hooks bracket every
+    execution: ``begin_batch`` faults the batch's cold chunks in before
+    the step, and its modeled swap stall is added to the measured service
+    time. An exchange that holds the tables itself takes only the MLPs of
+    ``params`` (a fresh init draws no tables).
     """
 
     def __init__(self, cfg: DLRMConfig, *, device: DeviceArg = None,
@@ -123,7 +131,8 @@ class ServeSession:
                  warmup: bool = False,
                  pipeline_depth: Optional[int] = 1,
                  depth_resolver: Optional[Callable[[int], int]] = None,
-                 fused: bool = True):
+                 fused: bool = True,
+                 exchange: Optional[EmbeddingExchange] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = plan
@@ -145,7 +154,8 @@ class ServeSession:
                 f"capacity batch {self.max_batch_queries}x{self.query_size} "
                 f"samples must divide into pipeline_depth={fixed} "
                 f"micro-batches")
-        self._exch = make_exchange(cfg, plan=plan, device=self.device)
+        self._exch = (exchange if exchange is not None else
+                      make_exchange(cfg, plan=plan, device=self.device))
         self._fused = bool(fused)
         self.serve_kernel = ("fused" if self._fused
                              and self._exch.supports_fused_forward()
@@ -154,10 +164,13 @@ class ServeSession:
         self._depth_by_samples: Dict[int, int] = {}
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = dlrm_lib.init_dlrm(cfg, gen)
-        else:
+            params = (dlrm_lib.init_mlps(cfg, gen) if self._exch.holds_tables
+                      else dlrm_lib.init_dlrm(cfg, gen))
+        elif not self._exch.holds_tables:
             self._check_params(params)
-        self.params = shard_dlrm_params(params, plan)
+        prepared = self._exch.init_session_params(params)
+        self.params = (prepared if prepared is not None
+                       else shard_dlrm_params(params, plan))
         self.batcher = MicroBatcher(self.max_batch_queries, max_wait_ms / 1e3)
         self._qid = 0
         self._warm = False
@@ -166,6 +179,11 @@ class ServeSession:
         # first use; warmup=True pays it here, for the real-time submit path.
         if warmup:
             self._ensure_warm()
+
+    @property
+    def exchange(self) -> EmbeddingExchange:
+        """The exchange the session serves through."""
+        return self._exch
 
     def _check_params(self, params) -> None:
         keys = ("tables",) if "tables" in params else ("tables_fast",
@@ -250,19 +268,29 @@ class ServeSession:
     # -- execution ---------------------------------------------------------
     def serve_direct(self, dense: torch.Tensor,
                      indices: torch.Tensor) -> np.ndarray:
-        """Run the serve step on one exact batch (no batching or padding)."""
-        probs = self._step_for(dense.shape[0])(
-            self.params, dense.to(self.device, torch.float32),
-            indices.to(self.device, torch.int32))
+        """Run the serve step on one exact batch (no batching or padding),
+        after the exchange's ``begin_batch`` (the host tier faults the
+        batch's chunks in)."""
+        b = dense.shape[0]
+        idx = indices.to(self.device, torch.int32)
+        self.params, _ = self._exch.begin_batch(self.params, idx,
+                                                self.depth_for_samples(b))
+        probs = self._step_for(b)(
+            self.params, dense.to(self.device, torch.float32), idx)
         return probs.cpu().numpy()
 
-    def _execute(self, queries: List[Query]) -> Tuple[np.ndarray, float]:
+    def _execute(self, queries: List[Query]
+                 ) -> Tuple[np.ndarray, float, float]:
         """Concatenate + pad queries, run the step, split results back.
 
-        Returns (probs (n_queries, query_size), service_seconds), where the
-        service time runs from the step's launch to the end of the
-        device's work. Padding replicates query 0; padded outputs are
-        discarded."""
+        Returns (probs (n_queries, query_size), service_seconds,
+        swap_stall_seconds). The service time runs from the step's launch
+        to the end of the device's work, plus the exchange's modeled swap
+        stall (the batch's full occupancy of the executor); the stall is
+        also returned on its own, so attribution can split compute from
+        exposed host-tier swap time. The exchange's ``begin_batch`` faults
+        the batch's chunks in before the clock starts. Padding replicates
+        query 0; padded outputs are discarded."""
         k = self._padded_count(len(queries))
         self._ensure_warm()
         parts = list(queries) + [queries[0]] * (k - len(queries))
@@ -271,13 +299,17 @@ class ServeSession:
         idx = torch.cat([p["indices"] for p in parts]).to(self.device,
                                                          torch.int32)
         step = self._step_for(k * self.query_size)
+        self.params, plan = self._exch.begin_batch(
+            self.params, idx, self.depth_for_samples(k * self.query_size))
         self._sync()
         t0 = time.perf_counter()
         probs = step(self.params, dense, idx)
         self._sync()
         service = time.perf_counter() - t0
+        # the modeled swap stall composes with the MEASURED compute time
+        stall = self._exch.stall_seconds(plan, service)
         out = probs.cpu().numpy().reshape(k, self.query_size)
-        return out[:len(queries)], service
+        return out[:len(queries)], service + stall, stall
 
     # -- request path ------------------------------------------------------
     def validate_query(self, query: Query) -> None:
@@ -340,7 +372,7 @@ class ServeSession:
         futs = self.batcher.drain()
         if not futs:
             return []
-        probs, _ = self._execute([f.query for f in futs])
+        probs, _, _ = self._execute([f.query for f in futs])
         t = now_s() if now is None else now
         for f, p in zip(futs, probs):
             f.complete(p, t)
@@ -384,21 +416,27 @@ class ServeSession:
         self._ensure_warm()
         if tracer is not None:
             tracer.track(1, 0, process="board0", thread="serve")
+            tracer.track(1, 3, thread="host-swap")
         log = AttributionLog()
         metrics = metrics if metrics is not None else default_registry()
         lat_ms: List[float] = []
         clock = 0.0            # back-to-back virtual timeline
         for q in range(n_queries):
-            _, service = self._execute([self._make_query(q, seed, alpha)])
+            _, service, stall = self._execute(
+                [self._make_query(q, seed, alpha)])
             done = clock + service
             metrics.counter("queries_served", rid=0).inc()
             metrics.histogram("flush_service_ms").observe(service * 1e3)
             # closed loop: arrival == dispatch, so latency is pure service
             log.record_batch([(q, clock)], rid=0, trigger=clock, start=clock,
-                             done=done, compute_s=service)
+                             done=done, compute_s=service - stall,
+                             swap_stall_s=stall)
             if tracer is not None:
                 tracer.span("serve_batch", "service", clock, done,
                             pid=1, tid=0, args={"queries": 1, "qid": q})
+                if stall > 0:
+                    tracer.span("swap_stall", "hoststore", done - stall,
+                                done, pid=1, tid=3)
             clock = done
             lat_ms.append(service * 1e3)
         busy_s = sum(lat_ms) / 1e3
@@ -430,6 +468,7 @@ class ServeSession:
         if tracer is not None:
             tracer.track(1, 0, process="board0", thread="serve")
             tracer.track(1, 1, thread="batching")
+            tracer.track(1, 3, thread="host-swap")
         log = AttributionLog()
         metrics = metrics if metrics is not None else default_registry()
         lat_ms: List[float] = []
@@ -452,7 +491,7 @@ class ServeSession:
                 trigger = batcher.deadline()   # oldest query timed out
                 reason = "deadline"
             futs = batcher.drain()
-            probs, service = self._execute([f.query for f in futs])
+            probs, service, stall = self._execute([f.query for f in futs])
             start = max(trigger, free)
             done = start + service
             free = done
@@ -462,7 +501,7 @@ class ServeSession:
             metrics.histogram("flush_service_ms").observe(service * 1e3)
             log.record_batch([(f.qid, f.arrival) for f in futs], rid=0,
                              trigger=trigger, start=start, done=done,
-                             compute_s=service)
+                             compute_s=service - stall, swap_stall_s=stall)
             if tracer is not None:
                 tracer.span("batch_fill", "batching", futs[0].arrival,
                             trigger, pid=1, tid=1,
@@ -476,6 +515,9 @@ class ServeSession:
                             pid=1, tid=0,
                             args={"queries": len(futs),
                                   "service_ms": service * 1e3})
+                if stall > 0:
+                    tracer.span("swap_stall", "hoststore", done - stall,
+                                done, pid=1, tid=3)
             for f, p in zip(futs, probs):
                 f.complete(p, done)
                 lat_ms.append(f.latency_ms)

@@ -22,7 +22,7 @@ from repro_torch.data.recsys import make_recsys_batch
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.parallel.build import build_step, init_dlrm_opt_state
-from repro_torch.parallel.exchange import make_exchange
+from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import (plan_table_groups,
                                        split_dlrm_params_in_place)
 from repro_torch.runtime import TrainLoop
@@ -86,6 +86,13 @@ class _SessionBase:
             history=hist)
 
 
+HOST_TIER_CKPT = (
+    "checkpoints of a host-tier session are not ported yet (ROADMAP A5): "
+    "the store's written-back rows and the chunk manager's residency, "
+    "dirty and pos bookkeeping are not in them, so a resumed session "
+    "would train on a fresh store")
+
+
 class TrainSession(_SessionBase):
     """DLRM training on one device: the plan-executing step + TrainLoop.
 
@@ -95,7 +102,15 @@ class TrainSession(_SessionBase):
     Batch ``s`` is ``make_recsys_batch(cfg, s, seed, alpha)`` drawn on the
     device, so a resumed session sees the stream the uninterrupted one
     would. The step updates the tables in place; ``params`` and
-    ``opt_state`` are the live tensors."""
+    ``opt_state`` are the live tensors.
+
+    ``exchange``: an ``EmbeddingExchange`` instance to train through (the
+    host tier, SGD only, which ``Engine(host_capacity_mb=...)`` builds;
+    kept as ``exchange_inst``); None makes the plan's or the config's
+    own. Its ``begin_batch(train=True)`` and ``end_batch`` bracket every
+    step: the batch's cold chunks fault in (and are marked dirty) before
+    the step. An exchange that holds the tables itself gets a fresh init
+    of the MLPs only, and takes no ``ckpt_dir``."""
 
     workload = "dlrm"
 
@@ -104,27 +119,41 @@ class TrainSession(_SessionBase):
                  optimizer: str = "sgd", lr: float = 0.01, seed: int = 0,
                  alpha: float = 0.0, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 50, ckpt_keep: int = 3,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1,
+                 exchange: Optional[EmbeddingExchange] = None):
         self.device = resolve_device(device)
         self.plan = plan
         self.pipeline_depth = int(pipeline_depth)
+        exch = self.exchange_inst = (
+            exchange if exchange is not None
+            else make_exchange(cfg, plan=plan, device=self.device))
+        if ckpt_dir and exch.holds_tables:
+            raise NotImplementedError(HOST_TIER_CKPT)
         step_fn = build_step(
-            cfg, mode="train",
-            exchange=make_exchange(cfg, plan=plan, device=self.device),
+            cfg, mode="train", exchange=exch,
             pipeline_depth=self.pipeline_depth, optimizer=optimizer, lr=lr)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = dlrm_lib.init_dlrm(cfg, gen)
-        if plan is not None and plan.placements:
+        params = (dlrm_lib.init_mlps(cfg, gen) if exch.holds_tables
+                  else dlrm_lib.init_dlrm(cfg, gen))
+        prepared = exch.init_session_params(params)
+        if prepared is not None:
+            params = prepared
+        elif plan is not None and plan.placements:
             # the session owns this init: split it without a second copy
             params = split_dlrm_params_in_place(
                 params, plan_table_groups(plan, 1))
         opt_state = init_dlrm_opt_state(cfg, optimizer, plan,
                                         device=self.device)
+        depth = self.pipeline_depth
 
         def loop_step(state, batch):
-            p, o, loss = step_fn(*state, batch["dense"], batch["indices"],
+            p, o = state
+            # the exchange faults this batch's cold chunks in (and marks
+            # them dirty) before the step
+            p, _ = exch.begin_batch(p, batch["indices"], depth, train=True)
+            p, o, loss = step_fn(p, o, batch["dense"], batch["indices"],
                                  batch["labels"])
-            return (p, o), {"loss": loss}
+            return (exch.end_batch(p), o), {"loss": loss}
 
         device = self.device      # the loop must not hold the session
 

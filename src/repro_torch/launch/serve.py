@@ -18,6 +18,11 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   # the reduced config on the CPU, through the plain PyTorch path
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+  # the host chunk tier: full weights in host memory, a hot slab and a
+  # chunk cache inside a device budget smaller than the tables
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --host-capacity-mb 0.1 --alpha 1.05
+
   # observability: a Chrome trace of the run's virtual clock, the metrics
   # registry's snapshot and the SLA report as JSON
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -26,9 +31,8 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
 it: a ranking of placements, not a prediction for the card. The
-reference launcher's multi-device, host-tier, fleet and online flags are
-accepted so that they fail loudly: each names the ROADMAP item that will
-bring it.
+reference launcher's multi-device, fleet and online flags are accepted so
+that they fail loudly: each names the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -42,13 +46,10 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 from repro_torch.obs import Tracer, default_registry
 
-_A5, _A6, _A7 = ("A5, host tier", "A6, distributed",
-                 "A7, cluster/fabric/online")
+_A6, _A7 = "A6, distributed", "A7, cluster/fabric/online"
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
     "model_axis": _A6, "exchange": _A6,
-    "host_capacity_mb": _A5, "host_chunk_rows": _A5,
-    "host_hot_fraction": _A5, "calibration": _A5,
     **{dest: _A7 for dest in (
         "replicas", "fleet_mode", "board_capacity_mb", "fabric_latency_us",
         "fabric_gbs", "fabric_cache_rows", "scenario", "router", "autoscale",
@@ -110,6 +111,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="micro-batch pipeline depth inside the serve step; "
                          "0 = auto (planner-resolved per flushed batch "
                          "shape under the engine's plan)")
+    ap.add_argument("--host-capacity-mb", type=float, default=None,
+                    help="device-memory budget (MiB) that turns the host "
+                         "chunk tier on: the tables stay in host memory "
+                         "and serve through a hot slab + chunk cache "
+                         "inside the budget (repro_torch.hoststore)")
+    ap.add_argument("--host-chunk-rows", type=int, default=None,
+                    help="rows per host-tier chunk (default: perf-model "
+                         "pick)")
+    ap.add_argument("--host-hot-fraction", type=float, default=0.5,
+                    help="share of the budget for the HBM hot slab")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="measured-hardware calibration JSON "
+                         "(repro_torch.core.calibration): host_link "
+                         "overrides the host tier's link terms")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -125,10 +140,6 @@ def _parser() -> argparse.ArgumentParser:
     add = not_ported.add_argument
     add("--model-axis", type=int, default=1)
     add("--exchange", default="partial_pool")
-    add("--host-capacity-mb", type=float, default=None)
-    add("--host-chunk-rows", type=int, default=None)
-    add("--host-hot-fraction", type=float, default=0.5)
-    add("--calibration", default=None)
     add("--replicas", type=int, default=1)
     add("--fleet-mode", choices=["replicated", "sharded"],
         default="replicated")
@@ -157,6 +168,13 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list] = None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
+    fleet_path = (args.fleet_mode == "sharded" or args.replicas > 1
+                  or args.scenario or args.autoscale or args.record_trace
+                  or args.replay_trace)
+    if args.host_capacity_mb is not None and fleet_path:
+        raise SystemExit(
+            "--host-capacity-mb is single-board only: give each fleet "
+            "board its own Engine/host tier instead")
     for dest, item in _NOT_PORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
@@ -174,9 +192,19 @@ def main(argv: Optional[list] = None) -> int:
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
                     fused_serve=args.fused_serve, device=device,
-                    verbose=True)
+                    host_capacity_mb=args.host_capacity_mb,
+                    host_chunk_rows=args.host_chunk_rows,
+                    host_hot_fraction=args.host_hot_fraction,
+                    calibration=args.calibration, verbose=True)
+    if args.host_capacity_mb is not None:
+        tbl_mb = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim \
+            * 4 / 2 ** 20
+        print(f"[serve] host chunk tier: tables {tbl_mb:.3f} MiB vs device "
+              f"budget {args.host_capacity_mb:.3f} MiB")
     session = engine.serve_session(max_batch_queries=args.max_batch_queries,
                                    max_wait_ms=args.max_wait_ms)
+    if args.host_capacity_mb is not None:
+        print(f"[serve] {session.exchange.summary()}")
     capacity = args.max_batch_queries * session.query_size
     print(f"[serve] serve_kernel={session.serve_kernel} "
           f"device={session.device} pipeline_depth="

@@ -16,9 +16,12 @@ of DLRM on one device: the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 8
 
-The reference launcher's LM, host-tier, distributed and online flags are
-accepted so that they fail loudly: each names the ROADMAP item that will
-bring it.
+  # the host chunk tier (SGD only): dirty chunks write back to host memory
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 8 --host-capacity-mb 0.1 --alpha 1.05
+
+The reference launcher's LM, distributed and online flags are accepted so
+that they fail loudly: each names the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -40,10 +43,6 @@ _NOT_PORTED = {
     "exchange": "A6, distributed",
     "compress_grads": "A6, distributed",
     "model_axis": "A6, distributed",
-    "host_capacity_mb": "A5, host tier",
-    "host_chunk_rows": "A5, host tier",
-    "host_hot_fraction": "A5, host tier",
-    "calibration": "A5, host tier",
     "emit_deltas": "A7, cluster/fabric/online",
     "delta_every_steps": "A7, cluster/fabric/online",
     "delta_dt_s": "A7, cluster/fabric/online",
@@ -73,6 +72,19 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--report-json", default=None, metavar="PATH",
                    help="write the run report (train report + plan, when "
                         "one was built) as JSON")
+    p.add_argument("--host-capacity-mb", type=float, default=None,
+                   help="device-memory budget (MiB) that turns the host "
+                        "chunk tier on: train through it (SGD only; "
+                        "dirty chunks write back to host memory)")
+    p.add_argument("--host-chunk-rows", type=int, default=None,
+                   help="rows per host-tier chunk (default: perf-model "
+                        "pick)")
+    p.add_argument("--host-hot-fraction", type=float, default=0.5,
+                   help="share of the budget for the HBM hot slab")
+    p.add_argument("--calibration", default=None, metavar="PATH",
+                   help="measured-hardware calibration JSON "
+                        "(repro_torch.core.calibration): host_link "
+                        "overrides the host tier's link terms")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
     not_ported = p.add_argument_group(
@@ -90,10 +102,6 @@ def _parser() -> argparse.ArgumentParser:
                             help="row-wise wire mode (row-wise sharding)")
     not_ported.add_argument("--model-axis", type=int, default=1)
     not_ported.add_argument("--compress-grads", action="store_true")
-    not_ported.add_argument("--host-capacity-mb", type=float, default=None)
-    not_ported.add_argument("--host-chunk-rows", type=int, default=None)
-    not_ported.add_argument("--host-hot-fraction", type=float, default=0.5)
-    not_ported.add_argument("--calibration", default=None, metavar="PATH")
     not_ported.add_argument("--emit-deltas", default=None, metavar="PATH")
     not_ported.add_argument("--delta-every-steps", type=int, default=10)
     not_ported.add_argument("--delta-dt-s", type=float, default=1.0)
@@ -120,9 +128,15 @@ def main(argv: Optional[list] = None) -> int:
                     lr=args.lr, alpha=args.alpha, seed=args.seed,
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
-                    device=device, verbose=True)
+                    host_capacity_mb=args.host_capacity_mb,
+                    host_chunk_rows=args.host_chunk_rows,
+                    host_hot_fraction=args.host_hot_fraction,
+                    calibration=args.calibration, device=device,
+                    verbose=True)
     session = engine.train_session(ckpt_dir=args.ckpt_dir,
                                    ckpt_every=args.ckpt_every)
+    if args.host_capacity_mb is not None:
+        print(f"[train] {session.exchange_inst.summary()}")
     print(f"[train] device={session.device} optimizer={args.optimizer} "
           f"pipeline_depth={session.pipeline_depth} resume_step="
           f"{session.resume_step}")

@@ -8,7 +8,8 @@ optimizer), and whether the serve path may run as one fused gather ->
 pool -> interaction kernel. The port carries two exchanges on one
 device: the table-wise one (the paper's "unsharded" layout) and the
 planner's tiered one (fast and bulk table groups, as placed by
-``plan="auto"`` or a ``ShardingPlan``).
+``plan="auto"`` or a ``ShardingPlan``). The host tier
+(``hoststore.HostTieredExchange``) is a third, built by the Engine.
 The distributed and row-wise exchanges are a later ROADMAP item (A6).
 """
 from __future__ import annotations
@@ -115,6 +116,39 @@ class EmbeddingExchange:
         ``supports_fused_forward()`` is True."""
         raise NotImplementedError(
             f"{type(self).__name__} has no fused serve path")
+
+    # -- host-tier session hooks (no-ops for device-resident exchanges) ----
+    # An exchange whose tables do NOT entirely live on the device (the
+    # host tier, ``hoststore.HostTieredExchange``) needs the session's
+    # params and every step's indices before the step runs: to build its
+    # param layout, and to fault chunks in. Sessions call these hooks
+    # around every execution; device-resident exchanges inherit no-ops.
+
+    # True when the exchange keeps the tables itself: a session then draws
+    # only the MLPs (the host tier's tables do not fit the device).
+    holds_tables = False
+
+    def init_session_params(self, params: Tables) -> Optional[Tables]:
+        """Build this exchange's param layout from freshly initialised
+        params. None means "not handled": the session places the params
+        itself (``shard_dlrm_params``)."""
+        return None
+
+    def begin_batch(self, params: Tables, indices: torch.Tensor, depth: int,
+                    train: bool = False) -> Tuple[Tables, Any]:
+        """Called with a step's indices BEFORE the step runs. Returns
+        (possibly updated params, an opaque swap plan or None)."""
+        return params, None
+
+    def stall_seconds(self, plan: Any, service_s: float) -> float:
+        """Modeled seconds of swap stall the step exposes (virtual clock),
+        given the plan from ``begin_batch`` and the measured compute
+        time."""
+        return 0.0
+
+    def end_batch(self, params: Tables) -> Tables:
+        """Called with the step's returned params."""
+        return params
 
 
 class TableWiseExchange(EmbeddingExchange):

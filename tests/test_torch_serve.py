@@ -197,11 +197,35 @@ def test_entry_points_default_to_cuda():
         ServeSession(cfg)
 
 
-@pytest.mark.parametrize("kw", [
-    {"host_capacity_mb": 1.0}, {"dp_axes": ("data",)}, {"model_axis": 2}])
+@pytest.mark.parametrize("kw", [{"dp_axes": ("data",)}, {"model_axis": 2}])
 def test_features_not_ported_fail_loudly(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
+
+
+# The host chunk tier (ROADMAP A5) is ported: its Engine keywords and
+# launcher flags, which raised naming A5 before, now reach the tier.
+HOST_MB = 0.1            # below the reduced config's 0.125 MiB of tables
+
+
+def _host_session(**kw):
+    from repro_torch.hoststore import HostTieredExchange
+    sess = Engine(get_dlrm(NAME).reduced(), device="cpu", alpha=1.05,
+                  **{"host_capacity_mb": HOST_MB, **kw}).serve_session(
+        max_batch_queries=1)
+    assert isinstance(sess.exchange, HostTieredExchange)
+    assert sess.serve_kernel == "composed"
+    return sess
+
+
+def test_host_capacity_reaches_the_host_tier():
+    sess = _host_session(host_capacity_mb=1.0)
+    ex = sess.exchange
+    cfg = sess.cfg
+    assert ex.hot_slots == min(cfg.rows_per_table, int(0.5 * 2 ** 20) // (
+        cfg.num_tables * cfg.embed_dim * 4))
+    probs, service, stall = sess._execute([sess._make_query(5)])
+    assert probs.shape == (1, cfg.batch_size) and 0.0 <= stall <= service
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
@@ -276,9 +300,6 @@ def test_launcher_report_json(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--model-axis", "2"], "A6"), (["--exchange", "unpooled"], "A6"),
-    (["--host-chunk-rows", "64"], "A5"),
-    (["--host-hot-fraction", "0.25"], "A5"),
-    (["--calibration", "calib.json"], "A5"),
     (["--router", "p2c"], "A7"), (["--min-replicas", "2"], "A7"),
     (["--max-replicas", "8"], "A7"), (["--autoscale-sla-ms", "10"], "A7"),
     (["--board-capacity-mb", "1"], "A7"), (["--fabric-gbs", "50"], "A7"),
@@ -293,19 +314,94 @@ def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
         serve.main(["--smoke", "--device", "cpu", *flag])
 
 
+@pytest.mark.parametrize("flag,want", [
+    (["--host-chunk-rows", "2"], "chunk_rows 2,"),
+    (["--host-hot-fraction", "0.4"], "40 hot rows a table"),
+    (["--calibration", "calib.json"], "link 50.00 GB/s + 3.00 us")])
+def test_host_tier_launcher_flags_reach_the_tier(capsys, tmp_path, flag,
+                                                 want):
+    from repro_torch.launch import serve
+    if flag[0] == "--calibration":
+        path = tmp_path / flag[1]
+        path.write_text(json.dumps(
+            {"host_link": {"latency_us": 3.0, "bandwidth_gbs": 50.0}}))
+        flag = [flag[0], str(path)]
+    rc = serve.main(["--smoke", "--device", "cpu", "--queries", "2",
+                     "--alpha", "1.05", "--host-capacity-mb", str(HOST_MB),
+                     *flag])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "[serve] host chunk tier: tables 0.125 MiB vs device budget " \
+        "0.100 MiB" in out
+    assert want in out and "serve_kernel=composed" in out
+
+
+def test_host_tier_refuses_fleet_flags():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="single-board"):
+        serve.main(["--smoke", "--device", "cpu", "--host-capacity-mb", "1",
+                    "--replicas", "2"])
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A6"), ({"axis": "model"}, "A6"),
-    ({"host_chunk_rows": 64}, "A5"), ({"host_hot_fraction": 0.25}, "A5"),
-    ({"host_link": object()}, "A5"), ({"calibration": "calib.json"}, "A5"),
-    ({"metrics": object()}, "A5")])
+    ({"mesh": object()}, "A6"), ({"axis": "model"}, "A6")])
 def test_reference_engine_options_not_ported_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
 
 
+@pytest.mark.parametrize("option", ["host_chunk_rows", "host_hot_fraction",
+                                    "host_link", "calibration", "metrics"])
+def test_host_tier_engine_options_reach_the_tier(option):
+    from repro_torch.core import perf_model
+    from repro_torch.obs import MetricsRegistry
+    link = perf_model.host_link(latency_us=2.0, bandwidth_gbs=40.0)
+    reg = MetricsRegistry()
+    value = {"host_chunk_rows": 2, "host_hot_fraction": 0.4,
+             "host_link": link, "metrics": reg,
+             "calibration": {"host_link": {"bandwidth_gbs": 30.0}}}[option]
+    sess = _host_session(**{option: value})
+    ex = sess.exchange
+    if option == "host_chunk_rows":
+        assert ex.mgr.chunk_rows == 2
+    elif option == "host_hot_fraction":
+        assert ex.hot_slots == 40       # 0.4 of 0.1 MiB, 8 tables of d=32
+    elif option == "host_link":
+        assert ex.link is link
+    elif option == "calibration":
+        assert ex.link.bandwidth == pytest.approx(30.0e9)
+        assert ex.link.latency == pytest.approx(10.0e-6)
+    else:
+        sess._execute([sess._make_query(5)])
+        assert reg.total("swap_faults") > 0 and reg.total("swap_bytes") > 0
+
+
+def test_host_tier_options_are_validated_as_the_reference():
+    cfg = get_dlrm(NAME).reduced()
+    for kw, match in (({"host_capacity_mb": 0}, "must be > 0"),
+                      ({"host_capacity_mb": 1.0, "plan": "auto"},
+                       "plan='none'"),
+                      ({"host_capacity_mb": 1.0, "optimizer": "adagrad"},
+                       "SGD-only")):
+        with pytest.raises(ValueError, match=match):
+            Engine(cfg, device="cpu", **kw)
+        with pytest.raises(ValueError, match=match):
+            JaxEngine(jax_get_dlrm(NAME).reduced(), **kw)
+
+
+def test_host_tier_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.hoststore import build_host_exchange
+    cfg = get_dlrm(NAME).reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, host_capacity_mb=HOST_MB)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_host_exchange(cfg, device_capacity_bytes=2 ** 16)
+
+
 def test_reference_axis_default_is_accepted():
-    Engine(get_dlrm(NAME).reduced(), device="cpu", axis=["data", "model"],
-           host_hot_fraction=0.5)
+    Engine(get_dlrm(NAME).reduced(), device="cpu", axis=["data", "model"])
 
 
 def test_sharded_fleet_names_its_item():
@@ -321,3 +417,11 @@ def test_lm_train_session_options_name_their_item(kw):
     eng = Engine(get_dlrm(NAME).reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         eng.train_session(**kw)
+
+
+def test_serve_launcher_host_tier_smoke_on_cpu():
+    proc = _launch("--device", "cpu", "--queries", "4", "--alpha", "1.05",
+                   "--host-capacity-mb", str(HOST_MB))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[serve] host tier:" in proc.stdout
+    assert "swap_stall" in proc.stdout and "PASS" in proc.stdout

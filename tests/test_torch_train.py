@@ -622,10 +622,65 @@ def test_train_launcher_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--workload", "lm"], "A8"), (["--host-capacity-mb", "64"], "A5"),
+    (["--workload", "lm"], "A8"),
     (["--emit-deltas", "d.jsonl"], "A7"), (["--compress-grads"], "A6"),
     (["--model-axis", "2"], "A6"), (["--seq", "64"], "A8"),
     (["--exchange", "unpooled"], "A6")])
 def test_train_launcher_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_launcher.main(["--device", "cpu", "--smoke", *flag])
+
+
+def test_train_launcher_host_capacity_reaches_the_tier(capsys):
+    """--host-capacity-mb, which raised naming A5 before, trains through
+    the host tier: a budget below the tables' bytes, dirty chunks."""
+    rc = train_launcher.main(["--device", "cpu", "--smoke", "--steps", "6",
+                              "--alpha", "1.05", "--host-capacity-mb",
+                              "0.1", "--host-chunk-rows", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "[train] host tier: 51 hot rows a table, chunk_rows 2," in out
+    assert "[train] dlrm dlrm-rm2-small-unsharded-smoke: steps=6" in out
+
+
+def test_train_launcher_host_tier_smoke_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--smoke", "--steps", "4", "--alpha", "1.05",
+         "--host-capacity-mb", "0.1"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[train] host tier:" in proc.stdout
+    assert "steps=4" in proc.stdout
+
+
+def test_train_launcher_refuses_host_tier_checkpoints(tmp_path):
+    """A checkpoint would not hold the host store or the chunk manager's
+    bookkeeping: --ckpt-dir with the host tier raises naming A5, before
+    any directory is written."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        train_launcher.main(["--device", "cpu", "--smoke", "--alpha", "1.05",
+                             "--host-capacity-mb", "0.1", "--ckpt-dir",
+                             str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+
+
+def test_engine_refuses_host_tier_checkpoints(tmp_path):
+    cfg = get_dlrm("dlrm-rm2-small-unsharded").reduced()
+    eng = Engine(cfg, device="cpu", alpha=1.05, host_capacity_mb=0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        eng.train_session(ckpt_dir=str(tmp_path / "ck"))
+    # a TrainSession handed a host exchange refuses it the same way
+    from repro_torch.engine import TrainSession
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        TrainSession(cfg, device="cpu", exchange=eng._host_exchange(),
+                     ckpt_dir=str(tmp_path / "ck"))
+    assert not (tmp_path / "ck").exists()
+    assert eng.train_session().run(1).steps_run == 1
+
+
+def test_host_tier_training_refuses_adagrad():
+    with pytest.raises(ValueError, match="SGD-only"):
+        train_launcher.main(["--device", "cpu", "--smoke", "--optimizer",
+                             "adagrad", "--host-capacity-mb", "1"])
