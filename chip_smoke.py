@@ -40,7 +40,10 @@ Phases; any failure exits non-zero:
      kernel (6a) and, once the stacked tables are freed, 4 through the
      packed embedding-bag kernel (6b; 4 launches each), all against
      ``embedding_bag_ref``; both kernels are also held against their
-     plain versions and timed;
+     plain versions (on the store: streams mostly at the pad slots, ids
+     at S and R and counted from the end, ids out of range; on small
+     tables: bf16, d = 30 and tables off alignment, which take the
+     scalar loads, d = 20, non-zero pad rows) and timed;
   7. the kernels API's other four ops, each through ``kernels.ops`` with
      the launch counts zeroed just before and read just after:
      a. (run between phases 6a and 6b, while the stacked tables and the
@@ -70,9 +73,10 @@ Phases; any failure exits non-zero:
         on-device predicate against ``blocked_stream_aligned``; edge
         cases at lblk 4, 8, 16 and d 32, 128, 256 in fp32 and bf16,
         streams that are not aligned (unsorted, a block reversed, a block
-        off by a row, a negative block, blocks past the table) and
-        narrower loads; timed beside embedding_bag on the same streams,
-        its plain version and the library;
+        off by a row, a negative block, blocks past the table, ids out of
+        range, nine ids in ten at one row; the per-row branch also at
+        d = 30 and 20) and narrower loads; timed beside embedding_bag on
+        the same streams, its plain version and the library;
   8. training at full width (after 7b, on tables of its own):
      ``Engine(get_dlrm("dlrm-rm2-small-unsharded"), plan=..., optimizer=
      ...).train_session().run`` at B = 200, plan="none" with SGD at depth
@@ -99,8 +103,12 @@ Phases; any failure exits non-zero:
      again, each printed (service, modeled stall, measured transfer and
      rate, faults, evictions, writebacks, bytes, chunk hit ratio); three
      queries' probs held against the per-table plain path; the cached-bag
-     pool mode on the same store (probs against the paired mode, row 6's
-     launches = the sum of resolved depths, row 6 timed at this shape);
+     pool mode on the same store, row 6 reading the flat chunk cache in
+     place (probs against the paired mode, row 6's launches = the sum of
+     resolved depths; row 6 held against its plain version at this shape,
+     its cache rows read past element 2**31, with the edge cases of 6a
+     on the shared tier; the pooling step's device time and transient
+     memory, row 6 timed);
      SGD training at depth 1 on the same store, its first faulting step
      held against a compact model; at the reduced config, host-tier
      serving and SGD training bitwise equal to plan="none" (under
@@ -787,26 +795,40 @@ def time_ms(fn, n_sets, iters=40):
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, n_sets, iters=40):
+def kernel_ms(fn, n_sets, iters=40, tries=5):
     """(CUDA-event ms a call as ``time_ms`` takes it, device ms a call):
-    the second is the sum of the kernels' own times under torch.profiler
-    over ``iters`` calls, so it leaves out the host time between launches,
-    which the first includes where a call is shorter than its launch. The
-    profiler now and then records no kernel of a short run; it is asked
-    three times, and the device time is None if it never sees one."""
+    the second is the sum of the device events' own times (kernels,
+    memsets) under torch.profiler over ``iters`` calls, so it leaves out
+    the host time between launches, which the first includes where a call
+    is shorter than its launch. The profiler loses the first device
+    events after a trace starts (on the H100, five 0.2 ms kernels in a
+    row), which would read low: each trace runs the ``iters`` calls once
+    as a warm-up it throws away, then again, and counts only when each of
+    its device events was recorded a whole multiple of ``iters`` times
+    (once, or as often, every call). It is asked up to ``tries`` times,
+    and the device time is None if no trace is whole."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     event = time_ms(fn, n_sets, iters)
-    for _ in range(3):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % n_sets)
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-        if busy > 0:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _warm_then_counted in range(2):
+                for i in range(iters):
+                    fn(i % n_sets)
+                torch.cuda.synchronize()
+                prof.step()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        if device and all(e.count % iters == 0 for e in device):
+            busy = sum(e.self_device_time_total for e in device)
             return event, busy / iters / 1e3
+        print(f"[time] the profiler recorded "
+              f"{ {e.key[:40]: e.count for e in device} } device events "
+              f"of {iters} calls: not whole, asked again")
     return event, None
 
 
@@ -934,6 +956,83 @@ def tiered_stream(cfg, dev):
     return stream, uniform
 
 
+def cached_bag_cases(name, fast, bulk, fast_idx, bulk_idx, gen, errs):
+    """Row 6 on the tiers it serves, from the slots ``fast_idx`` and
+    ``bulk_idx``: nine lookups in ten at both pad slots, slots at S and R
+    and counted from the end (-1 is the pad), and ids out of range on
+    either side (NaN). ``bulk`` is (T, R+1, d), or (R+1, d) shared by every
+    table."""
+    from repro_torch.kernels import embedding_bags, ref
+    T, S1, _ = fast.shape
+    R1 = bulk.shape[-2]
+    every = bulk if bulk.dim() == 3 else bulk[None].expand(T, -1, -1)
+
+    def held(tag, fi, bi, nan_ok=False):
+        close("cached_embedding_bag", f"{name}, {tag}",
+              embedding_bags.cached_embedding_bag(fast, bulk, fi, bi),
+              ref.cached_embedding_bag_ref(fast, every, fi, bi), errs, nan_ok)
+
+    pad = torch.rand(fast_idx.shape, generator=gen,
+                     device=fast_idx.device) < 0.9
+    held("nine lookups in ten at both pads",
+         torch.where(pad, S1 - 1, fast_idx).int(),
+         torch.where(pad, R1 - 1, bulk_idx).int())
+    fi, bi = fast_idx.clone(), bulk_idx.clone()
+    fi[:, :, 0], bi[:, :, 1] = S1 - 1, R1 - 1
+    fi[:, :, 2], bi[:, :, 3] = -1, -1
+    fi[:, :, 4], bi[:, :, 5] = 1 - S1, 2 - R1
+    held("ids at S and R and counted from the end", fi, bi)
+    fi[0, 0, 6], bi[1, -1, 7], bi[-1, 0, 0] = S1, -R1 - 1, R1
+    held("ids out of range", fi, bi, nan_ok=True)
+
+
+def bag_edge_cases(kernel, gen, dev, errs):
+    """``kernel`` ("embedding_bag", "cached_embedding_bag" or its shared
+    form "cached_embedding_bag shared") on small tables of the dtypes and
+    widths the main path does not take: bf16 (8-byte loads), d = 30 and
+    tables 4 bytes off alignment (scalar loads), d = 20 (five 16-byte
+    vectors a row), every pad row non-zero; half the lookups at the pad
+    slots, then the cases of ``cached_bag_cases`` (row 6) or ids counted
+    from the end and out of range (row 4)."""
+    from repro_torch.kernels import embedding_bags, ref
+    B, T, L, S, R = 16, 5, 80, 9, 300
+    for d, dtype, off in ((32, torch.bfloat16, 0), (30, torch.float32, 0),
+                          (30, torch.bfloat16, 0), (20, torch.float32, 0),
+                          (32, torch.float32, 1)):
+        name = (f"B={B} T={T} L={L} d={d} {str(dtype)[6:]}"
+                + " tables 4 bytes off alignment" * off)
+
+        def draw(*shape):                # at the model's init scale
+            buf = torch.empty((off + math.prod(shape),), device=dev).uniform_(
+                -R ** -0.5, R ** -0.5, generator=gen).to(dtype)
+            return buf[off:].view(shape)
+
+        bulk, fast = draw(T, R + 1, d), draw(T, S + 1, d)
+        hot = torch.rand((B, T, L), generator=gen, device=dev) < 0.5
+        fi = torch.where(hot, torch.randint(0, S, (B, T, L), generator=gen,
+                                            device=dev), S).int()
+        bi = torch.where(hot, R, torch.randint(0, R, (B, T, L), generator=gen,
+                                               device=dev)).int()
+        if kernel == "embedding_bag":
+            close(kernel, f"{name}, half the ids at row R",
+                  embedding_bags.embedding_bag(bulk, bi),
+                  ref.embedding_bag_ref(bulk, bi), errs)
+            bi[0, 0, 0], bi[1, 1, 1] = -1, 1 - R
+            bi[2, 2, 2], bi[3, 3, 3] = R + 1, -R - 2
+            close(kernel, f"{name}, ids counted from the end and out of "
+                          f"range", embedding_bags.embedding_bag(bulk, bi),
+                  ref.embedding_bag_ref(bulk, bi), errs, nan_ok=True)
+            continue
+        if kernel.endswith("shared"):
+            bulk = bulk[1]                       # keeps the offset
+        close("cached_embedding_bag", f"{name}, half the lookups hot",
+              embedding_bags.cached_embedding_bag(fast, bulk, fi, bi),
+              ref.cached_embedding_bag_ref(
+                  fast, bulk if bulk.dim() == 3
+                  else bulk[None].expand(T, -1, -1), fi, bi), errs)
+        cached_bag_cases(name, fast, bulk, fi, bi, gen, errs)
+
+
 def phase_tiered(tables, cfg, dev):
     """Phase 6a: the tiered runtime at full width on the plan=none
     session's weights, through the cached-bag kernel. The other serve
@@ -978,6 +1077,11 @@ def phase_tiered(tables, cfg, dev):
                                                   bi),
               ref.cached_embedding_bag_ref(store.fast, store.bulk, fi, bi),
               errs)
+    gen = torch.Generator(device=dev).manual_seed(66)
+    cached_bag_cases(f"B=200 alpha={TIERED_ALPHA} ids on the store",
+                     store.fast, store.bulk,
+                     *te.translate_indices(store, stream[1]), gen, errs)
+    bag_edge_cases("cached_embedding_bag", gen, dev, errs)
     sets = [te.translate_indices(store, make_recsys_batch(
         cfg, 100 + s, 0, TIERED_ALPHA)["indices"]) for s in range(8)]
     times = {"cached_embedding_bag": time_b6(store, sets)}
@@ -1012,6 +1116,28 @@ def phase_packed(store, cfg, dev):
         close("embedding_bag", f"B=200 {tag} ids on the packed store",
               embedding_bags.embedding_bag(packed, phys),
               ref.embedding_bag_ref(packed, phys), errs)
+    # the packed store's pad rows: S (the fast tier's) and S+1+R (the
+    # bulk tier's), nine lookups in ten; ids at them and counted from the
+    # end; ids out of range
+    S, rows = store.hot_slots, packed.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(67)
+    phys = te.translate_indices_packed(store, stream[1])
+    pad = torch.rand(phys.shape, generator=gen, device=dev)
+    mostly = torch.where(pad < 0.45, S, torch.where(pad < 0.9, rows - 1,
+                                                    phys)).int()
+    at = phys.clone()
+    at[:, :, 0], at[:, :, 1], at[:, :, 2] = S, rows - 1, -1
+    out = at.clone()
+    out[0, 0, 3], out[1, -1, 4] = rows, -rows - 1
+    for tag, ids, nan_ok in (("nine ids in ten at the pad rows", mostly,
+                              False),
+                             ("ids at the pad rows S and S+1+R and -1", at,
+                              False),
+                             ("ids out of range", out, True)):
+        close("embedding_bag", f"B=200 packed store, {tag}",
+              embedding_bags.embedding_bag(packed, ids),
+              ref.embedding_bag_ref(packed, ids), errs, nan_ok)
+    bag_edge_cases("embedding_bag", gen, dev, errs)
     psets = [te.translate_indices_packed(store, make_recsys_batch(
         cfg, 100 + s, 0, TIERED_ALPHA)["indices"]) for s in range(8)]
     times = {"embedding_bag": time_b4(packed, psets)}
@@ -1020,33 +1146,53 @@ def phase_packed(store, cfg, dev):
     return launches, times, {k: max(v) for k, v in errs.items()}
 
 
+def library_cached(fast, bulk, fast_idx, bulk_idx):
+    """Two F.embedding_bag(mode="sum") calls, one a tier (the shared tier
+    read at its positions directly), added: the cached bag's yardstick."""
+    if bulk.dim() == 3:
+        cold = library_bag(bulk, bulk_idx)
+    else:
+        B, T, L = bulk_idx.shape
+        cold = torch.nn.functional.embedding_bag(
+            bulk_idx.view(B * T, L), bulk, mode="sum").view(B, T, -1)
+    return library_bag(fast, fast_idx) + cold
+
+
 def time_b6(store, sets):
+    """Row 6 on ``store.fast`` and ``store.bulk`` (a (T, R+1, d) tier, or
+    the (R+1, d) tier every table shares) beside its bound: the distinct
+    rows the slots touch (per table, or over the shared tier), the ids
+    and the output."""
     from repro_torch.kernels import embedding_bags, ref
     fast, bulk = store.fast, store.bulk
     B, T, L = sets[0][0].shape
     d = fast.shape[2]
-    want = ref.cached_embedding_bag_ref(fast, bulk, *sets[0])
-    check(torch.allclose(library_bag(fast, sets[0][0])
-                         + library_bag(bulk, sets[0][1]), want, rtol=RTOL,
-                         atol=ATOL),
+    every = bulk if bulk.dim() == 3 else bulk[None].expand(T, -1, -1)
+    want = ref.cached_embedding_bag_ref(fast, every, *sets[0])
+    check(torch.allclose(library_cached(fast, bulk, *sets[0]), want,
+                         rtol=RTOL, atol=ATOL),
           "cached-bag library yardstick disagrees with the plain version")
+    del want
     bounds = []
     for fi, bi in sets:
-        rows = distinct_rows(fi, fast.shape[1]) + distinct_rows(
-            bi, bulk.shape[1])
+        cold = (distinct_rows(bi, bulk.shape[1]) if bulk.dim() == 3
+                else torch.unique(bi).numel())
+        rows = distinct_rows(fi, fast.shape[1]) + cold
         nbytes = (rows * d * fast.element_size() + 2 * fi.numel() * 4
                   + B * T * d * 4)
         bounds.append(least_time(nbytes, 2 * B * T * L * d))
+    bulk_shape = (f"R+1={bulk.shape[1]}" if bulk.dim() == 3 else
+                  f"one shared tier of {bulk.shape[0]} rows")
     return report_time(
         "cached_embedding_bag",
-        f"B={B} T={T} L={L} d={d} S+1={fast.shape[1]} R+1={bulk.shape[1]} "
-        f"fp32, alpha={TIERED_ALPHA} stream",
+        f"B={B} T={T} L={L} d={d} S+1={fast.shape[1]} {bulk_shape} fp32",
         kernel_ms(lambda k: embedding_bags.cached_embedding_bag(
             fast, bulk, *sets[k]), len(sets)),
-        time_ms(lambda k: ref.cached_embedding_bag_ref(fast, bulk, *sets[k]),
+        time_ms(lambda k: ref.cached_embedding_bag_ref(fast, every,
+                                                       *sets[k]),
                 len(sets), iters=16),
-        time_ms(lambda k: library_bag(fast, sets[k][0])
-                + library_bag(bulk, sets[k][1]), len(sets), iters=16),
+        time_ms(lambda k: library_cached(fast, bulk, *sets[k]), len(sets),
+                iters=16),
         bounds)
 
 
@@ -1709,9 +1855,9 @@ def blocked_edge_cases(dev, errs):
     gen = torch.Generator(device=dev).manual_seed(4321)
     B, T, L, R = 16, 3, 32, 1024
 
-    def tables_of(d, dtype, rows=R):
+    def tables_of(d, dtype, rows=R, scale=1.0):
         return torch.empty((T, rows, d), device=dev).uniform_(
-            -1, 1, generator=gen).to(dtype)
+            -scale, scale, generator=gen).to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
@@ -1749,6 +1895,31 @@ def blocked_edge_cases(dev, errs):
         ids[0, 0, :8] = torch.arange(1016, 1024, device=dev)
         compare_blocked(f"R=1020 d=32 lblk=8 {tag} a block half past the "
                         f"table", short, ids, 8, False, errs, nan_ok=True)
+    # the per-row branch (row 4's body) at the widths and ids row 4 takes:
+    # scalar loads (d = 30), five 16-byte vectors a row (d = 20), ids
+    # counted from the end and out of range, nine ids in ten at one row;
+    # at the model's init scale, where fp32 order moves a sum of 80 rows
+    # by ~1e-7
+    init = R ** -0.5
+    for d, dtype in ((30, torch.float32), (20, torch.float32),
+                     (30, torch.bfloat16)):
+        compare_blocked(f"L=80 d={d} lblk=8 {str(dtype)[6:]} unsorted",
+                        tables_of(d, dtype, scale=init),
+                        torch.randint(0, R, (B, T, 80), generator=gen,
+                                      device=dev, dtype=torch.int32), 8,
+                        False, errs)
+    ids = torch.randint(0, R, (B, T, 80), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[0, 0, 0], ids[1, 1, 1], ids[2, 2, 2], ids[3, 0, 3] = -1, 1 - R, R, \
+        -R - 1
+    compare_blocked("L=80 d=32 lblk=8 fp32 ids counted from the end and out "
+                    "of range", tables_of(32, torch.float32, scale=init), ids,
+                    8, False, errs, nan_ok=True)
+    ids = torch.where(torch.rand(ids.shape, generator=gen, device=dev) < 0.9,
+                      R - 1, ids.clamp(0, R - 1)).int()
+    compare_blocked("L=80 d=32 lblk=8 fp32 nine ids in ten at the last row",
+                    tables_of(32, torch.float32, scale=init), ids, 8, False,
+                    errs)
     for d, lblk, dtype in ((36, 4, torch.float32), (6, 4, torch.float32),
                            (16, 4, torch.bfloat16), (36, 8, torch.bfloat16)):
         compare_blocked(f"d={d} lblk={lblk} {str(dtype)[6:]} aligned",
@@ -2571,8 +2742,11 @@ def host_serve_cached_bag(sessions, checked, calib, errs, dev):
     """Phase 10b: 10a's sessions and exchange switched to the cached-bag
     pool mode, the link the measured one: the checked queries' probs
     against the paired mode's and row 6's launches against the resolved
-    depths; then row 6 at this shape (its hot slab past 2**31 elements)
-    held against its plain version and timed."""
+    depths; then row 6 at this shape on the flat chunk cache (its hot
+    slab and its cache read past 2**31 elements) held against its plain
+    version, with edge cases, and timed, and the pooling step's device
+    time and transient memory. Prints the device peaks of 10a and of 10b's
+    serving."""
     import types
 
     from repro_torch.core import perf_model
@@ -2581,16 +2755,19 @@ def host_serve_cached_bag(sessions, checked, calib, errs, dev):
     ex = sessions[0].exchange
     ex.pool_mode = "cached_bag"
     ex.link = perf_model.host_link(calibration=calib)
+    torch.cuda.synchronize()
+    peaks = {"10a paired serving": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     first, *rest, last = sorted(checked)
     depths = []
     for sess, steps in zip(sessions, ((first, *rest), (last,))):
         for s in steps:
-            q, paired, _ = checked[s]
+            q, want, _ = checked[s]
             probs, service, stall = sess._execute([q])
             depths.append(sess.depth_for_samples(q["indices"].shape[0]))
-            err = float(np.abs(probs - paired).max())
-            ok = np.allclose(probs, paired, rtol=RTOL, atol=ATOL)
+            err = float(np.abs(probs - want).max())
+            ok = np.allclose(probs, want, rtol=RTOL, atol=ATOL)
             print(f"[host] cached_bag step {s} (depth {depths[-1]}): probs "
                   f"vs paired max_abs_err={err:.3e} "
                   f"{'ok' if ok else 'FAIL'}; service {service * 1e3:.3f} "
@@ -2598,41 +2775,72 @@ def host_serve_cached_bag(sessions, checked, calib, errs, dev):
                   f"link ({ex._last_plan.faulted_chunks} faults)")
             check(ok, f"cached_bag probs of step {s} differ from paired")
     launches = ops.launch_counts["cached_embedding_bag"]
+    torch.cuda.synchronize()
+    peaks["10b cached-bag serving"] = torch.cuda.max_memory_allocated()
     print(f"[host] cached_bag: {launches} cached_embedding_bag launches "
           f"over flushes at depths {depths} (sum {sum(depths)}); "
           f"{ex.summary()}")
     check(launches == sum(depths),
           "cached-bag launches differ from the sum of resolved depths")
-    # row 6 at this shape: the hot slab and one query's bulk slab, made
-    # of its cache rows as the pool mode makes it
+    # row 6 at this shape, reading the flat chunk cache in place
     params = sessions[0].params
     idx = checked[first][0]["indices"]
     ex.begin_batch(params, idx, 1)
     _, (fast_idx, pos) = ex.forward(params, idx)
-    fast = params["hs_hot"]
+    fast, cache = params["hs_hot"], params["hs_cache"]
     B, T, L = fast_idx.shape
     d = fast.shape[2]
-    fake = params["hs_cache"][pos.long()].transpose(0, 1).reshape(
-        T, B * L, d)
-    fake_idx = (torch.arange(B, device=dev)[:, None, None] * L
-                + torch.arange(L, device=dev)[None, None, :]).to(
-        torch.int32).expand(B, T, L).contiguous()
     hit = fast_idx < fast.shape[1] - 1
     t_of = torch.arange(T, device=dev)[None, :, None].expand(B, T, L)
     far = int(((t_of[hit] * fast.shape[1] + fast_idx[hit].long()) * d).max())
     check(far >= 2**31, f"the query's hot rows stop at element {far}, "
                         f"short of 2**31")
-    close("cached_embedding_bag",
-          f"host tier B={B} T={T} L={L} d={d}, hot slab S+1="
-          f"{fast.shape[1]} ({fast.numel():.3e} elements, rows read to "
-          f"element {far:.3e}), bulk slab the query's {B * L} cache rows a "
-          f"table, {int(hit.sum())} of {hit.numel()} lookups hot",
-          embedding_bags.cached_embedding_bag(fast, fake, fast_idx, fake_idx),
-          ref.cached_embedding_bag_ref(fast, fake, fast_idx, fake_idx), errs)
-    row6 = time_b6(types.SimpleNamespace(fast=fast, bulk=fake),
-                   [(fast_idx, fake_idx)])
+    # 10a filled the cache from its first slots, so the query's cold rows
+    # lie low in it; the same lookups moved to the cache's top rows read
+    # it past element 2**31 too
+    pad = cache.shape[0] - 1
+    high = torch.where(hit, pos, pad - 1 - pos).int()
+    every = cache[None].expand(T, -1, -1)
+    for cold, tag in ((pos, "the query's cache positions"),
+                      (high, "its cold lookups moved to the cache's top "
+                             "rows")):
+        reach = int(cold[~hit].max()) * d
+        check(cold is pos or reach >= 2**31,
+              f"the moved cache rows stop at element {reach}")
+        close("cached_embedding_bag",
+              f"host tier B={B} T={T} L={L} d={d}, hot slab S+1="
+              f"{fast.shape[1]} ({fast.numel():.3e} elements, rows read to "
+              f"element {far:.3e}), the flat cache of {cache.shape[0]} rows "
+              f"shared by every table, {tag} (rows read to element "
+              f"{reach:.3e}), {int(hit.sum())} of {hit.numel()} lookups hot",
+              embedding_bags.cached_embedding_bag(fast, cache, fast_idx,
+                                                  cold),
+              ref.cached_embedding_bag_ref(fast, every, fast_idx, cold), errs)
+    gen = torch.Generator(device=dev).manual_seed(68)
+    cached_bag_cases(f"host tier B={B} d={d}, cold rows at the cache's top",
+                     fast, cache, fast_idx, high, gen, errs)
+    bag_edge_cases("cached_embedding_bag shared", gen, dev, errs)
+    row6 = time_b6(types.SimpleNamespace(fast=fast, bulk=cache),
+                   [(fast_idx, pos)])
+
+    # the pooling step of one query (B = 600): the kernel on the flat cache
+    def step(_):
+        return ex._cached_bag_pool(fast, cache, fast_idx, pos)
+
+    step_ms = kernel_ms(step, 1, iters=20)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(0)
+    torch.cuda.synchronize()
+    step_gb = (torch.cuda.max_memory_allocated() - base) / GB
+    print(f"[host] cached-bag pooling step, one query (B={B}): "
+          f"{step_ms[0]:.4f} ms (device {step_ms[1]} ms), transient device "
+          f"memory {step_gb:.3f} GB")
     ex.pool_mode = "paired"
-    return {"launches": launches, "time": row6}
+    return {"launches": launches, "time": row6, "peaks": peaks,
+            "pooling_step": {"ms": step_ms[0], "device_ms": step_ms[1],
+                             "transient_gb": step_gb}}
 
 
 def host_train(cfg, ex, dev, card):
@@ -2690,7 +2898,18 @@ def phase_host_tier(dev, card):
     row6 = host_serve_cached_bag(sessions, checked, calib, errs, dev)
     ex = sessions[0].exchange
     del sessions, checked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     host_train(cfg, ex, dev, card)
+    torch.cuda.synchronize()
+    peaks = row6.pop("peaks")
+    peaks["10c training"] = torch.cuda.max_memory_allocated()
+    for label, peak in peaks.items():
+        print(f"[memory] phase {label}: peak allocated {peak / GB:.2f} GB")
+    print(f"[memory] phase 10, served and trained paths (10a, 10b's "
+          f"serving, 10c): peak allocated {max(peaks.values()) / GB:.2f} GB "
+          f"({card})")
+    row6["peak_gb"] = {k: v / GB for k, v in peaks.items()}
     tables = ex.mgr.host.numel() * ex.mgr.host.element_size()
     del ex
     gc.collect()
@@ -2832,7 +3051,9 @@ def main() -> int:
             if (name, "bf16_blocks") in errs else {}),
          **measured[name],
          **({"host_tier_launches": host["launches"],
-             "host_tier": host["time"]}
+             "host_tier": host["time"],
+             "host_tier_pooling_step": host["pooling_step"],
+             "host_tier_peak_gb": host["peak_gb"]}
             if name == "cached_embedding_bag" else {})}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {

@@ -187,17 +187,12 @@ class HostTieredExchange(EmbeddingExchange):
         return pooled, (fast_idx, pos)
 
     def _cached_bag_pool(self, fast, cache, fast_idx, pos):
-        """Pool through the cached-bag kernel by re-shaping the cache
-        gathers into a per-table fake bulk slab of (T, B*L, d), as the
-        reference does. Accumulation order differs from the paired path,
-        so this mode is allclose-equal, not bit-equal."""
-        b, t, l = fast_idx.shape
-        cold_rows = cache[pos.long()]                 # (B, T, L, d)
-        fake = cold_rows.transpose(0, 1).reshape(t, b * l, -1)
-        fake_idx = (torch.arange(b, device=pos.device)[:, None, None] * l
-                    + torch.arange(l, device=pos.device)[None, None, :]
-                    ).to(torch.int32).expand(b, t, l).contiguous()
-        return ops.cached_embedding_bag(fast, fake, fast_idx, fake_idx)
+        """Pool through the cached-bag kernel, its bulk tier the flat
+        chunk cache read in place at ``pos``: the sum the reference takes
+        over its fake (T, B*L, d) slab of ``cache[pos]``, without building
+        it. Accumulation order differs from the paired path, so this mode
+        is allclose-equal, not bit-equal."""
+        return ops.cached_embedding_bag(fast, cache, fast_idx, pos)
 
     def sparse_apply(self, tables: Tables, ctx, g_pooled, update_fn):
         """Split SGD scatter-add, in place: hot rows into the slab, cold

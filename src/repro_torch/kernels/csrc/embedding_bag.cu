@@ -1,5 +1,5 @@
 // Embedding bags for Hopper (sm_90a): gather + sum-pool, one launch.
-// Three entry points share one per-row pooling body:
+// Three entry points share one per-row pooling body (`pool_bag`):
 //
 //   embedding_bag_launch replaces the TPU kernel `embedding_bag_pallas`
 //   (src/repro/kernels/embedding_bag.py:45):
@@ -10,45 +10,77 @@
 //   two-tier bag over pre-translated slots:
 //     out[b, t] = sum_l fast[t, fast_ids[b, t, l]]
 //               + sum_l bulk[t, bulk_ids[b, t, l]]              (fp32)
-//   Both rows of every lookup are read and summed, as in the reference: the
-//   kernel does not assume that the pad slot (S or R) holds zeros.
+//   The bulk tier may also be ONE (R+1, d) tier that every table reads (a
+//   table stride of 0): the host tier's flat chunk cache, read in place by
+//   the cache positions, where the reference first gathers it into a fake
+//   (T, B*L, d) slab. Both rows of every lookup are read and summed, as in
+//   the reference: the kernel does not assume that the pad slot (S or R)
+//   holds zeros.
 //
 //   embedding_bag_blocked_launch replaces `embedding_bag_pallas_blocked`
 //   (src/repro/kernels/embedding_bag.py:107): the same bag, read a block of
 //   `lblk` consecutive rows at a time when the whole id stream is ALIGNED,
 //   i.e. every L-block of lblk lookups is exactly the rows
 //   [k*lblk, (k+1)*lblk) of its table (`blocked_stream_aligned`, :90); any
-//   other stream pools the whole batch row by row, as row 4 does. A block
-//   that passes the reference's predicate but reaches past the table (base
-//   a multiple of lblk, base + lblk > R) counts as NOT aligned here, so its
-//   answer is `embedding_bag_ref`'s (NaN for the rows past R) and never a
-//   read out of bounds. The predicate is computed on the device: a check
-//   kernel clears or sets one flag, and the pooling kernel reads it, so the
-//   launch never waits for the host.
+//   other stream pools the whole batch through `pool_bag`, as row 4 does. A
+//   block that passes the reference's predicate but reaches past the table
+//   (base a multiple of lblk, base + lblk > R) counts as NOT aligned here,
+//   so its answer is `embedding_bag_ref`'s (NaN for the rows past R) and
+//   never a read out of bounds. The predicate is computed on the device: a
+//   check kernel clears or sets one flag, and the pooling kernel reads it,
+//   so the launch never waits for the host.
 //
 // What bounds them: device-memory bytes. At the RM2-small shape (B=200, T=40,
-// L=80, d=32, fp32) one call gathers 640,000 128-byte rows (81.9 MB; twice
-// that for the two-tier bag) against 20 FLOP a row: nothing but the row
-// reads matter, and random rows do not stream or stay in the 50 MB L2.
+// L=80, d=32, fp32) one call gathers 640,000 128-byte rows (81.9 MB; the
+// two-tier bag names twice as many slots, one of each pair a pad) against
+// 20 FLOP a row: nothing but the row reads matter, and random rows do not
+// stream. What a kernel can do about
+// it is keep enough independent row reads in flight to cover the memory's
+// latency, issue few instructions per byte, and read no byte twice.
 //
-// Design: one warp per (b, t) bag, 8 bags a block, so B*T bags spread over
-// all 132 SMs at any batch (8,000 warps at B=200). Row by row, a lane owns V
-// adjacent columns of d: at d=32 fp32 a row is one coalesced 128-byte read;
-// when d is a multiple of 128 each lane issues 16-byte (fp32) or 8-byte
-// (bf16) vector loads. The warp loads 32 ids at once and broadcasts them
-// with shuffles, and the unrolled l loop keeps several row reads in flight.
-// Block by block, a block is lblk*d contiguous elements (1 KB at lblk=8,
-// d=32 fp32): d/4 lanes span a row with 16-byte (fp32) or 8-byte (bf16)
-// loads, the other lanes of the warp take the block's other rows (two
-// loads a lane a block at d=32, lblk=8), and a shuffle reduction over the
-// lanes that hold the same columns gives the block's sum; the block loop
-// is unrolled 4 deep so that later blocks' loads are in flight during
-// earlier blocks' reductions. As in the reference, a block of bf16 rows
-// sums to one bf16 value before the fp32 sum over blocks. Other d take
-// scalar loads.
+// Design of `pool_bag`: one warp per (b, t) bag, 4 bags a block, so B*T bags
+// spread over all 132 SMs at any batch (8,000 warps at B=200). No cluster:
+// a bag shares nothing with another, so no block waits for a peer.
+//   - Row loads of 16 bytes (fp32; 8 bytes bf16) when d % 4 == 0 and the
+//     tiers are aligned to them: a row is nv = d/4 vectors, a group of
+//     `span` lanes (nv rounded up to a power of two, at most 32) takes a
+//     row, and the warp's 32/span groups take as many rows per load
+//     instruction (4 at d = 32, where one lane a column took one row). Other
+//     d and misaligned tiers take scalar loads through the same body (nv =
+//     d); rows wider than 32 vectors are walked in passes of 32.
+//   - Ids are fetched ahead: the warp reads a bag's ids 32 at a time in one
+//     coalesced load, the next 32 while it pools these, and broadcasts them
+//     with shuffles. Each group issues kBatch (4) row loads, its lookups g,
+//     g + groups, ..., before it adds any: 16 rows in flight a warp at
+//     d = 32. Larger batches measured slower: their registers cost warps.
+//   - The two tiers are read in the same step, and a lookup loads only its
+//     real row: tier a's unless that slot is the pad, else tier b's.
+//   - Pad rows come from registers: each tier's last row (fast[t, S],
+//     bulk[t, R], or the shared tier's pad) is loaded once a bag, and a
+//     lookup whose slot is that row adds the register copy. On the tiered
+//     store and the host tier every lookup has one pad slot, so half the
+//     row reads go. The value and its place in the sum are the same as a
+//     load's. The rare lookups (two pads, two real rows, a row outside its
+//     tier) take a branch of their own.
+//   - Few instructions a lookup: slots in 32-bit arithmetic (a tier has
+//     fewer than 2^31 rows: the ids are int32), 64-bit only for the row's
+//     offset.
+//   - The groups' partial sums meet by shuffles at the end of the bag.
 // Ids follow jnp.take: a negative id counts from the end of its table, and
 // an id outside [-rows, rows) reads as NaN rather than out of bounds. Row
-// offsets are 64-bit: 40 x 4,194,304 x 32 elements overflow int32.
+// offsets are 64-bit: 40 x 4,194,304 x 32 elements overflow int32, and the
+// host tier's cache is 41,943,041 rows of 128.
+//
+// The blocked branch (`pool_blocks`): a block is lblk*d contiguous elements
+// (1 KB at lblk=8, d=32 fp32): d/4 lanes span a row with 16-byte (fp32) or
+// 8-byte (bf16) loads, the other lanes of the warp take the block's other
+// rows (two loads a lane a block at d=32, lblk=8), and a shuffle reduction
+// over the lanes that hold the same columns gives the block's sum; the block
+// loop is unrolled 4 deep so that later blocks' loads are in flight during
+// earlier blocks' reductions. As in the reference, a block of bf16 rows sums
+// to one bf16 value before the fp32 sum over blocks. The per-row branch is a
+// call out of line (`pool_bag_apart`), so that its registers do not weigh
+// on the blocked branch's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +88,13 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+// Bags (warps) a block: 4 for pool_bag's kernel, 8 for the blocked one.
+// Row loads a lane group issues before it adds any. Tuned on the H100 at
+// B=200, d=32 and B=600, d=128: batches of 2, 4, 6, 8 and 4 or 8 warps a
+// block; larger batches hold more registers and fewer warps.
+constexpr int kBagWarps = 4;
+constexpr int kBlockedWarps = 8;
+constexpr int kBatch = 4;
 
 template <typename Row, int V>
 struct RowLoad;
@@ -97,84 +135,152 @@ struct RowLoad<__nv_bfloat16, 4> {
   }
 };
 
-// Adds sum_l tab[ids[l], k .. k+V) into acc[0 .. V). Every lane of the warp
-// calls it (the shuffles need all 32); `active` lanes load.
-template <typename Row, int V>
-__device__ __forceinline__ void pool(const Row* __restrict__ tab,
-                                     long long n_rows,
-                                     const int32_t* __restrict__ ids,
-                                     int n_lookups, int dim, int k,
-                                     bool active, int lane, float* acc) {
-  const float nan = __int_as_float(0x7fc00000);
-  for (int l0 = 0; l0 < n_lookups; l0 += 32) {
-    const int n = min(32, n_lookups - l0);
-    const int mine = lane < n ? ids[l0 + lane] : 0;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      long long r = __shfl_sync(0xffffffffu, mine, j);
-      if (r < 0) r += n_rows;
-      float v[V];
-      if (r >= 0 && r < n_rows) {
-        if (active) RowLoad<Row, V>::run(tab + r * dim + k, v);
-      } else {
-#pragma unroll
-        for (int u = 0; u < V; ++u) v[u] = nan;
-      }
-      if (active) {
-#pragma unroll
-        for (int u = 0; u < V; ++u) acc[u] += v[u];
-      }
-    }
-  }
+// One tier of a bag: table 0 at `tab`, `stride` elements between tables (0
+// when every table reads the same tier), `rows` rows a table, (B, T, L) ids.
+template <typename Row>
+struct Tier {
+  const Row* tab;
+  long long stride;
+  long long rows;
+  const int32_t* ids;
+};
+
+// A lookup's slot in one tier of `rows` < 2^31 rows: the row (a negative
+// id counts from the end of the tier), whether that row lies inside the
+// tier, and whether it is the tier's last row, its pad. 32-bit arithmetic:
+// on the H100 the 64-bit form cost row 6 time in issue slots.
+struct Slot {
+  int row;
+  bool inside, pad;
+};
+
+__device__ __forceinline__ Slot slot_of(int id, int rows) {
+  const int r = id < 0 ? id + rows : id;
+  return {r, (unsigned)r < (unsigned)rows, r == rows - 1};
 }
 
-// Pools bag (b, t) = `bag` row by row into out[bag]. Tier a is always read;
-// tier b (the bulk tier of the two-tier bag) when `tab_b` is not null. All
-// 32 lanes of the warp call it.
-template <typename Row, int V>
-__device__ __forceinline__ void pool_bag(
-    const Row* __restrict__ tab_a, long long rows_a,
-    const int32_t* __restrict__ ids_a, const Row* __restrict__ tab_b,
-    long long rows_b, const int32_t* __restrict__ ids_b,
-    float* __restrict__ out, long long bag, int n_tables, int n_lookups,
-    int dim, int lane) {
+// Pools bag (b, t) = `bag` into out[bag]: tier a always, tier b too when
+// kTwo (the two-tier bag, whose tiers' last rows are its pads). All 32
+// lanes of the warp call it (the shuffles need them all).
+//
+// A two-tier lookup normally has one real row and one pad: it loads the
+// real row (tier a's unless that is the pad) in the batch and adds the
+// other tier's pad from registers. A lookup whose two rows are both real
+// loads tier b's row at once, outside the batch; one whose two slots are
+// both pads loads nothing.
+template <typename Row, int V, bool kTwo>
+__device__ __forceinline__ void pool_bag(const Tier<Row>& a,
+                                         const Tier<Row>& b,
+                                         float* __restrict__ out,
+                                         long long bag, int n_tables,
+                                         int n_lookups, int dim, int lane) {
   const int t = (int)(bag % n_tables);
   const long long id_off = bag * n_lookups;
-  const Row* ta = tab_a + (long long)t * rows_a * dim;
-  const Row* tb = tab_b == nullptr ? nullptr
-                                   : tab_b + (long long)t * rows_b * dim;
+  const Row* ta = a.tab + (long long)t * a.stride;
+  const Row* tb = kTwo ? b.tab + (long long)t * b.stride : nullptr;
+  const int32_t* ia = a.ids + id_off;
+  const int32_t* ib = kTwo ? b.ids + id_off : nullptr;
+  const int nv = dim / V;
+  const int span = nv >= 32 ? 32 : 1 << (32 - __clz(nv - 1));
+  const int groups = 32 / span;
+  const int cv = lane & (span - 1), rg = lane / span;
+  const int rows_a = (int)a.rows, rows_b = kTwo ? (int)b.rows : 1;
+  const float nan = __int_as_float(0x7fc00000);
   float* out_bag = out + bag * dim;
-  for (int k0 = 0; k0 < dim; k0 += 32 * V) {
-    const int k = k0 + lane * V;
-    const bool active = k < dim;
-    float sa[V], sb[V];
+  for (int c0 = 0; c0 < nv; c0 += span) {
+    const int k = (c0 + cv) * V;
+    const bool active = c0 + cv < nv;
+    float acc[V], pad_a[V], pad_b[V];
 #pragma unroll
-    for (int u = 0; u < V; ++u) sa[u] = sb[u] = 0.f;
-    pool<Row, V>(ta, rows_a, ids_a + id_off, n_lookups, dim, k, active, lane,
-                 sa);
-    if (tb != nullptr)
-      pool<Row, V>(tb, rows_b, ids_b + id_off, n_lookups, dim, k, active,
-                   lane, sb);
-    if (active) {
+    for (int u = 0; u < V; ++u) acc[u] = pad_a[u] = pad_b[u] = 0.f;
+    if (kTwo && active) {
+      RowLoad<Row, V>::run(ta + (a.rows - 1) * dim + k, pad_a);
+      RowLoad<Row, V>::run(tb + (b.rows - 1) * dim + k, pad_b);
+    }
+    int next_a = lane < n_lookups ? __ldg(ia + lane) : 0;
+    int next_b = kTwo && lane < n_lookups ? __ldg(ib + lane) : 0;
+    for (int l0 = 0; l0 < n_lookups; l0 += 32) {
+      const int n = min(32, n_lookups - l0);
+      const int mine_a = next_a, mine_b = next_b;
+      const int ahead = l0 + 32 + lane;       // the next 32 ids, in flight
+      if (ahead < n_lookups) {
+        next_a = __ldg(ia + ahead);
+        if (kTwo) next_b = __ldg(ib + ahead);
+      }
+      const int steps = (n + groups - 1) / groups;
+      for (int s0 = 0; s0 < steps; s0 += kBatch) {
+        float v[kBatch][V];
 #pragma unroll
-      for (int u = 0; u < V; ++u) out_bag[k + u] = sa[u] + sb[u];
+        for (int u = 0; u < kBatch; ++u) {
+          const int j = (s0 + u) * groups + rg;
+          const bool live = active && j < n;
+          const Slot sa =
+              slot_of(__shfl_sync(0xffffffffu, mine_a, j & 31), rows_a);
+          const Slot sb = kTwo ? slot_of(__shfl_sync(0xffffffffu, mine_b,
+                                                     j & 31), rows_b)
+                               : Slot{0, true, true};
+          const bool real_a = sa.inside && !(kTwo && sa.pad);
+          const bool real_b = kTwo && sb.inside && !sb.pad;
+          const bool bad = !sa.inside || !sb.inside;
+          // beside its batched load, a lookup with one real row adds the
+          // other tier's pad from registers; the rare ones (a row outside
+          // its tier: NaN; two pads; two real rows, the second loaded
+          // here) take a branch of their own
+          if (kTwo && live && !bad && real_a != real_b) {
+#pragma unroll
+            for (int w = 0; w < V; ++w) acc[w] += real_a ? pad_b[w] : pad_a[w];
+          } else if (live && (bad || (kTwo && real_a == real_b))) {
+            float y[V];
+            if (bad) {
+#pragma unroll
+              for (int w = 0; w < V; ++w) y[w] = nan;
+            } else if (real_a) {
+              RowLoad<Row, V>::run(tb + (long long)sb.row * dim + k, y);
+            } else {
+#pragma unroll
+              for (int w = 0; w < V; ++w) y[w] = pad_a[w] + pad_b[w];
+            }
+#pragma unroll
+            for (int w = 0; w < V; ++w) acc[w] += y[w];
+          }
+#pragma unroll
+          for (int w = 0; w < V; ++w) v[u][w] = 0.f;
+          if (live && !bad && (real_a || real_b))
+            RowLoad<Row, V>::run(
+                !kTwo || real_a ? ta + (long long)sa.row * dim + k
+                                : tb + (long long)sb.row * dim + k,
+                v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+          for (int w = 0; w < V; ++w) acc[w] += v[u][w];
+        }
+      }
+    }
+    // lanes lane ^ span, lane ^ 2 span, ... hold the same columns
+    for (int off = span; off < 32; off <<= 1) {
+#pragma unroll
+      for (int w = 0; w < V; ++w)
+        acc[w] += __shfl_xor_sync(0xffffffffu, acc[w], off);
+    }
+    if (active && rg == 0) {
+#pragma unroll
+      for (int w = 0; w < V; ++w) out_bag[k + w] = acc[w];
     }
   }
 }
 
-// Bag (b, t) = blockIdx.x * kWarpsPerBlock + warp.
-template <typename Row, int V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32) embedding_bag_kernel(
-    const Row* __restrict__ tab_a, long long rows_a,
-    const int32_t* __restrict__ ids_a, const Row* __restrict__ tab_b,
-    long long rows_b, const int32_t* __restrict__ ids_b,
-    float* __restrict__ out, long long n_bags, int n_tables, int n_lookups,
-    int dim) {
+// Bag (b, t) = blockIdx.x * kBagWarps + warp.
+template <typename Row, int V, bool kTwo>
+__global__ void __launch_bounds__(kBagWarps * 32) embedding_bag_kernel(
+    Tier<Row> a, Tier<Row> b, float* __restrict__ out, long long n_bags,
+    int n_tables, int n_lookups, int dim) {
   const long long bag =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+      (long long)blockIdx.x * kBagWarps + (threadIdx.x >> 5);
   if (bag >= n_bags) return;  // uniform across the warp
-  pool_bag<Row, V>(tab_a, rows_a, ids_a, tab_b, rows_b, ids_b, out, bag,
-                   n_tables, n_lookups, dim, threadIdx.x & 31);
+  pool_bag<Row, V, kTwo>(a, b, out, bag, n_tables, n_lookups, dim,
+                         threadIdx.x & 31);
 }
 
 // One thread an id: sets *misaligned when the id's L-block is not the rows
@@ -268,11 +374,24 @@ __device__ __forceinline__ void pool_blocks(const Row* __restrict__ tab,
   }
 }
 
-// Bag (b, t) = blockIdx.x * kWarpsPerBlock + warp. The flag written by
-// blocked_check_kernel picks the branch for the whole batch: VB is the
-// vector width of the blocked branch, VR that of the per-row one (row 4's).
-template <typename Row, int VB, int VR>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+
+// The blocked kernel's per-row branch, out of line: inlined into the
+// blocked kernel, it made ptxas spill in the blocked branch too, which ran
+// 2% slower on the H100 (aligned, B = 200, d = 32).
+template <typename Row, int V>
+__device__ __noinline__ void pool_bag_apart(Tier<Row> a,
+                                            float* __restrict__ out,
+                                            long long bag, int n_tables,
+                                            int n_lookups, int dim,
+                                            int lane) {
+  pool_bag<Row, V, false>(a, a, out, bag, n_tables, n_lookups, dim, lane);
+}
+
+// Bag (b, t) = blockIdx.x * kBlockedWarps + warp. The flag written by
+// blocked_check_kernel picks the branch for the whole batch: V is the
+// vector width of both branches.
+template <typename Row, int V>
+__global__ void __launch_bounds__(kBlockedWarps * 32)
     embedding_bag_blocked_kernel(const Row* __restrict__ tab,
                                  long long n_rows,
                                  const int32_t* __restrict__ ids,
@@ -282,39 +401,50 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                                  int lblk) {
   const int lane = threadIdx.x & 31;
   const long long bag =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+      (long long)blockIdx.x * kBlockedWarps + (threadIdx.x >> 5);
   if (bag >= n_bags) return;  // uniform across the warp
   if (*misaligned) {
-    pool_bag<Row, VR>(tab, n_rows, ids, nullptr, 0, nullptr, out, bag,
-                      n_tables, n_lookups, dim, lane);
+    pool_bag_apart<Row, V>(Tier<Row>{tab, n_rows * dim, n_rows, ids}, out,
+                           bag, n_tables, n_lookups, dim, lane);
     return;
   }
   const int t = (int)(bag % n_tables);
-  pool_blocks<Row, VB>(tab + (long long)t * n_rows * dim,
-                       ids + bag * n_lookups, n_lookups, lblk, dim, lane,
-                       out + bag * dim);
+  pool_blocks<Row, V>(tab + (long long)t * n_rows * dim,
+                      ids + bag * n_lookups, n_lookups, lblk, dim, lane,
+                      out + bag * dim);
+}
+
+// 16-byte (fp32) or 8-byte (bf16) loads need d % 4 == 0 and tiers aligned
+// to them; anything else takes scalar loads.
+template <typename Row>
+bool vector_rows(const void* p, int dim) {
+  return dim % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % (4 * sizeof(Row)) == 0;
 }
 
 template <typename Row>
-int launch(const void* tab_a, long long rows_a, const void* ids_a,
-           const void* tab_b, long long rows_b, const void* ids_b, void* out,
-           int batch, int n_tables, int n_lookups, int dim,
-           cudaStream_t stream) {
+int launch(const Tier<Row>& a, const Tier<Row>* b, void* out, int batch,
+           int n_tables, int n_lookups, int dim, cudaStream_t stream) {
+  if (a.rows > 0x7fffffffLL || (b != nullptr && b->rows > 0x7fffffffLL))
+    return (int)cudaErrorInvalidValue;   // int32 ids: rows < 2^31
   const long long n_bags = (long long)batch * n_tables;
-  const long long blocks = (n_bags + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long blocks = (n_bags + kBagWarps - 1) / kBagWarps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
-  const Row* a = static_cast<const Row*>(tab_a);
-  const Row* b = static_cast<const Row*>(tab_b);
-  const int32_t* ia = static_cast<const int32_t*>(ids_a);
-  const int32_t* ib = static_cast<const int32_t*>(ids_b);
+  const dim3 grid((unsigned)blocks), block(kBagWarps * 32);
   float* o = static_cast<float*>(out);
-  if (dim % 128 == 0)
-    embedding_bag_kernel<Row, 4><<<grid, block, 0, stream>>>(
-        a, rows_a, ia, b, rows_b, ib, o, n_bags, n_tables, n_lookups, dim);
-  else
-    embedding_bag_kernel<Row, 1><<<grid, block, 0, stream>>>(
-        a, rows_a, ia, b, rows_b, ib, o, n_bags, n_tables, n_lookups, dim);
+  const bool vec = vector_rows<Row>(a.tab, dim) &&
+                   (b == nullptr || vector_rows<Row>(b->tab, dim));
+#define BAG(V, TWO)                                                         \
+  embedding_bag_kernel<Row, V, TWO><<<grid, block, 0, stream>>>(           \
+      a, b == nullptr ? a : *b, o, n_bags, n_tables, n_lookups, dim)
+  if (b != nullptr) {
+    if (vec) BAG(4, true);
+    else BAG(1, true);
+  } else {
+    if (vec) BAG(4, false);
+    else BAG(1, false);
+  }
+#undef BAG
   return (int)cudaGetLastError();
 }
 
@@ -322,11 +452,11 @@ template <typename Row>
 int launch_blocked(const void* tables, long long n_rows, const void* ids,
                    void* misaligned, void* out, int batch, int n_tables,
                    int n_lookups, int dim, int lblk, cudaStream_t stream) {
-  if (lblk < 1 || n_lookups % lblk != 0)
+  if (lblk < 1 || n_lookups % lblk != 0 || n_rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const long long n_bags = (long long)batch * n_tables;
   const long long n_ids = n_bags * n_lookups;
-  const long long blocks = (n_bags + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long blocks = (n_bags + kBlockedWarps - 1) / kBlockedWarps;
   const long long check_blocks = (n_ids + 255) / 256;
   if (blocks > 0x7fffffffLL || check_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
@@ -340,20 +470,37 @@ int launch_blocked(const void* tables, long long n_rows, const void* ids,
   if (err != cudaSuccess) return (int)err;
   const Row* tab = static_cast<const Row*>(tables);
   float* o = static_cast<float*>(out);
-  const bool vec_block =
-      dim % 4 == 0 &&
-      reinterpret_cast<uintptr_t>(tables) % (4 * sizeof(Row)) == 0;
-  const bool vec_row = dim % 128 == 0;   // as launch() picks for row 4
-  const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
-#define BLOCKED(VB, VR)                                                     \
-  embedding_bag_blocked_kernel<Row, VB, VR><<<grid, block, 0, stream>>>(   \
-      tab, n_rows, id, flag, o, n_bags, n_tables, n_lookups, dim, lblk)
-  if (vec_block && vec_row) BLOCKED(4, 4);
-  else if (vec_block) BLOCKED(4, 1);
-  else if (vec_row) BLOCKED(1, 4);
-  else BLOCKED(1, 1);
-#undef BLOCKED
+  const dim3 grid((unsigned)blocks), block(kBlockedWarps * 32);
+  if (vector_rows<Row>(tables, dim))
+    embedding_bag_blocked_kernel<Row, 4><<<grid, block, 0, stream>>>(
+        tab, n_rows, id, flag, o, n_bags, n_tables, n_lookups, dim, lblk);
+  else
+    embedding_bag_blocked_kernel<Row, 1><<<grid, block, 0, stream>>>(
+        tab, n_rows, id, flag, o, n_bags, n_tables, n_lookups, dim, lblk);
   return (int)cudaGetLastError();
+}
+
+template <typename Row>
+int bag(const void* tables, long long n_rows, const void* ids, void* out,
+        int batch, int n_tables, int n_lookups, int dim,
+        cudaStream_t stream) {
+  const Tier<Row> a{static_cast<const Row*>(tables), n_rows * dim, n_rows,
+                    static_cast<const int32_t*>(ids)};
+  return launch<Row>(a, nullptr, out, batch, n_tables, n_lookups, dim,
+                     stream);
+}
+
+template <typename Row>
+int cached_bag(const void* fast, const void* bulk, long long fast_rows,
+               long long bulk_rows, int bulk_shared, const void* fast_ids,
+               const void* bulk_ids, void* out, int batch, int n_tables,
+               int n_lookups, int dim, cudaStream_t stream) {
+  const Tier<Row> a{static_cast<const Row*>(fast), fast_rows * dim,
+                    fast_rows, static_cast<const int32_t*>(fast_ids)};
+  const Tier<Row> b{static_cast<const Row*>(bulk),
+                    bulk_shared ? 0 : bulk_rows * dim, bulk_rows,
+                    static_cast<const int32_t*>(bulk_ids)};
+  return launch<Row>(a, &b, out, batch, n_tables, n_lookups, dim, stream);
 }
 
 }  // namespace
@@ -365,28 +512,29 @@ extern "C" int embedding_bag_launch(const void* tables, int tables_bf16,
                                     int n_lookups, int dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables_bf16)
-    return launch<__nv_bfloat16>(tables, n_rows, ids, nullptr, 0, nullptr,
-                                 out, batch, n_tables, n_lookups, dim, s);
-  return launch<float>(tables, n_rows, ids, nullptr, 0, nullptr, out, batch,
-                       n_tables, n_lookups, dim, s);
+    return bag<__nv_bfloat16>(tables, n_rows, ids, out, batch, n_tables,
+                              n_lookups, dim, s);
+  return bag<float>(tables, n_rows, ids, out, batch, n_tables, n_lookups,
+                    dim, s);
 }
 
-// fast (T, S+1, d), bulk (T, R+1, d) of one dtype; fast_ids, bulk_ids
-// (B, T, L) int32 -> out (B, T, d) fp32.
+// fast (T, S+1, d) and bulk (T, R+1, d), or bulk (R+1, d) shared by every
+// table when bulk_shared, of one dtype; fast_ids, bulk_ids (B, T, L) int32
+// -> out (B, T, d) fp32.
 extern "C" int cached_embedding_bag_launch(
     const void* fast, const void* bulk, int tables_bf16, long long fast_rows,
-    long long bulk_rows, const void* fast_ids, const void* bulk_ids,
-    void* out, int batch, int n_tables, int n_lookups, int dim,
-    void* stream) {
+    long long bulk_rows, int bulk_shared, const void* fast_ids,
+    const void* bulk_ids, void* out, int batch, int n_tables, int n_lookups,
+    int dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables_bf16)
-    return launch<__nv_bfloat16>(fast, fast_rows, fast_ids, bulk, bulk_rows,
-                                 bulk_ids, out, batch, n_tables, n_lookups,
-                                 dim, s);
-  return launch<float>(fast, fast_rows, fast_ids, bulk, bulk_rows, bulk_ids,
-                       out, batch, n_tables, n_lookups, dim, s);
+    return cached_bag<__nv_bfloat16>(fast, bulk, fast_rows, bulk_rows,
+                                     bulk_shared, fast_ids, bulk_ids, out,
+                                     batch, n_tables, n_lookups, dim, s);
+  return cached_bag<float>(fast, bulk, fast_rows, bulk_rows, bulk_shared,
+                           fast_ids, bulk_ids, out, batch, n_tables,
+                           n_lookups, dim, s);
 }
-
 // tables (T, R, d), ids (B, T, L) int32 with L % lblk == 0, misaligned one
 // int32 of scratch -> out (B, T, d) fp32; *misaligned ends as 1 when the
 // stream took the per-row branch, else 0.

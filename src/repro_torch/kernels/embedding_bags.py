@@ -31,7 +31,7 @@ def _lib() -> ctypes.CDLL:
     lib.embedding_bag_launch.argtypes = [p, i, ll, p, p, i, i, i, i, p]
     lib.embedding_bag_launch.restype = i
     lib.cached_embedding_bag_launch.argtypes = [
-        p, p, i, ll, ll, p, p, p, i, i, i, i, p]
+        p, p, i, ll, ll, i, p, p, p, i, i, i, i, p]
     lib.cached_embedding_bag_launch.restype = i
     lib.embedding_bag_blocked_launch.argtypes = [p, i, ll, p, p, p, i, i, i,
                                                  i, i, p]
@@ -81,36 +81,49 @@ def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cached_shapes(op: str, fast: torch.Tensor, bulk: torch.Tensor,
+                  fast_idx: torch.Tensor, bulk_idx: torch.Tensor):
+    """(B, T, S+1, R+1, L, d) of a two-tier bag whose bulk tier is either
+    (T, R+1, d) or one (R+1, d) tier shared by every table; ValueError
+    where the shapes disagree."""
+    B, T, S1, L, d = _shapes(op, fast, fast_idx)
+    if bulk.dim() not in (2, 3):
+        raise ValueError(f"{op}: want bulk (T, R+1, d) or (R+1, d), got "
+                         f"{tuple(bulk.shape)}")
+    Tb, R1, db = (T, *bulk.shape) if bulk.dim() == 2 else bulk.shape
+    if Tb != T or db != d or R1 < 1 or fast_idx.shape != bulk_idx.shape:
+        raise ValueError(f"{op}: tiers disagree: fast {tuple(fast.shape)}, "
+                         f"bulk {tuple(bulk.shape)}, fast_idx "
+                         f"{tuple(fast_idx.shape)}, bulk_idx "
+                         f"{tuple(bulk_idx.shape)}")
+    return B, T, S1, R1, L, d
+
+
 def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
                          fast_idx: torch.Tensor,
                          bulk_idx: torch.Tensor) -> torch.Tensor:
     """fast (T, S+1, d) and bulk (T, R+1, d) of one dtype (fp32|bf16),
     fast_idx and bulk_idx (B, T, L) int32 pre-translated slots, contiguous
     on one CUDA device -> pooled (B, T, d) fp32, the two tiers' pools
-    added.
+    added. A 2-D bulk (R+1, d) is one tier that every table reads (the
+    host tier's chunk cache, ``bulk_idx`` its positions).
 
     Launches on the current stream and does not synchronise. Raises if
     the kernel does not build or its launch is refused."""
     op = "cached_embedding_bag"
     _build.check_inputs(op, tables={"fast": fast, "bulk": bulk},
                         ids={"fast_idx": fast_idx, "bulk_idx": bulk_idx})
-    B, T, S1, L, d = _shapes(op, fast, fast_idx)
-    _, _, R1, _, _ = _shapes(op, bulk, bulk_idx)
-    if bulk.shape[0] != T or bulk.shape[2] != d \
-            or fast_idx.shape != bulk_idx.shape:
-        raise ValueError(f"{op}: tiers disagree: fast {tuple(fast.shape)}, "
-                         f"bulk {tuple(bulk.shape)}, fast_idx "
-                         f"{tuple(fast_idx.shape)}, bulk_idx "
-                         f"{tuple(bulk_idx.shape)}")
+    B, T, S1, R1, L, d = cached_shapes(op, fast, bulk, fast_idx, bulk_idx)
     out = torch.empty((B, T, d), device=fast.device, dtype=torch.float32)
     with torch.cuda.device(fast.device):
         stream = torch.cuda.current_stream(fast.device).cuda_stream
         err = _lib().cached_embedding_bag_launch(
             fast.data_ptr(), bulk.data_ptr(),
-            int(fast.dtype == torch.bfloat16), S1, R1, fast_idx.data_ptr(),
-            bulk_idx.data_ptr(), out.data_ptr(), B, T, L, d, stream)
+            int(fast.dtype == torch.bfloat16), S1, R1, int(bulk.dim() == 2),
+            fast_idx.data_ptr(), bulk_idx.data_ptr(), out.data_ptr(), B, T,
+            L, d, stream)
     _raise_on(err, f"{op} at B={B} T={T} S+1={S1} R+1={R1} L={L} d={d} "
-                   f"{fast.dtype}")
+                   f"{'shared ' * (bulk.dim() == 2)}{fast.dtype}")
     return out
 
 

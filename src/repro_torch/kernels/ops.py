@@ -74,13 +74,19 @@ def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
                          bulk_idx: torch.Tensor) -> torch.Tensor:
     """Two-tier cached bag: (T, S+1, d) x (T, R+1, d) x 2 x (B, T, L)
     pre-translated slots -> (B, T, d) pooled, fp32; one launch on the
-    card."""
+    card. A 2-D bulk (R+1, d) is one tier that every table reads, as the
+    (T, R+1, d) tier ``bulk[None].expand(T, -1, -1)``. Shapes that
+    disagree raise ValueError."""
     if fast.device.type == "cuda":
         out = bag_kernels.cached_embedding_bag(fast, bulk, fast_idx,
                                                bulk_idx)
         launch_counts["cached_embedding_bag"] += 1
         return out
     if fast.device.type == "cpu":
+        bag_kernels.cached_shapes("cached_embedding_bag", fast, bulk,
+                                  fast_idx, bulk_idx)
+        if bulk.dim() == 2:
+            bulk = bulk[None].expand(fast.shape[0], -1, -1)
         return ref.cached_embedding_bag_ref(fast, bulk, fast_idx, bulk_idx)
     raise _no_path("cached_embedding_bag", fast)
 

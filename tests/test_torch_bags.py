@@ -93,6 +93,99 @@ def test_cached_embedding_bag_ref_matches_pallas_and_ref(pad_zero, dtype):
                                          jnp.asarray(bi))), **TOL)
 
 
+def _fake_slab_pool(fast, cache, fast_idx, pos, dtype):
+    """The reference's cached-bag pool of the host tier: the cache rows
+    gathered into a fake (T, B*L, d) bulk slab exactly as
+    ``repro.hoststore.exchange.HostTieredExchange._cached_bag_pool``
+    builds it, then ``repro.kernels.ref.cached_embedding_bag_ref``."""
+    b, t, l = fast_idx.shape
+    cold_rows = jnp.take(jnp.asarray(cache, _jdt(dtype)), jnp.asarray(pos),
+                         axis=0)                       # (B, T, L, d)
+    fake = cold_rows.transpose(1, 0, 2, 3).reshape(t, b * l, -1)
+    fake_idx = jnp.broadcast_to(
+        (jnp.arange(b)[:, None, None] * l
+         + jnp.arange(l)[None, None, :]).astype(jnp.int32), (b, t, l))
+    return np.asarray(jax_ref.cached_embedding_bag_ref(
+        jnp.asarray(fast, _jdt(dtype)), fake, jnp.asarray(fast_idx),
+        fake_idx))
+
+
+def _shared_bulk(rng, B, T, L, S, C, d, pad_zero):
+    """A hot slab (T, S+1, d), a flat cache (C+1, d) whose last row is its
+    pad, and the slots of a host-tier lookup: each lookup hot (its cache
+    position the pad) or cold (its slab slot the pad)."""
+    fast = _tables(rng, T, S + 1, d)
+    cache = rng.uniform(-1, 1, (C + 1, d)).astype(np.float32)
+    if pad_zero:
+        fast[:, S] = 0.0
+        cache[C] = 0.0
+    hot = rng.random((B, T, L)) < 0.5
+    fi = np.where(hot, rng.integers(0, S, (B, T, L)), S).astype(np.int32)
+    pos = np.where(hot, C, rng.integers(0, C, (B, T, L))).astype(np.int32)
+    return fast, cache, fi, pos
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad_zero", [True, False])
+def test_shared_bulk_matches_the_reference_on_its_fake_slab(pad_zero, dtype):
+    """The cached bag with one (R+1, d) bulk tier that every table reads
+    (the host tier's flat chunk cache) against the reference's pool over
+    the fake slab it gathers from that cache; slots at the pads, by their
+    index and counted from the end, and ids out of range (NaN where the
+    reference gives NaN)."""
+    rng = np.random.default_rng(17)
+    B, T, L, S, C, d = 3, 4, 6, 5, 40, 32
+    fast, cache, fi, pos = _shared_bulk(rng, B, T, L, S, C, d, pad_zero)
+    fi[0, 0, :] = S                   # a bag of pad slots on the hot side
+    pos[0, 0, :] = C                  # ... and on the cold side
+    fi[0, 1, 0], pos[0, 1, 1] = -1, -1          # the pads, from the end
+    fi[1, 2, 0], pos[1, 3, 2] = -2, -3          # real rows, from the end
+    want = _fake_slab_pool(fast, cache, fi, pos, dtype)
+    t = torch.from_numpy
+    got = ops.cached_embedding_bag(t(fast).to(dtype), t(cache).to(dtype),
+                                   t(fi), t(pos))
+    assert got.dtype == torch.float32 and got.shape == (B, T, d)
+    assert not np.isnan(want).any()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the shared form equals the 3-D form on the tier expanded per table
+    np.testing.assert_array_equal(got.numpy(), ref.cached_embedding_bag_ref(
+        t(fast).to(dtype), t(cache).to(dtype)[None].expand(T, -1, -1),
+        t(fi), t(pos)).numpy())
+    fi[2, 3, 2] = S + 1                          # past the hot slab
+    pos[1, 0, 4] = C + 1                         # past the cache
+    pos[2, 1, 0] = -(C + 2)                      # before the cache
+    want = _fake_slab_pool(fast, cache, fi, pos, dtype)
+    got = ops.cached_embedding_bag(t(fast).to(dtype), t(cache).to(dtype),
+                                   t(fi), t(pos)).numpy()
+    nan = np.isnan(want)
+    assert nan[2, 3].all() and nan[1, 0].all() and nan[2, 1].all()
+    assert nan.sum() == 3 * d
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], **TOL)
+
+
+def test_cached_bag_shapes_that_disagree_raise():
+    rng = np.random.default_rng(19)
+    t = torch.from_numpy
+    fast, cache, fi, pos = (t(x) for x in _shared_bulk(rng, 2, 3, 4, 5, 9,
+                                                        32, True))
+    with pytest.raises(ValueError, match="tiers disagree"):
+        ops.cached_embedding_bag(fast, cache[:, :16], fi, pos)
+    with pytest.raises(ValueError, match="tiers disagree"):
+        ops.cached_embedding_bag(fast, cache, fi, pos[:, :, :3])
+    with pytest.raises(ValueError, match="tiers disagree"):
+        ops.cached_embedding_bag(fast, cache, fi, pos[:1])
+    with pytest.raises(ValueError, match="tiers disagree"):
+        ops.cached_embedding_bag(fast, cache[None].expand(2, -1, -1), fi,
+                                 pos)
+    with pytest.raises(ValueError, match="want bulk"):
+        ops.cached_embedding_bag(fast, cache[0], fi, pos)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        ops.cached_embedding_bag(fast, cache, fi[:, :2], pos[:, :2])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bag_kernels.cached_embedding_bag(fast, cache, fi, pos)
+
+
 def _grouped(seed, B, Tf, Tb, L, d, Rf, Rb, inv_perm):
     rng = np.random.default_rng(seed)
     tf, tb = _tables(rng, Tf, Rf, d) * 0.1, _tables(rng, Tb, Rb, d) * 0.1

@@ -136,6 +136,29 @@ def test_forward_matches_the_reference(pool_mode, seed):
         **TOL)
 
 
+def test_cached_bag_reads_the_flat_cache_in_place(monkeypatch):
+    """The cached-bag mode hands the cached-bag op the flat chunk cache
+    itself and the lookups' cache positions: no (B, T, L, d) gather and no
+    (T, B*L, d) slab is built on the way."""
+    from repro_torch.kernels import ops
+    _, got, _, rng = _pair("cached_bag")
+    idx = _indices(got.cfg, rng, b=8)
+    params = got.init_session_params({"bot_mlp": [], "top_mlp": []})
+    got.begin_batch(params, torch.from_numpy(idx), 1)
+    seen, op = [], ops.cached_embedding_bag
+
+    def spy(fast, bulk, fast_idx, bulk_idx):
+        seen.append((fast, bulk, fast_idx, bulk_idx))
+        return op(fast, bulk, fast_idx, bulk_idx)
+
+    monkeypatch.setattr(ops, "cached_embedding_bag", spy)
+    pooled, (fi, pos) = got.forward(params, torch.from_numpy(idx))
+    (fast, bulk, fast_idx, bulk_idx), = seen
+    assert fast is params["hs_hot"] and bulk is params["hs_cache"]
+    assert bulk.dim() == 2 and fast_idx is fi and bulk_idx is pos
+    assert pooled.shape == (8, got.cfg.num_tables, got.cfg.embed_dim)
+
+
 def test_sparse_apply_and_flush_match_the_reference():
     """Three training rounds: faults marked dirty, the split SGD scatter,
     the pads re-zeroed; then a round that evicts the dirty chunks (their
