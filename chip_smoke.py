@@ -52,16 +52,22 @@ Phases; any failure exits non-zero:
         its plain version and against fused_bag_interactions on the
         stacked tables, and interactions on pooled rows of the same
         batches; a bf16 store, d = 128, non-zero pad rows and other edge
-        shapes; both timed;
+        shapes, hand-made slot pairs for each branch of its two-tier pool
+        (both pads, both rows real, counted from the end, out of range in
+        either tier) at the cluster split's edges T = 3, 37 and 100; both
+        timed;
      b. (last) flash_attention at mixtral-8x7b's widths (Hq = 32, Hkv = 8,
         hd = 128, window 4,096, causal, bf16) at the prefill_32k length
         (T = S = 32,768, batch cut from 32 to 1), held against its plain
         version at T = S = 8,192 and on sampled rows at 32,768, with edge
         cases (hd = 120, internlm2-1.8b's 16/8 heads, non-causal, T != S,
-        fully masked rows, fp32), each row also held to its own norm, and
+        fully masked rows, fp32; the tensor-core path's tile edges: T and S
+        of 127-129, hd = 32, 64, 120, 128, windows of 1 and 127, B = 2
+        with Hq / Hkv = 1 and 4), each row also held to its own norm, and
         timed at prefill_32k beside the library (K and V repeated to the
         query heads, F.scaled_dot_product_attention on its memory-efficient
-        backend, held to the sampled rows too);
+        backend, held to the sampled rows too), the card's SM clock, power
+        draw and temperature printed just before and after that timing;
         flash_decode at decode_32k (B = 128,
         S = 32,768, lengths in [1, S]), held against its plain version at
         B = 8 with lengths 0 and S, a poisoned tail and edge shapes; both
@@ -262,6 +268,14 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
+
+
+def clocks_line() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().replace("\n", "; ")
 
 
 def peak_line(phase: str) -> None:
@@ -1382,10 +1396,44 @@ def phase_api_serve(tables, store, cfg, dev):
           fused_serve.fused_cached_bag_interactions(fast, bulk, fi, bi, bot),
           ref.fused_cached_bag_interactions_ref(fast, bulk, fi, bi, bot),
           errs, nan_ok=True, pairs=(Tn, dn))
+    cached_slot_pairs(gen, dev, errs)
     times = time_api_serve(tables, store, cfg, dev)
     peak_line(f"phase 7a (kernels API: two-tier fused op, interaction; "
               f"{time.perf_counter() - t0:.1f} s)")
     return launches, times, {k: max(v) for k, v in errs.items()}
+
+
+def cached_slot_pairs(gen, dev, errs):
+    """Row 2 on hand-made (fast, bulk) slot pairs, one for each branch of
+    its two-tier pool, on non-zero pad rows: one real row beside the other
+    tier's pad (both ways), both pads, both rows real, slots counted from
+    the end (pads and real rows); then a slot out of range in either tier
+    (NaN). At the cluster split's edges T = 3, 37 and 100, and T = 40 at
+    d = 128 and in bf16."""
+    from repro_torch.kernels import fused_serve, ref
+    S, R = 6, 50
+    pairs = [(1, R), (S, 5), (S, R), (2, 7), (-1, -1), (-2, -(R + 1)),
+             (-(S + 1), R), (0, R - 1)]
+    for B, T, d, dtype in ((5, 3, 32, torch.float32),
+                           (3, 37, 32, torch.float32),
+                           (2, 100, 32, torch.bfloat16),
+                           (4, 40, 128, torch.float32)):
+        fast, bulk = draw_store(T, S, R, d, dtype, gen, dev)
+        fi, bi = (torch.tensor([x[k] for x in pairs], dtype=torch.int32,
+                               device=dev).repeat(B, T, 1) for k in (0, 1))
+        bot = torch.empty((B, d), device=dev).uniform_(-1, 1, generator=gen)
+        name = f"B={B} T={T} d={d} {str(dtype)[6:]} hand-made slot pairs"
+        close("fused_cached_bag_interactions", name,
+              fused_serve.fused_cached_bag_interactions(fast, bulk, fi, bi,
+                                                        bot),
+              ref.fused_cached_bag_interactions_ref(fast, bulk, fi, bi, bot),
+              errs, pairs=(T, d))
+        fi[0, T - 1, 3], bi[B - 1, 0, 1] = S + 1, -(R + 2)
+        close("fused_cached_bag_interactions", f"{name}, out of range",
+              fused_serve.fused_cached_bag_interactions(fast, bulk, fi, bi,
+                                                        bot),
+              ref.fused_cached_bag_interactions_ref(fast, bulk, fi, bi, bot),
+              errs, nan_ok=True, pairs=(T, d))
 
 
 def time_api_serve(tables, store, cfg, dev):
@@ -1629,11 +1677,13 @@ def phase_api_attention(dev):
                     rows_by_hand(q, k, v, rows, win).bfloat16(), {})
     del lib
     times = {"flash_attention": {}, "flash_decode": {}}
+    print(f"[clocks] before flash_attention at T=S={T}: {clocks_line()}")
+    k_times = kernel_ms(lambda _: attention_kernel(q, k, v, causal=True,
+                                                   window=win), 1, iters=3)
+    print(f"[clocks] after flash_attention at T=S={T}: {clocks_line()}")
     times["flash_attention"][PREFILL_T] = report_time(
         "flash_attention", f"B=1 T=S={T} Hq={Hq} Hkv={Hkv} hd={hd} causal "
-        f"window={win} bf16 (prefill_32k, batch cut from 32)",
-        kernel_ms(lambda _: attention_kernel(q, k, v, causal=True, window=win),
-                1, iters=3), None,
+        f"window={win} bf16 (prefill_32k, batch cut from 32)", k_times, None,
         time_ms(lambda _: sdpa_attention_expanded(q, k, v, True, win), 1,
                 iters=3),
         [attention_bound(q, k, True, win)])
@@ -1675,7 +1725,12 @@ def phase_api_attention(dev):
     # without a window, non-causal with and without a window, T not a
     # multiple of the 64-row tile, T != S (fully masked rows when T > S
     # with a window), fp32 inputs (the CUDA-core path), a window of 1,
-    # B = 2, bf16 at hd = 36 (not a multiple of 8: the CUDA-core path)
+    # B = 2, bf16 at hd = 36 (not a multiple of 8: the CUDA-core path);
+    # then the edges of the tensor-core path's 128-row query and key tiles:
+    # T and S of 127, 128 and 129, T not a multiple of 128 with S larger,
+    # bf16 at hd = 32, 64, 120 and 128 (TMA zero-fills hd up to 64 or 128),
+    # windows of 1 and 127, T > S with fully masked rows with and without
+    # causal, B = 2 with Hq / Hkv = 1 and 4
     for B, T, S, hq, hkv, d, causal, w, dtype in (
             (1, 1000, 1000, 32, 8, 120, True, 256, torch.bfloat16),
             (1, 1000, 1000, 32, 8, 120, True, 256, torch.float32),
@@ -1688,7 +1743,20 @@ def phase_api_attention(dev):
             (1, 1024, 1024, 32, 8, 128, True, 256, torch.float32),
             (1, 130, 130, 4, 1, 32, True, 1, torch.float32),
             (2, 77, 200, 6, 3, 16, False, None, torch.float32),
-            (1, 100, 100, 4, 2, 36, True, 16, torch.bfloat16)):
+            (1, 100, 100, 4, 2, 36, True, 16, torch.bfloat16),
+            (1, 127, 127, 8, 2, 128, True, None, torch.bfloat16),
+            (1, 128, 128, 8, 2, 128, True, None, torch.bfloat16),
+            (1, 129, 129, 8, 2, 128, True, None, torch.bfloat16),
+            (1, 129, 127, 8, 2, 128, False, None, torch.bfloat16),
+            (1, 300, 1000, 8, 2, 128, False, 127, torch.bfloat16),
+            (1, 200, 257, 8, 2, 32, True, None, torch.bfloat16),
+            (1, 257, 257, 8, 2, 64, True, 127, torch.bfloat16),
+            (1, 257, 257, 8, 2, 120, False, None, torch.bfloat16),
+            (1, 257, 257, 8, 2, 128, True, 1, torch.bfloat16),
+            (1, 520, 129, 8, 2, 128, True, 127, torch.bfloat16),
+            (1, 520, 129, 8, 2, 64, False, 127, torch.bfloat16),
+            (2, 300, 300, 8, 8, 128, True, 127, torch.bfloat16),
+            (2, 300, 300, 8, 2, 128, False, None, torch.bfloat16)):
         q, k, v = attention_inputs(B, T, S, hq, hkv, d, dtype, gen, dev)
         close_attention(
             "flash_attention", f"B={B} T={T} S={S} Hq={hq} Hkv={hkv} hd={d} "

@@ -6,8 +6,11 @@ Two sources, two entry points, replacing two TPU kernels:
                       (``src/repro/kernels/flash_attention.py:90``):
                       ``csrc/flash_attention.cu``, GQA online-softmax
                       attention with causal and sliding-window masks, one
-                      block per (query tile, head, batch), K/V tiles
-                      streamed through shared memory, masked tiles skipped
+                      block per (query tile, head, batch), masked key tiles
+                      skipped; bf16 (hd a multiple of 8) on the tensor
+                      cores: a producer warp's TMA copies feed two
+                      warpgroups' wgmma products, 128-row query and key
+                      tiles; fp32 on the CUDA cores
   flash_decode     <- ``flash_decode_pallas``
                       (``src/repro/kernels/flash_decode.py:75``):
                       ``csrc/flash_decode.cu``, one query token over the

@@ -25,10 +25,11 @@
 //   fused_cached_bag_interactions_launch replaces
 //   `fused_cached_bag_interactions_pallas` (fused_serve.py:181): the tiered
 //   store's two tiers, fast (T, S+1, d) and bulk (T, R+1, d), with
-//   pre-translated ids fast_ids and bulk_ids (B, T, L). Every lookup reads
-//   BOTH rows, each id against its own tier's row count; the two are
-//   pooled apart and added, in the order of the reference
-//   (cached_embedding_bag_ref, then interactions).
+//   pre-translated ids fast_ids and bulk_ids (B, T, L), each id against
+//   its own tier's row count. A lookup's answer is the sum of its two rows,
+//   as in the reference (cached_embedding_bag_ref, then interactions); on
+//   the store one of the two is always its tier's pad (slot S or R), and
+//   nothing assumes that pad is zero.
 //
 // Computes, per sample b:
 //   A[0]   = bot_out[b]
@@ -50,8 +51,9 @@
 // once. Keeping 3.35 TB/s busy over ~0.6 us of latency takes ~2 MB in
 // flight, ~16,000 rows.
 //
-// Design of the single-group and grouped entry points (the kernel the
-// serve path launches once a micro-batch):
+// Design: one cluster kernel for all three entry points (the single-group
+// and grouped ones are the kernel the serve path launches once a
+// micro-batch):
 //   - A thread-block cluster per sample: B x C blocks, C = min(8, T)
 //     (8 is the portable cluster size), block c pooling tables
 //     [c*T/C, (c+1)*T/C) (T=40: 5 tables a block, 200 blocks at B=25,
@@ -81,6 +83,17 @@
 //     and a block must then wait again until its peers have read it.
 //   - Rows whose byte width is not a multiple of 16, or whose tables are
 //     not 16-byte aligned, take a scalar path: a lane a column.
+//   - The two-tier entry point pools with pool_bag2, row 6's idea
+//     (embedding_bag.cu) on pool_bag's lanes and shots: a lookup loads
+//     only its real row (the fast row unless its fast slot is the pad S,
+//     else the bulk row), and the other tier's pad row, loaded into
+//     registers once a bag, is added beside it; half the rows of the
+//     first design's reads go. Both pads, both rows real and a slot
+//     outside its tier take branches of their own. The fast tier's rows
+//     (hot by construction) and the pads are loaded through L1, where they
+//     repeat; the bulk tier's are read once (7% less time at B = 200 and
+//     5% at 800 on an H100, 2% more at 100). Its own instantiation (kTwo),
+//     so the single-group and grouped kernels compile as before.
 // fp32 summation order: within a bag, lane group g sums rows g, g+P,
 // g+2P, ... (P = rows a load instruction) in lookup order, the P group
 // sums are added by a butterfly of shuffles (pairs of groups at distance
@@ -91,11 +104,6 @@
 // keep a warp's next shot in flight while it sums the last, and a
 // persistent grid that overlaps one sample's pairs with the next one's
 // gather (a block now idles at the cluster barrier).
-//
-// The two-tier entry point keeps its first design: one block per sample,
-// a warp a table, a lane a column, an unrolled lookup loop keeping rows in
-// flight. To move it onto the cluster kernel, pool_bag would read a second
-// row (the bulk tier's) beside each fast-tier row of a shot.
 #include <algorithm>
 #include <type_traits>
 
@@ -111,112 +119,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// ----------------------------------------------------- two-tier kernel
-// The two-tier entry point's kernel, one block per sample, its body as it
-// was first ported, when all three entry points shared it (hence `pos`
-// and `n_fast`, which the two-tier instantiation leaves at the identity
-// and T). A copy without those branches compiled to other registers and
-// measured slower on an H100, so the body stays as measured.
-
-// Row r of a table of n_rows rows, column k, as jnp.take reads it: a
-// negative id counts from the end, an id outside [-n_rows, n_rows) is NaN.
-template <typename Row>
-__device__ __forceinline__ float take(const Row* tab, long long n_rows,
-                                      long long r, int k, int dim) {
-  if (r < 0) r += n_rows;
-  if (r < 0 || r >= n_rows) return __int_as_float(0x7fc00000);
-  return k < dim ? to_f32(tab[r * dim + k]) : 0.f;
-}
-
-// Tables 0..n_fast-1 of the kernel order live in `fast` (fast_rows rows
-// each), the rest in `bulk` (bulk_rows rows each). `pos` (T+1 entries) maps
-// an output feature to its accumulator slot; nullptr means the identity.
-// kTwoTier: every table lives in both (n_fast = T), and lookup l of table t
-// reads fast[t, ids] and bulk[t, ids2].
-template <typename Row, bool kTwoTier>
-__global__ void fused_bag_interactions_kernel(
-    const Row* __restrict__ fast, long long fast_rows, int n_fast,
-    const Row* __restrict__ bulk, long long bulk_rows,
-    const int32_t* __restrict__ pos, const int32_t* __restrict__ ids,
-    const int32_t* __restrict__ ids2, const float* __restrict__ bot,
-    float* __restrict__ out, int n_tables, int n_lookups, int dim) {
-  extern __shared__ float acc[];  // (T+1) rows of `ld` floats, then pos
-  const int ld = dim + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const long long b = blockIdx.x;
-  const int s1 = n_tables + 1;
-  float* out_b = out + b * (dim + s1 * (s1 - 1) / 2);
-  int* slot = reinterpret_cast<int*>(acc + s1 * ld);
-
-  for (int i = threadIdx.x; i < s1; i += blockDim.x)
-    slot[i] = pos == nullptr ? i : pos[i];
-  for (int k = threadIdx.x; k < dim; k += blockDim.x) {
-    const float v = bot[b * dim + k];
-    acc[k] = v;
-    out_b[k] = v;
-  }
-
-  const long long ids_b = b * n_tables * n_lookups;
-  for (int t = warp; t < n_tables; t += n_warps) {
-    const bool in_fast = kTwoTier || t < n_fast;
-    const long long n_rows = in_fast ? fast_rows : bulk_rows;
-    const Row* tab = in_fast ? fast + (long long)t * fast_rows * dim
-                             : bulk + (long long)(t - n_fast) * bulk_rows * dim;
-    const Row* tab2 = bulk + (long long)t * bulk_rows * dim;  // kTwoTier
-    const long long ids_t = ids_b + (long long)t * n_lookups;
-    for (int k0 = 0; k0 < dim; k0 += 32) {
-      const int k = k0 + lane;
-      float s = 0.f, s2 = 0.f;
-      for (int l0 = 0; l0 < n_lookups; l0 += 32) {
-        const int n = min(32, n_lookups - l0);
-        const int mine = lane < n ? ids[ids_t + l0 + lane] : 0;
-        int mine2 = 0;
-        if constexpr (kTwoTier)
-          mine2 = lane < n ? ids2[ids_t + l0 + lane] : 0;
-#pragma unroll 8
-        for (int j = 0; j < n; ++j) {
-          s += take(tab, n_rows, __shfl_sync(0xffffffffu, mine, j), k, dim);
-          if constexpr (kTwoTier)
-            s2 += take(tab2, bulk_rows, __shfl_sync(0xffffffffu, mine2, j), k,
-                       dim);
-        }
-      }
-      if (k < dim) acc[(t + 1) * ld + k] = kTwoTier ? s + s2 : s;
-    }
-  }
-  __syncthreads();
-  write_pairs(acc, ld, slot, s1, dim, out_b + dim);
-}
-
-template <typename Row, bool kTwoTier = false>
-int launch(const void* fast, long long fast_rows, int n_fast,
-           const void* bulk, long long bulk_rows, const void* pos,
-           const void* ids, const void* ids2, const void* bot, void* out,
-           int batch, int n_tables, int n_lookups, int dim,
-           cudaStream_t stream) {
-  // ceil(T / 32) tables a warp, and as few warps as that allows, so the
-  // tables spread evenly (T=40: 20 warps of 2 tables).
-  const int tables_per_warp = (n_tables + 31) / 32;
-  const int n_warps = (n_tables + tables_per_warp - 1) / tables_per_warp;
-  const size_t smem = (size_t)(n_tables + 1) * (dim + 1) * sizeof(float) +
-                      (size_t)(n_tables + 1) * sizeof(int);
-  auto kernel = fused_bag_interactions_kernel<Row, kTwoTier>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<batch, n_warps * 32, smem, stream>>>(
-      static_cast<const Row*>(fast), fast_rows, n_fast,
-      static_cast<const Row*>(bulk), bulk_rows,
-      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(ids),
-      static_cast<const int32_t*>(ids2), static_cast<const float*>(bot),
-      static_cast<float*>(out), n_tables, n_lookups, dim);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------ cluster kernel
 constexpr int kClusterMax = 8;   // the portable cluster size
@@ -243,10 +145,14 @@ struct Shot {
 // registers or fewer (G = 4, 8: the d=32 rows). A block waits at the
 // cluster barrier for its slowest peer; more resident blocks keep the SM
 // gathering meanwhile (64 registers, 6 blocks of 5 warps an SM, measured
-// slower on an H100 at B >= 100 than 40 registers, 10 blocks).
-template <int G>
+// slower on an H100 at B >= 100 than 40 registers, 10 blocks). The
+// two-tier body holds both tiers' pads beside its shot: 2 (64 registers;
+// on an H100, 3 spilled and ran 15-28% slower at B = 200-800, and 8-row
+// shots at 42 registers ran 16% faster at B = 100, within 5% either way
+// at 200, and 3% and 16% slower at B = 800 and 25).
+template <int G, bool kTwo>
 struct Occupancy {
-  static constexpr int kMinBlocks = G == 4 || G == 8 ? 3 : 1;
+  static constexpr int kMinBlocks = G == 4 || G == 8 ? (kTwo ? 2 : 3) : 1;
 };
 
 // A 16-byte load that does not allocate in L1: a gathered row is read once.
@@ -350,6 +256,143 @@ __device__ __forceinline__ void pool_bag(const Row* __restrict__ tab,
   }
 }
 
+// A lookup's slot in one tier of `rows` < 2^31 rows: the row (a negative
+// id counts from the end of the tier), whether that row lies inside the
+// tier, and whether it is the tier's last row, its pad.
+struct Slot {
+  int row;
+  bool inside, pad;
+};
+
+__device__ __forceinline__ Slot slot_of(int id, int rows) {
+  const int r = id < 0 ? id + rows : id;
+  return {r, (unsigned)r < (unsigned)rows, r == rows - 1};
+}
+
+// A lane's part of a row for the row path G: one 16-byte vector (G > 0)
+// or one element (G == 0) of a table of n_cols vectors or elements a row.
+// load reads a row once (no L1 allocation); load_reused keeps it in L1,
+// for the fast tier's hot rows and the pads, which repeat within an SM.
+template <typename Row, int G>
+struct Part {
+  using T = uint4;
+  static __device__ __forceinline__ T zero() { return make_uint4(0, 0, 0, 0); }
+  static __device__ __forceinline__ T load(const Row* tab, int row,
+                                           int n_cols, int c) {
+    return load_row_vec(reinterpret_cast<const uint4*>(tab) +
+                        (long long)row * n_cols + c);
+  }
+  static __device__ __forceinline__ T load_reused(const Row* tab, int row,
+                                                  int n_cols, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(tab) +
+                 (long long)row * n_cols + c);
+  }
+  static __device__ __forceinline__ void add(float* s, T v) {
+    add_vec(s, v, static_cast<const Row*>(nullptr));
+  }
+};
+
+template <typename Row>
+struct Part<Row, 0> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ T load(const Row* tab, int row,
+                                           int n_cols, int c) {
+    return to_f32(tab[(long long)row * n_cols + c]);
+  }
+  static __device__ __forceinline__ T load_reused(const Row* tab, int row,
+                                                  int n_cols, int c) {
+    return to_f32(__ldg(tab + (long long)row * n_cols + c));
+  }
+  static __device__ __forceinline__ void add(float* s, T v) { s[0] += v; }
+};
+
+// The two-tier bag of one table: lookups [lo, hi) of the slots at fidp
+// (fast tier, fast_rows rows) and bidp (bulk tier, bulk_rows rows), each
+// tier's last row its pad, pooled into dst[0, dim) by one whole warp, with
+// pool_bag's lanes, shots and sums. As row 6's body (embedding_bag.cu): a
+// lookup loads only its real row, the fast row unless the fast slot is the
+// pad, else the bulk row, and adds the other tier's pad from registers
+// (loaded once a bag, so a pad need not be zero). Both pads, both rows
+// real (the bulk row loaded outside the shot) and a slot outside its tier
+// (the bag's sum is NaN) take branches of their own.
+template <typename Row, int G>
+__device__ __forceinline__ void pool_bag2(const Row* __restrict__ fast,
+                                          int fast_rows,
+                                          const Row* __restrict__ bulk,
+                                          int bulk_rows,
+                                          const int32_t* __restrict__ fidp,
+                                          const int32_t* __restrict__ bidp,
+                                          int lo, int hi, int dim, int lane,
+                                          float* dst) {
+  using S = Shot<G>;
+  using V = Part<Row, G>;
+  constexpr int E = G == 0 ? 1 : 16 / (int)sizeof(Row);
+  constexpr int W = G == 0 ? 32 : G;
+  const int grp = G == 0 ? 0 : lane / G;
+  const int col = G == 0 ? lane : lane % G;
+  const int n_cols = dim / E;
+  for (int c0 = 0; c0 < n_cols; c0 += W) {
+    const int c = c0 + col;
+    const bool mine = c < n_cols;
+    float sum[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) sum[e] = 0.f;
+    const typename V::T pad_f =
+        mine ? V::load_reused(fast, fast_rows - 1, n_cols, c) : V::zero();
+    const typename V::T pad_b =
+        mine ? V::load_reused(bulk, bulk_rows - 1, n_cols, c) : V::zero();
+    bool bad = false;
+    for (int l0 = lo; l0 < hi; l0 += 32) {
+      const int f32 = l0 + lane < hi ? fidp[l0 + lane] : 0;
+      const int b32 = l0 + lane < hi ? bidp[l0 + lane] : 0;
+#pragma unroll 1
+      for (int h = 0; h < 32 && l0 + h < hi; h += kShot) {
+        typename V::T v[S::U];
+#pragma unroll
+        for (int u = 0; u < S::U; ++u) {
+          const int r = h + u * S::P + grp;  // this lane's lookup of the shot
+          const Slot sf = slot_of(__shfl_sync(kFull, f32, r), fast_rows);
+          const Slot sb = slot_of(__shfl_sync(kFull, b32, r), bulk_rows);
+          const bool live = l0 + r < hi;
+          const bool real_f = sf.inside && !sf.pad;
+          const bool real_b = sb.inside && !sb.pad;
+          const bool out = !sf.inside || !sb.inside;
+          bad |= live && out;
+          v[u] = V::zero();
+          if (live && !out && mine) {
+            if (real_f != real_b) {  // one real row and the other's pad
+              v[u] = real_f ? V::load_reused(fast, sf.row, n_cols, c)
+                            : V::load(bulk, sb.row, n_cols, c);
+              V::add(sum, real_f ? pad_b : pad_f);
+            } else if (real_f) {     // both rows real
+              v[u] = V::load_reused(fast, sf.row, n_cols, c);
+              V::add(sum, V::load(bulk, sb.row, n_cols, c));
+            } else {                 // both pads
+              V::add(sum, pad_f);
+              V::add(sum, pad_b);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < S::U; ++u) V::add(sum, v[u]);
+      }
+    }
+    if constexpr (G != 0) {
+#pragma unroll
+      for (int off = G; off < 32; off <<= 1)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          sum[e] += __shfl_xor_sync(kFull, sum[e], off);
+    }
+    bad = __any_sync(kFull, bad);
+    if (grp == 0 && mine)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dst[c * E + e] = bad ? __int_as_float(0x7fc00000) : sum[e];
+  }
+}
+
 // Row i of pair p = i(i-1)/2 + j (0 <= j < i) of the strict lower
 // triangle in numpy's row-major order.
 __device__ __forceinline__ int pair_row(int p) {
@@ -372,15 +415,19 @@ __device__ __forceinline__ void cluster_wait() {
 // column k and concat position src[k] (nullptr: k) of fast (n_fast tables
 // of fast_rows rows) then bulk (bulk_rows rows), into accumulator row 1+k;
 // the pair loop reads rows slot[i], slot[j] (nullptr: i, j).
-template <typename Row, int G>
-__global__ void __launch_bounds__(kMaxWarps * 32, Occupancy<G>::kMinBlocks)
+// kTwo: the two tiers of the same tables, fast (T, fast_rows, d) and bulk
+// (T, bulk_rows, d); table k pools fast slots ids and bulk slots ids2
+// (pool_bag2), and src and slot are nullptr.
+template <typename Row, int G, bool kTwo>
+__global__ void __launch_bounds__(kMaxWarps * 32,
+                                  Occupancy<G, kTwo>::kMinBlocks)
 cluster_bag_interactions_kernel(
     const Row* __restrict__ fast, long long fast_rows, int n_fast,
     const Row* __restrict__ bulk, long long bulk_rows,
     const int32_t* __restrict__ src, const int32_t* __restrict__ slot,
-    const int32_t* __restrict__ ids, const float* __restrict__ bot,
-    float* __restrict__ out, int n_tables, int n_lookups, int dim,
-    int segs) {
+    const int32_t* __restrict__ ids, const int32_t* __restrict__ ids2,
+    const float* __restrict__ bot, float* __restrict__ out, int n_tables,
+    int n_lookups, int dim, int segs) {
   // (T+1) accumulator rows of ld floats, the slot map, then (segs > 1) a
   // partial row per (table, segment) of this block
   extern __shared__ float acc[];
@@ -410,16 +457,22 @@ cluster_bag_interactions_kernel(
   for (int it = warp; it < n_items; it += n_warps) {
     const int t = t0 + it / segs;
     const int seg = it % segs;
-    const int c = src == nullptr ? t : src[t];
-    const bool in_fast = c < n_fast;
-    const Row* tab = in_fast
-        ? fast + (long long)c * fast_rows * dim
-        : bulk + (long long)(c - n_fast) * bulk_rows * dim;
-    pool_bag<Row, G>(tab, in_fast ? fast_rows : bulk_rows,
-                     ids + (b * n_tables + t) * n_lookups,
-                     seg * n_lookups / segs, (seg + 1) * n_lookups / segs,
-                     dim, lane, segs == 1 ? acc + (1 + t) * ld
-                                          : part + it * ld);
+    const long long bag = (b * n_tables + t) * n_lookups;
+    const int lo = seg * n_lookups / segs, hi = (seg + 1) * n_lookups / segs;
+    float* dst = segs == 1 ? acc + (1 + t) * ld : part + it * ld;
+    if constexpr (kTwo) {
+      pool_bag2<Row, G>(fast + (long long)t * fast_rows * dim, (int)fast_rows,
+                        bulk + (long long)t * bulk_rows * dim, (int)bulk_rows,
+                        ids + bag, ids2 + bag, lo, hi, dim, lane, dst);
+    } else {
+      const int c = src == nullptr ? t : src[t];
+      const bool in_fast = c < n_fast;
+      const Row* tab = in_fast
+          ? fast + (long long)c * fast_rows * dim
+          : bulk + (long long)(c - n_fast) * bulk_rows * dim;
+      pool_bag<Row, G>(tab, in_fast ? fast_rows : bulk_rows, ids + bag, lo,
+                       hi, dim, lane, dst);
+    }
   }
   if (segs > 1) {
     __syncthreads();
@@ -460,12 +513,13 @@ cluster_bag_interactions_kernel(
   }
 }
 
-template <typename Row, int G>
+template <typename Row, int G, bool kTwo>
 cudaError_t launch_cluster(const Row* fast, long long fast_rows, int n_fast,
                            const Row* bulk, long long bulk_rows,
                            const int32_t* src, const int32_t* slot,
-                           const int32_t* ids, const float* bot, float* out,
-                           int batch, int n_tables, int n_lookups, int dim,
+                           const int32_t* ids, const int32_t* ids2,
+                           const float* bot, float* out, int batch,
+                           int n_tables, int n_lookups, int dim,
                            cudaStream_t stream) {
   static int n_sms = 0;
   if (n_sms == 0) {
@@ -489,7 +543,7 @@ cudaError_t launch_cluster(const Row* fast, long long fast_rows, int n_fast,
   const size_t smem =
       ((size_t)(n_tables + 1) * (dim + 1) + (n_tables + 1) +
        (segs > 1 ? (size_t)per_block * segs * (dim + 1) : 0)) * 4;
-  auto kernel = cluster_bag_interactions_kernel<Row, G>;
+  auto kernel = cluster_bag_interactions_kernel<Row, G, kTwo>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -509,7 +563,7 @@ cudaError_t launch_cluster(const Row* fast, long long fast_rows, int n_fast,
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, kernel, fast, fast_rows, n_fast, bulk, bulk_rows, src, slot,
-      ids, bot, out, n_tables, n_lookups, dim, segs);
+      ids, ids2, bot, out, n_tables, n_lookups, dim, segs);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -517,21 +571,23 @@ cudaError_t launch_cluster(const Row* fast, long long fast_rows, int n_fast,
 // The row path for these tables: 16-byte vectors when every row is whole
 // 16-byte vectors and each group with tables starts 16-byte aligned,
 // G = the vectors a row rounded up to a power of two in [4, 32]; else the
-// scalar path.
-template <typename Row>
+// scalar path. Single and grouped tables: kTwo false, n_fast + n_bulk
+// tables; two tiers: kTwo, n_fast = n_bulk = T tables and bulk slots ids2.
+template <typename Row, bool kTwo = false>
 cudaError_t launch_rows(const void* fast, long long fast_rows, int n_fast,
                         const void* bulk, long long bulk_rows, int n_bulk,
                         const void* src, const void* slot, const void* ids,
-                        const void* bot, void* out, int batch, int n_lookups,
-                        int dim, cudaStream_t stream) {
+                        const void* ids2, const void* bot, void* out,
+                        int batch, int n_lookups, int dim,
+                        cudaStream_t stream) {
   auto go = [&](auto g) {
-    return launch_cluster<Row, decltype(g)::value>(
+    return launch_cluster<Row, decltype(g)::value, kTwo>(
         static_cast<const Row*>(fast), fast_rows, n_fast,
         static_cast<const Row*>(bulk), bulk_rows,
         static_cast<const int32_t*>(src), static_cast<const int32_t*>(slot),
-        static_cast<const int32_t*>(ids), static_cast<const float*>(bot),
-        static_cast<float*>(out), batch, n_fast + n_bulk, n_lookups, dim,
-        stream);
+        static_cast<const int32_t*>(ids), static_cast<const int32_t*>(ids2),
+        static_cast<const float*>(bot), static_cast<float*>(out), batch,
+        kTwo ? n_fast : n_fast + n_bulk, n_lookups, dim, stream);
   };
   const size_t row_bytes = (size_t)dim * sizeof(Row);
   const bool aligned =
@@ -556,11 +612,12 @@ extern "C" int fused_bag_interactions_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables_bf16)
     return (int)launch_rows<__nv_bfloat16>(tables, n_rows, n_tables, nullptr,
-                                           0, 0, nullptr, nullptr, ids, bot,
-                                           out, batch, n_lookups, dim, s);
+                                           0, 0, nullptr, nullptr, ids,
+                                           nullptr, bot, out, batch,
+                                           n_lookups, dim, s);
   return (int)launch_rows<float>(tables, n_rows, n_tables, nullptr, 0, 0,
-                                 nullptr, nullptr, ids, bot, out, batch,
-                                 n_lookups, dim, s);
+                                 nullptr, nullptr, ids, nullptr, bot, out,
+                                 batch, n_lookups, dim, s);
 }
 
 // Two groups: fast (n_fast, fast_rows, d) and bulk (n_bulk, bulk_rows, d)
@@ -577,29 +634,31 @@ extern "C" int fused_grouped_bag_interactions_launch(
   if (tables_bf16)
     return (int)launch_rows<__nv_bfloat16>(fast, fast_rows, n_fast, bulk,
                                            bulk_rows, n_bulk, src, pos, ids,
-                                           bot, out, batch, n_lookups, dim,
-                                           s);
+                                           nullptr, bot, out, batch,
+                                           n_lookups, dim, s);
   return (int)launch_rows<float>(fast, fast_rows, n_fast, bulk, bulk_rows,
-                                 n_bulk, src, pos, ids, bot, out, batch,
-                                 n_lookups, dim, s);
+                                 n_bulk, src, pos, ids, nullptr, bot, out,
+                                 batch, n_lookups, dim, s);
 }
 
 // Two tiers of the same T tables: fast (T, fast_rows, d) and bulk
-// (T, bulk_rows, d) of one dtype; fast_ids and bulk_ids (B, T, L) int32.
+// (T, bulk_rows, d) of one dtype, each tier's last row its pad, fewer than
+// 2^31 rows a tier; fast_ids and bulk_ids (B, T, L) int32.
 extern "C" int fused_cached_bag_interactions_launch(
     const void* fast, const void* bulk, int tables_bf16, long long fast_rows,
     long long bulk_rows, const void* fast_ids, const void* bulk_ids,
     const void* bot, void* out, int batch, int n_tables, int n_lookups,
     int dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fast_rows > INT32_MAX || bulk_rows > INT32_MAX)
+    return (int)cudaErrorInvalidValue;  // slots are 32-bit in the kernel
   if (tables_bf16)
-    return launch<__nv_bfloat16, true>(fast, fast_rows, n_tables, bulk,
-                                       bulk_rows, nullptr, fast_ids,
-                                       bulk_ids, bot, out, batch, n_tables,
-                                       n_lookups, dim, s);
-  return launch<float, true>(fast, fast_rows, n_tables, bulk, bulk_rows,
-                             nullptr, fast_ids, bulk_ids, bot, out, batch,
-                             n_tables, n_lookups, dim, s);
+    return (int)launch_rows<__nv_bfloat16, true>(
+        fast, fast_rows, n_tables, bulk, bulk_rows, n_tables, nullptr,
+        nullptr, fast_ids, bulk_ids, bot, out, batch, n_lookups, dim, s);
+  return (int)launch_rows<float, true>(
+      fast, fast_rows, n_tables, bulk, bulk_rows, n_tables, nullptr, nullptr,
+      fast_ids, bulk_ids, bot, out, batch, n_lookups, dim, s);
 }
 
 extern "C" const char* fused_serve_error_string(int code) {

@@ -20,8 +20,8 @@
 //
 // Design: one block per sample. A is staged in shared memory (rows padded to
 // d+1 floats so a warp's lanes hit distinct banks) with coalesced loads,
-// then each thread computes whole pair dot products from shared memory
-// (write_pairs, shared with the fused serve kernel). Offsets are 64-bit.
+// then each thread computes whole pair dot products from shared memory.
+// Offsets are 64-bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -30,6 +30,28 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// The pairwise interaction of one sample, from its (s1 x dim) fp32 rows
+// `acc` in shared memory (row stride `ld`): out[p] = A[i] . A[j] for pair
+// p = i(i-1)/2 + j, 0 <= j < i < s1, the strict lower triangle in numpy's
+// row-major `tril_indices(s1, k=-1)` order. Each thread computes whole
+// pairs; the caller pads `ld` to dim + 1 so the lanes of a warp hit
+// distinct banks.
+__device__ __forceinline__ void write_pairs(const float* acc, int ld, int s1,
+                                            int dim, float* out) {
+  const int n_pairs = s1 * (s1 - 1) / 2;
+  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    int i = (int)((1.f + sqrtf(1.f + 8.f * (float)p)) * 0.5f);
+    while (i * (i - 1) / 2 > p) --i;
+    while ((i + 1) * i / 2 <= p) ++i;
+    const int j = p - i * (i - 1) / 2;
+    const float* ai = acc + i * ld;
+    const float* aj = acc + j * ld;
+    float s = 0.f;
+    for (int k = 0; k < dim; ++k) s = fmaf(ai[k], aj[k], s);
+    out[p] = s;
+  }
+}
 
 template <typename Bot, typename Pooled>
 __global__ void __launch_bounds__(kThreads) interactions_kernel(
@@ -51,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) interactions_kernel(
     a[(t + 1) * ld + (e - t * dim)] = to_f32(pooled_b[e]);
   }
   __syncthreads();
-  write_pairs(a, ld, nullptr, s1, dim, out_b + dim);
+  write_pairs(a, ld, s1, dim, out_b + dim);
 }
 
 template <typename Bot, typename Pooled>

@@ -1,11 +1,11 @@
 """Wrappers of the hand-written Hopper kernel for the fused serve hot path.
 
 ``csrc/fused_serve.cu`` computes gather -> sum-pool -> pairwise
-interaction in one launch, the pooled accumulator kept in shared memory
-(the single-group and grouped entry points: a thread-block cluster a
-sample, the pairs read through distributed shared memory; the two-tier
-one: a block a sample). Its three entry
-points replace three TPU kernels:
+interaction in one launch, the pooled accumulator kept in shared memory:
+a thread-block cluster a sample, each block's pooled rows pushed to its
+peers through distributed shared memory (the two-tier entry point loads
+only a lookup's real row and adds the other tier's pad from registers).
+Its three entry points replace three TPU kernels:
 
   fused_bag_interactions          <- ``fused_bag_interactions_pallas``
                                      (``src/repro/kernels/fused_serve.py:134``)
@@ -102,7 +102,8 @@ def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
     """fast (T, S+1, d) and bulk (T, R+1, d) of one dtype (fp32|bf16),
     fast_idx and bulk_idx (B, T, L) int32 pre-translated slots, bot_out
     (B, d) fp32, all contiguous on one CUDA device -> (B, d + (T+1)T/2)
-    fp32: both rows of every lookup read and summed, then the interaction.
+    fp32: the two rows of every lookup summed (pad rows as they are, zero
+    or not), then the interaction. Each tier has fewer than 2**31 rows.
 
     Launches on the current stream and does not synchronise. Raises if
     the kernel does not build or its launch is refused."""

@@ -68,6 +68,15 @@ def _attention(B, T, S, Hq, Hkv, hd, seed, dtype):
     (1, 12, 20, 4, 2, 16, True, None),    # T < S: causal is top-left
     (1, 16, 16, 4, 2, 8, False, 5),       # window without causal
     (1, 9, 9, 2, 1, 120, True, None),     # hd = 120 (h2o-danube-3-4b)
+    # the edges of the card's 128-row query and key tiles
+    (1, 127, 127, 2, 1, 32, True, None),
+    (1, 128, 128, 2, 2, 64, True, None),
+    (1, 129, 129, 2, 1, 128, False, None),
+    (1, 100, 200, 2, 1, 16, True, None),  # T not a multiple, S larger
+    (1, 130, 130, 2, 1, 16, True, 1),     # a window of 1
+    (1, 140, 140, 2, 1, 16, True, 127),   # a window of 127
+    (2, 40, 40, 4, 1, 16, True, 8),       # B = 2, Hq / Hkv = 4
+    (2, 40, 40, 2, 2, 16, False, None),   # B = 2, Hq / Hkv = 1
 ])
 def test_flash_attention_ref_matches_pallas_and_ref(B, T, S, Hq, Hkv, hd,
                                                     causal, win):
@@ -91,6 +100,37 @@ def test_flash_attention_dtypes(dtype):
         *jargs, block_q=8, block_k=8)), **TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(jax_ref.flash_attention_ref(
         *jargs)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+def test_flash_attention_bf16_head_widths(hd):
+    """bf16 at the head widths the card's tensor-core path pads to its 64-
+    and 128-column tiles, at T = S = 129 (one row past a query tile)."""
+    (q, k, v), jargs = _attention(1, 129, 129, 2, 1, hd, hd, torch.bfloat16)
+    got = ref.flash_attention_ref(q, k, v, causal=True, window=100)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(flash_attention_pallas(
+        *jargs, causal=True, window=100, block_q=8, block_k=8)),
+        **TOL[torch.bfloat16])
+    np.testing.assert_allclose(_np(got), _np(jax_ref.flash_attention_ref(
+        *jargs, causal=True, window=100)), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal,Hq,Hkv", [(True, 4, 1), (False, 2, 2)])
+def test_fully_masked_rows_at_tile_edges(causal, Hq, Hkv):
+    """T > S across the card's 128-row tiles: with S = 129 and a window of
+    4, rows t >= 132 see no key, so the reference gives them the mean of v
+    over all S keys; the port gives the same, for both batch rows."""
+    B, T, S, hd, win = 2, 260, 129, 16, 4
+    (q, k, v), jargs = _attention(B, T, S, Hq, Hkv, hd, 12, torch.float32)
+    got = ref.flash_attention_ref(q, k, v, causal=causal, window=win)
+    want = jax_ref.flash_attention_ref(*jargs, causal=causal, window=win)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[torch.float32])
+    mean = v.mean(dim=1).repeat_interleave(Hq // Hkv, dim=1)  # (B, Hq, hd)
+    dead = got[:, S - 1 + win:]
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_np(dead), _np(mean[:, None].expand_as(dead)),
+                               **TOL[torch.float32])
 
 
 @pytest.mark.parametrize("causal", [True, False])

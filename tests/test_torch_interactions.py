@@ -162,6 +162,31 @@ def test_fused_cached_out_of_range_ids_follow_jnp_take():
     np.testing.assert_allclose(got[0], want[0], **TOL)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_cached_rare_slot_pairs(dtype):
+    """Hand-made (fast, bulk) slot pairs for every branch of the card's
+    two-tier pool, on non-zero pad rows: one real row beside the other
+    tier's pad (both ways), both pads, both rows real, slots counted from
+    the end (pads and real rows), and in samples 1-3 a slot out of range
+    in either tier, which makes the reference's pool NaN."""
+    rng = np.random.default_rng(9)
+    B, T, d, S, R = 4, 3, 16, 3, 10
+    fast, bulk = _store(rng, T, S, R, d, pad_rows=0.5)
+    pairs = [(1, R), (S, 5), (S, R), (2, 7), (-1, -1), (-2, -(R + 1)),
+             (-(S + 1), R), (0, R - 1)]
+    L = len(pairs)
+    fi = np.tile(np.array([f for f, _ in pairs], np.int32), (B, T, 1))
+    bi = np.tile(np.array([b for _, b in pairs], np.int32), (B, T, 1))
+    fi[1, 0, 3], bi[2, 2, 1], fi[3, 1, 0] = S + 1, -(R + 2), -(S + 2)
+    bot = rng.uniform(-1, 1, (B, d)).astype(np.float32)
+    want, got = _cached_both(fast, bulk, fi, bi, bot, dtype)
+    assert got.shape == (B, d + (T + 1) * T // 2)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert not np.isnan(got[0]).any() and np.isnan(got[1:]).any(axis=1).all()
+    np.testing.assert_allclose(got[~np.isnan(want)], want[~np.isnan(want)],
+                               **TOL)
+
+
 def test_store_from_tables_equals_fused_bag():
     """A store built from the tables by the tiered runtime and looked up
     through the two-tier op gives the single-tier op's answer on the
