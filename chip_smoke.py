@@ -32,6 +32,12 @@ Phases; any failure exits non-zero:
      plan="none" session, with its own composed path and with a session
      under an interleaved concrete ShardingPlan. Closed-loop p50/p99 at
      the default depth and at depth 1, and a profile of both flushes;
+     4c. row-wise sharding at n=1 on phase 3's tables:
+     ``Engine(get_dlrm("dlrm-rm2-small-sharded"), exchange=mode)`` serves
+     4 submitted queries in each wire mode ("partial_pool", "unpooled"),
+     composed (``serve_kernel == "composed"``, no kernel launched), probs
+     equal to the table-wise session's; closed-loop p50 beside the
+     table-wise composed path, in turns;
   5. time the serve kernels with CUDA events beside their bound, their
      plain versions and one library yardstick;
   6. the tiered runtime at full width: a two-tier store built from the
@@ -51,7 +57,11 @@ Phases; any failure exits non-zero:
         B = 25, 100, 200 and 800 of the alpha = 1.05 stream, held against
         its plain version and against fused_bag_interactions on the
         stacked tables, and interactions on pooled rows of the same
-        batches; a bf16 store, d = 128, non-zero pad rows and other edge
+        batches (and at the edges of its design: B = 1, 397, 801, T = 1
+        and 100, d = 33, 8, 256, every fp32/bf16 mix, pooled and bot_out
+        off 16-byte alignment; timed beside an empty kernel's device
+        time, its floor, and at d = 128); a bf16 store, d = 128, non-zero
+        pad rows and other edge
         shapes, hand-made slot pairs for each branch of its two-tier pool
         (both pads, both rows real, counted from the end, out of range in
         either tier) at the cluster split's edges T = 3, 37 and 100; both
@@ -96,7 +106,11 @@ Phases; any failure exits non-zero:
      the tables' bytes + 2 GB, no kernel launched, and one step under the
      profiler; 8b. plan="auto" AdaGrad at the launchers' lr of 0.01, which
      diverges as the reference does: its first step held as in 8, then
-     the step where its loss first is not finite recorded;
+     the step where its loss first is not finite recorded; 8c.
+     ``dlrm-rm2-small-sharded`` trains through the row-wise exchange in
+     both wire modes (SGD 3 steps, AdaGrad 2, depth 1), its losses, MLPs
+     and touched rows (and accumulators) equal to a table-wise session's
+     from the same seed and stream, no kernel launched;
   9. checkpoint at step 4 -> resume -> 4 more steps equals an
      uninterrupted 8-step run, on the card at ``cfg.reduced()`` size;
  10. the host chunk tier (last, once every earlier tensor is freed):
@@ -180,6 +194,11 @@ DECODE_B = 128
 # caches of S rows.
 CHECK_T = 8192
 TIME_DECODE_B = 16
+# Row-wise sharding at n=1 (phases 4c and 8c): the paper's "full sharding"
+# configuration, at phase 3's widths, against the table-wise session.
+ROW_WISE_CONFIG = "dlrm-rm2-small-sharded"
+ROW_WISE_MODES = ("partial_pool", "unpooled")
+ROW_WISE_TRAIN = (("sgd", 0.01, 3), ("adagrad", 1e-3, 2))   # opt, lr, steps
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -729,6 +748,77 @@ def phase_interleaved(none, auto_plan):
           none.serve_direct(big["dense"], big["indices"]))
     del sess
     peak_line("phase 4b (interleaved ShardingPlan)")
+
+
+def phase_row_wise_serve(none, card):
+    """Phase 4c: ``dlrm-rm2-small-sharded`` (row-wise sharding at n=1) on
+    phase 3's tables, under plan="none" in both wire modes: 4 submitted
+    queries each, composed, no kernel launched, probs equal to the
+    table-wise session's; then closed-loop p50 beside the table-wise
+    composed path (fused_serve="off"), in turns."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import RowWiseExchange
+
+    t0 = time.perf_counter()
+    cfg = get_dlrm(ROW_WISE_CONFIG)
+    def widths(c):
+        return (c.num_tables, c.rows_per_table, c.embed_dim,
+                c.lookups_per_table, c.batch_size, c.num_dense)
+
+    check(cfg.sharding == "row_wise" and widths(cfg) == widths(none.cfg),
+          f"{cfg.name} is not phase 3's widths, row-wise")
+    torch.cuda.reset_peak_memory_stats()
+    queries = submit_queries(cfg)
+    want = np.stack([none.serve_direct(q["dense"], q["indices"])
+                     for q in queries])
+    sessions = {}
+    for mode in ROW_WISE_MODES:
+        sess = Engine(cfg, exchange=mode).serve_session(
+            max_batch_queries=4, params=none.params)
+        check(isinstance(sess.exchange, RowWiseExchange)
+              and sess.exchange.mode == mode,
+              f"{mode}: the session's exchange is {sess.exchange}")
+        check(sess.serve_kernel == "composed",
+              f"{mode}: serve_kernel={sess.serve_kernel}")
+        check(sess.params["tables"] is none.params["tables"],
+              f"{mode}: the session copied the tables")
+        ops.reset_launch_counts()
+        futs = [sess.submit(q, now=i * 1e-4) for i, q in enumerate(queries)]
+        torch.cuda.synchronize()
+        launches = dict(ops.launch_counts)
+        check(all(f.done for f in futs), f"{mode}: queries left pending")
+        check(not any(launches.values()),
+              f"{mode}: row-wise serving launched {launches}")
+        got = np.stack([f.probs for f in futs])
+        err = float(np.abs(got - want).max())
+        print(f"[row-wise] {cfg.name} exchange={mode}: 4 queries in one "
+              f"flush at depth {sess.depth_for_samples(4 * cfg.batch_size)}"
+              f", serve_kernel={sess.serve_kernel}, launches {launches}; "
+              f"probs vs the table-wise session max_abs_err={err:.3e}")
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{mode}: probs not finite of shape {want.shape}")
+        check(np.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"{mode}: row-wise and table-wise probs disagree")
+        sessions[f"row-wise {mode}"] = sess
+    sessions["table-wise composed"] = Engine(
+        none.cfg, fused_serve="off").serve_session(max_batch_queries=4,
+                                                   params=none.params)
+    order = list(sessions.items())
+    p50 = {label: [] for label in sessions}
+    for label, sess in order + order[::-1]:
+        rep = sess.run_serial(8)
+        p50[label].append(rep.p50_ms)
+    for label, sess in sessions.items():
+        print(f"[row-wise] closed loop, {label} (depth "
+              f"{sess.depth_for_samples(cfg.batch_size)} at 1 query): 8 "
+              f"queries twice, p50 {p50[label][0]:.4f} and "
+              f"{p50[label][1]:.4f} ms ({card})")
+    del sessions, order
+    peak_line(f"phase 4c (row-wise serving on phase 3's tables; "
+              f"{time.perf_counter() - t0:.1f} s)")
+    return p50
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1349,14 +1439,7 @@ def phase_api_serve(tables, store, cfg, dev):
                   interactions_kernel(bot128, p),
                   ref.interactions_ref(bot128, p), errs, pairs=(T, 128))
     del wide, pooled128
-    for B, Tn, dn in ((1, 1, 8), (3, 2, 32), (16, 100, 128)):
-        x = torch.randn((B, Tn, dn), device=dev, generator=gen)
-        bot = torch.randn((B, dn), device=dev, generator=gen)
-        for bdt in (torch.float32, torch.bfloat16):
-            close("interactions", f"B={B} T={Tn} d={dn} bot_out {bdt}",
-                  interactions_kernel(bot.to(bdt), x),
-                  ref.interactions_ref(bot.to(bdt), x), errs,
-                  pairs=(Tn, dn))
+    interaction_edges(gen, dev, errs)
 
     # the store in bf16, at the query's B = 200
     B = BATCHES[2]
@@ -1401,6 +1484,55 @@ def phase_api_serve(tables, store, cfg, dev):
     peak_line(f"phase 7a (kernels API: two-tier fused op, interaction; "
               f"{time.perf_counter() - t0:.1f} s)")
     return launches, times, {k: max(v) for k, v in errs.items()}
+
+
+def interaction_edges(gen, dev, errs):
+    """Row 7 at the edges of its design, every fp32/bf16 mix of bot_out
+    and pooled: B = 1, batches that do not split evenly over the blocks
+    (397, 801), T = 1 (one pair) and T = 100 (5,050), d = 33 (a row of
+    partial chunks), 4 (one chunk: a tile's second lane adds zeros), 8
+    and 256, and at T = 100 d = 320 (bf16 raw cells beside A) and 544 (the
+    largest d there: raw cells and the staged row do not fit, so scalar
+    loads and stores from registers), and d = 1,312 at T = 40 (the
+    largest there); then pooled (and bot_out) at an odd
+    element offset of a larger buffer, off 16-byte alignment. bot_out is
+    drawn U(+-1) and pooled U(+-0.05), the scale of the main path's
+    inputs (RTOL's note): at N(0, 1) inputs and d = 256 the fp32
+    summation order alone moves a pair by ~4e-5."""
+    from repro_torch.kernels import feature_interactions, ref
+    dts = (torch.float32, torch.bfloat16)
+
+    def draw(*shape, scale):
+        return torch.empty(shape, device=dev).uniform_(-scale, scale,
+                                                       generator=gen)
+
+    for B, Tn, dn in ((1, 40, 32), (397, 40, 32), (801, 40, 128), (5, 1, 32),
+                      (1, 1, 8), (3, 2, 8), (16, 100, 128), (2, 100, 256),
+                      (7, 40, 33), (9, 40, 256), (3, 40, 4), (2, 100, 320),
+                      (2, 100, 544), (1, 40, 1312)):
+        x = draw(B, Tn, dn, scale=0.05)
+        bot = draw(B, dn, scale=1.0)
+        for bdt in dts:
+            for pdt in dts:
+                close("interactions", f"B={B} T={Tn} d={dn} bot_out "
+                      f"{str(bdt)[6:]} pooled {str(pdt)[6:]}",
+                      feature_interactions.interactions(bot.to(bdt),
+                                                        x.to(pdt)),
+                      ref.interactions_ref(bot.to(bdt), x.to(pdt)), errs,
+                      pairs=(Tn, dn))
+    for B, Tn, dn in ((25, 40, 32), (800, 40, 32), (3, 100, 128)):
+        for pdt in dts:
+            buf = draw(B * Tn * dn + 3, scale=0.05).to(pdt)
+            x = buf[1:1 + B * Tn * dn].view(B, Tn, dn)
+            bbuf = draw(B * dn + 1, scale=1.0)
+            for bot in (bbuf[:B * dn].view(B, dn), bbuf[1:].view(B, dn)):
+                check(x.data_ptr() % 4 == 2 if pdt == torch.bfloat16
+                      else x.data_ptr() % 16 == 4, "pooled is aligned")
+                close("interactions", f"B={B} T={Tn} d={dn} pooled "
+                      f"{str(pdt)[6:]} at an odd element offset, bot_out "
+                      f"at {bot.data_ptr() % 16} bytes off 16",
+                      feature_interactions.interactions(bot, x),
+                      ref.interactions_ref(bot, x), errs, pairs=(Tn, dn))
 
 
 def cached_slot_pairs(gen, dev, errs):
@@ -1492,6 +1624,26 @@ def time_api_serve(tables, store, cfg, dev):
             time_ms(lambda k: library_pairs(*psets[k], li, lj), len(psets),
                     iters=16),
             [pairs_bound(*p) for p in psets])
+        # the least device time of a launch, beside row 7's at this batch
+        floor = kernel_ms(lambda k: feature_interactions.empty_launch(dev), 1)
+        rows["interactions"][B]["floor_ms"] = floor[1]
+        print(f"[time] interactions B={B}: an empty kernel's device time "
+              f"{floor[1]} ms (event {floor[0]:.4f} ms), the floor beside "
+              f"row 7's {rows['interactions'][B]['device_ms']} ms")
+    # row 7 at RM2-large's width, d = 128, on pooled rows at the model's
+    # init scale (RM2-small's tables are d = 32)
+    for B in (BATCHES[0], BATCHES[-1]):
+        wsets = [(torch.empty((B, 128), device=dev).uniform_(
+            -1, 1, generator=gen), torch.empty((B, T, 128), device=dev)
+            .uniform_(-0.02, 0.02, generator=gen)) for _ in range(8)]
+        rows["interactions"][f"{B}@d128"] = report_time(
+            "interactions", f"B={B} T={T} d=128 fp32 pooled",
+            kernel_ms(lambda k: interactions_kernel(*wsets[k]), len(wsets)),
+            time_ms(lambda k: ref.interactions_ref(*wsets[k]), len(wsets),
+                    iters=16),
+            time_ms(lambda k: library_pairs(*wsets[k], li, lj), len(wsets),
+                    iters=16),
+            [pairs_bound(*w) for w in wsets])
     return rows
 
 
@@ -2456,6 +2608,80 @@ def phase_train_diverging(dev, card):
     return first_bad
 
 
+def phase_row_wise_train(card):
+    """Phase 8c: ``dlrm-rm2-small-sharded`` trains through the row-wise
+    exchange in both wire modes from the same init and stream as a
+    table-wise session (Engine seed 0, depth 1): SGD 3 steps, AdaGrad 2.
+    The losses, the MLPs, and the tables (and AdaGrad's accumulators) at
+    every row the steps touched must be equal (rtol = atol = 1e-5). One
+    session at a time holds its tables on the card; the touched rows go
+    to the CPU between them."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import RowWiseExchange
+
+    t0 = time.perf_counter()
+    cfg, table_cfg = get_dlrm(ROW_WISE_CONFIG), get_dlrm(CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    for optimizer, lr, steps in ROW_WISE_TRAIN:
+        runs = [("table-wise", table_cfg, "partial_pool")] + [
+            (f"row-wise {m}", cfg, m) for m in ROW_WISE_MODES]
+        seen = {}
+        rows = None
+        for label, c, mode in runs:
+            sess = Engine(c, exchange=mode, optimizer=optimizer,
+                          lr=lr).train_session()
+            check(sess.pipeline_depth == 1, f"{label}: depth "
+                                            f"{sess.pipeline_depth}")
+            check(isinstance(sess.exchange_inst, RowWiseExchange)
+                  == (c is cfg), f"{label}: {sess.exchange_inst}")
+            ops.reset_launch_counts()
+            rep = sess.run(steps)
+            torch.cuda.synchronize()
+            check(not any(ops.launch_counts.values()),
+                  f"{label}: training launched {dict(ops.launch_counts)}")
+            if rows is None:            # every row the steps looked up
+                from repro_torch.data.recsys import make_recsys_batch
+                ids = torch.cat([make_recsys_batch(c, s)["indices"]
+                                 for s in range(steps)])
+                rows = [torch.unique(ids[:, t].reshape(-1))
+                        for t in range(c.num_tables)]
+            tables = sess.params["tables"]
+            got = {"loss": torch.tensor([h["loss"] for h in rep.history]),
+                   "tables": torch.cat([tables[t].index_select(0, r).cpu()
+                                        for t, r in enumerate(rows)]),
+                   **{f"{k}/{i}/{n}": v.detach().cpu()
+                      for k in ("bot_mlp", "top_mlp")
+                      for i, layer in enumerate(sess.params[k])
+                      for n, v in layer.items()}}
+            if optimizer == "adagrad":
+                acc = sess.opt_state["table_acc"]
+                got["table_acc"] = torch.cat(
+                    [acc[t].index_select(0, r).cpu()
+                     for t, r in enumerate(rows)])
+                del acc
+            seen[label] = got
+            del sess, tables
+            torch.cuda.empty_cache()
+        want = seen.pop("table-wise")
+        for label, got in seen.items():
+            err = max(float((got[k] - want[k]).abs().max()) for k in want)
+            print(f"[row-wise] {optimizer} lr {lr}, {steps} steps at depth "
+                  f"1: {label} vs table-wise, losses "
+                  f"{[round(x, 6) for x in got['loss'].tolist()]}, "
+                  f"{sum(r.numel() for r in rows)} touched rows, max_abs_err "
+                  f"{err:.3e} over losses, MLPs, touched rows"
+                  f"{' and accumulators' if 'table_acc' in got else ''} "
+                  f"({card})")
+            for k in want:
+                check(torch.allclose(got[k], want[k], rtol=RTOL, atol=ATOL),
+                      f"{optimizer}: {label}'s {k} differs from the "
+                      f"table-wise session's")
+    peak_line(f"phase 8c (row-wise training; "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+
 def phase_resume(dev):
     """Phase 9: checkpoint at step 4 -> resume -> 4 more steps equals an
     uninterrupted 8-step run, on the card at cfg.reduced() size, under
@@ -3062,6 +3288,7 @@ def main() -> int:
     del auto, auto_d1
     torch.cuda.empty_cache()
     phase_interleaved(none, auto_plan)
+    row_wise_p50 = phase_row_wise_serve(none, card)
     # 6a and 7a share the stacked tables and the store; the plan=none
     # session then hands its tables over, so 6b holds no more than ~45 GB
     cfg, tables = none.cfg, none.params["tables"]
@@ -3077,6 +3304,7 @@ def main() -> int:
     api_attention = phase_api_attention(dev)
     train = phase_train(dev, card)
     first_bad = phase_train_diverging(dev, card)
+    phase_row_wise_train(card)
     phase_resume(dev)
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
@@ -3109,6 +3337,9 @@ def main() -> int:
               f"{row['peak_gb']:.3f} GB ({card})")
     print(f"[train] plan={DIVERGING_RUN[0]} {DIVERGING_RUN[1]} lr "
           f"{DIVERGING_RUN[3]}: first non-finite loss at step {first_bad}")
+    for label, p50 in row_wise_p50.items():
+        print(f"[row-wise] {label}: closed-loop p50 {p50[0]:.4f} / "
+              f"{p50[1]:.4f} ms ({card})")
     print(json.dumps({"by_batch": by_shape}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -15,7 +15,14 @@
 the step-indexed stream and run the placement planner) or a concrete
 ``ShardingPlan`` (reconciled against the device count). A placed plan
 serves through the tiered exchange: fast and bulk table groups, fused
-into one kernel launch per micro-batch. The serve step's pipeline depth
+into one kernel launch per micro-batch. Under plan="none" a table-wise
+config serves through the fused kernel too; a row-wise config ("full
+sharding", ``dlrm-rm2-*-sharded``) serves composed through the row-wise
+exchange in the wire mode ``exchange=`` names, as the reference does on
+one device:
+
+    eng = Engine(get_dlrm("dlrm-rm2-small-sharded"), exchange="unpooled")
+ The serve step's pipeline depth
 is the planner's, resolved per flushed batch shape, unless
 ``pipeline_depth`` pins it; a train step's is the planner's training
 depth under plan="auto", else 1.
@@ -30,8 +37,8 @@ step, so a model bigger than the card serves and trains:
     serve = eng.serve_session(max_batch_queries=1)
 
 The port serves and trains DLRM on one device. Options of the reference's
-``Engine`` that it does not carry raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+``Engine`` that it does not carry (a mesh and more devices: ROADMAP A6b)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -51,9 +58,8 @@ from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
 PlanArg = Union[None, str, ShardingPlan]
 
-# The reference's default row-wise wire mode. It enters the depth model
-# only for row-wise sharding, which comes with ROADMAP A6.
-_ROW_WISE_EXCHANGE = "partial_pool"
+# The row-wise wire modes (the reference's ``RowWiseExchange``).
+_ROW_WISE_EXCHANGES = ("partial_pool", "unpooled")
 # The reference's default mesh axes of the embedding distribution.
 _AXIS = ("data", "model")
 
@@ -77,9 +83,10 @@ class Engine:
                      plan report's depth when training under plan="auto"
                      (else 1); an int pins it, clamped to a divisor of
                      the batch.
-    exchange       : the reference's row-wise wire mode; only its default
-                     "partial_pool" is accepted, since row-wise sharding is
-                     not ported (ROADMAP A6).
+    exchange       : the row-wise wire mode, "partial_pool" or
+                     "unpooled", of a row-wise config when the plan does
+                     not dictate one (a placed plan's bulk group takes the
+                     plan's own, as in the reference).
     optimizer      : sparse optimizer of training sessions ("sgd" |
                      "adagrad").
     lr             : learning rate of training sessions.
@@ -107,7 +114,7 @@ class Engine:
     metrics        : the MetricsRegistry the host tier's swap tallies go
                      to (None: the process-wide ``default_registry()``).
     mesh, axis, model_axis, dp_axes, compress_grads : the reference's
-                     multi-device options (ROADMAP A6). Only their
+                     multi-device options (ROADMAP A6b). Only their
                      single-device defaults are accepted.
     """
 
@@ -116,7 +123,7 @@ class Engine:
                  fused_serve: str = "auto",
                  pipeline_depth: Optional[int] = None, seed: int = 0,
                  alpha: float = 0.0, device: DeviceArg = None,
-                 exchange: str = _ROW_WISE_EXCHANGE, optimizer: str = "sgd",
+                 exchange: str = "partial_pool", optimizer: str = "sgd",
                  lr: float = 0.01, verbose: bool = False,
                  mesh=None, axis=_AXIS, model_axis: int = 1,
                  dp_axes: Tuple[str, ...] = (),
@@ -149,18 +156,12 @@ class Engine:
             raise NotImplementedError(
                 "a mesh or more than one device (mesh, axis, model_axis > "
                 "1, dp_axes, compress_grads) is not ported yet (ROADMAP "
-                "A6, distributed)")
-        if exchange != _ROW_WISE_EXCHANGE:
-            raise NotImplementedError(
-                f"exchange={exchange!r} (the row-wise wire mode) is not "
-                f"ported yet (ROADMAP A6, distributed)")
+                "A6b, k ranks)")
+        if exchange not in _ROW_WISE_EXCHANGES:
+            raise ValueError(f"unknown row_wise exchange mode {exchange!r}")
         if optimizer not in ("sgd", "adagrad"):
             raise ValueError(f"optimizer must be 'sgd' or 'adagrad', got "
                              f"{optimizer!r}")
-        if cfg.sharding != "table_wise":
-            raise NotImplementedError(
-                f"sharding={cfg.sharding!r} is not ported yet (ROADMAP A6, "
-                f"distributed); the port serves table_wise configs")
         if pipeline_depth is not None and pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got "
                              f"{pipeline_depth}")
@@ -176,6 +177,7 @@ class Engine:
         self.alpha = alpha
         self.optimizer = optimizer
         self.lr = lr
+        self.exchange = exchange
         self.verbose = verbose
         self.device = resolve_device(device)
         self.host_capacity_mb = host_capacity_mb
@@ -206,6 +208,21 @@ class Engine:
             if self.verbose:
                 print(report.summary())
         return self._reports[mode].plan
+
+    def _row_mode(self, plan: Optional[ShardingPlan]) -> str:
+        """The row-wise wire mode a session runs: the plan's, else the
+        engine's ``exchange``."""
+        return plan.exchange if plan is not None else self.exchange
+
+    def _exchange_args(self, plan: Optional[ShardingPlan]) -> dict:
+        """A session's exchange arguments, as the reference's
+        ``_plan_and_exchange`` resolves them: the host tier first (a fresh
+        one); else the session makes the plan's tiered exchange or the
+        config's own layout, in the row-wise wire mode of the plan or the
+        engine."""
+        host = (self._host_exchange() if self.host_capacity_mb is not None
+                else None)
+        return dict(exchange=host, row_wise_exchange=self._row_mode(plan))
 
     def _host_exchange(self) -> HostTieredExchange:
         """A FRESH host-tier exchange (each session owns its own host
@@ -238,7 +255,7 @@ class Engine:
         hit = plan.hit_ratio if plan is not None else 0.0
         placed = plan is not None and bool(plan.placements)
         sharding = plan.mode if placed else None
-        exchange = plan.exchange if plan is not None else _ROW_WISE_EXCHANGE
+        exchange = self._row_mode(plan)
         pmode = "inference" if mode == "inference" else "training"
 
         def resolve(batch_samples: int) -> int:
@@ -278,9 +295,8 @@ class Engine:
         exchange's tables and takes only the MLPs of ``params``.
         ``warmup=True`` runs one untimed capacity batch first."""
         plan = self.build_plan("inference")
-        exchange = (self._host_exchange() if self.host_capacity_mb is not None
-                    else None)
-        if exchange is not None and self.pipeline_depth is None:
+        exchange = self._exchange_args(plan)
+        if self.host_capacity_mb is not None and self.pipeline_depth is None:
             # host tier without a pinned depth: depth 1 (synchronous
             # faulting); pin pipeline_depth to overlap the swaps
             depth, resolver = 1, None
@@ -298,7 +314,7 @@ class Engine:
             query_size=query_size, params=params, seed=self.seed,
             alpha=self.alpha, warmup=warmup,
             pipeline_depth=depth, depth_resolver=resolver,
-            fused=self.fused_serve != "off", exchange=exchange)
+            fused=self.fused_serve != "off", **exchange)
         # record the kernel selection the session resolved on the cached
         # plan report, so plan_report("inference") tells the whole story
         rep = self._reports.get("inference")
@@ -345,5 +361,4 @@ class Engine:
             optimizer=self.optimizer, lr=self.lr, seed=self.seed,
             alpha=self.alpha, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
             ckpt_keep=ckpt_keep, pipeline_depth=depth,
-            exchange=(self._host_exchange()
-                      if self.host_capacity_mb is not None else None))
+            **self._exchange_args(plan))

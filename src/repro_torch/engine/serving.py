@@ -114,8 +114,10 @@ class ServeSession:
     ``Engine`` wires), falling back to 1.
 
     ``exchange``: an ``EmbeddingExchange`` instance to serve through (the
-    host tier, which ``Engine(host_capacity_mb=...)`` builds); None makes
-    the plan's or the config's own. Its session hooks bracket every
+    ``Engine`` passes its host tier); None makes the plan's tiered
+    exchange or the config's own layout, a row-wise one in the wire mode
+    ``row_wise_exchange`` names ("partial_pool" or "unpooled"), through
+    ``make_exchange``. Its session hooks bracket every
     execution: ``begin_batch`` faults the batch's cold chunks in before
     the step, and its modeled swap stall is added to the measured service
     time. An exchange that holds the tables itself takes only the MLPs of
@@ -132,7 +134,8 @@ class ServeSession:
                  pipeline_depth: Optional[int] = 1,
                  depth_resolver: Optional[Callable[[int], int]] = None,
                  fused: bool = True,
-                 exchange: Optional[EmbeddingExchange] = None):
+                 exchange: Optional[EmbeddingExchange] = None,
+                 row_wise_exchange: str = "partial_pool"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = plan
@@ -155,7 +158,9 @@ class ServeSession:
                 f"samples must divide into pipeline_depth={fixed} "
                 f"micro-batches")
         self._exch = (exchange if exchange is not None else
-                      make_exchange(cfg, plan=plan, device=self.device))
+                      make_exchange(cfg, plan=plan,
+                                    row_wise_exchange=row_wise_exchange,
+                                    device=self.device))
         self._fused = bool(fused)
         self.serve_kernel = ("fused" if self._fused
                              and self._exch.supports_fused_forward()

@@ -105,9 +105,11 @@ class TrainSession(_SessionBase):
     ``opt_state`` are the live tensors.
 
     ``exchange``: an ``EmbeddingExchange`` instance to train through (the
-    host tier, SGD only, which ``Engine(host_capacity_mb=...)`` builds;
-    kept as ``exchange_inst``); None makes the plan's or the config's
-    own. Its ``begin_batch(train=True)`` and ``end_batch`` bracket every
+    ``Engine`` passes its host tier, SGD only); None makes the plan's
+    tiered exchange or the config's own layout, a row-wise one in the wire
+    mode ``row_wise_exchange`` names, through ``make_exchange``; the one
+    trained through is kept as ``exchange_inst``. Its
+    ``begin_batch(train=True)`` and ``end_batch`` bracket every
     step: the batch's cold chunks fault in (and are marked dirty) before
     the step. An exchange that holds the tables itself gets a fresh init
     of the MLPs only, and takes no ``ckpt_dir``."""
@@ -120,13 +122,16 @@ class TrainSession(_SessionBase):
                  alpha: float = 0.0, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 50, ckpt_keep: int = 3,
                  pipeline_depth: int = 1,
-                 exchange: Optional[EmbeddingExchange] = None):
+                 exchange: Optional[EmbeddingExchange] = None,
+                 row_wise_exchange: str = "partial_pool"):
         self.device = resolve_device(device)
         self.plan = plan
         self.pipeline_depth = int(pipeline_depth)
         exch = self.exchange_inst = (
             exchange if exchange is not None
-            else make_exchange(cfg, plan=plan, device=self.device))
+            else make_exchange(cfg, plan=plan,
+                               row_wise_exchange=row_wise_exchange,
+                               device=self.device))
         if ckpt_dir and exch.holds_tables:
             raise NotImplementedError(HOST_TIER_CKPT)
         step_fn = build_step(

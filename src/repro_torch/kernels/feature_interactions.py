@@ -1,12 +1,16 @@
 """Wrapper of the hand-written Hopper kernel for the feature interaction.
 
 ``csrc/interactions.cu`` replaces the TPU kernel ``interactions_pallas``
-(``src/repro/kernels/interactions.py:31``): one block per sample, A =
-[bot_out; pooled] staged in shared memory in fp32, the strict lower
-triangle of A.A^T written straight after bot_out. The TPU kernel's batch
-tile (``block_b``) is not carried over: the kernel picks its own. The
-source file says what bounds it. The wrapper takes CUDA tensors only;
-``kernels.ops`` routes CPU tensors to ``kernels.ref.interactions_ref``.
+(``src/repro/kernels/interactions.py:31``): at most one wave of blocks,
+each summing an even share of the batch's samples, a sample's A =
+[bot_out; pooled] landing in shared memory by ``cp.async``; the strict
+lower triangle of A.A^T is cut into 4 x 4 tiles of pairs that two or
+four lanes each sum in fp32 registers, and written after bot_out. The TPU kernel's batch tile
+(``block_b``) is not carried over: the kernel picks its own split from
+the batch. The source file says what bounds it. The wrapper takes CUDA
+tensors only; ``kernels.ops`` routes CPU tensors to
+``kernels.ref.interactions_ref``. ``empty_launch`` launches an empty
+kernel: the floor a small batch's time is read against.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.interactions_launch.argtypes = [p, i, p, i, p, i, i, i, p]
     lib.interactions_launch.restype = i
+    lib.interactions_empty_launch.argtypes = [p]
+    lib.interactions_empty_launch.restype = i
     lib.interactions_error_string.argtypes = [i]
     lib.interactions_error_string.restype = ctypes.c_char_p
     return lib
@@ -34,7 +40,9 @@ def interactions(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
     one CUDA device -> (B, d + (T+1)T/2) fp32.
 
     Launches on the current stream and does not synchronise. Raises if
-    the kernel does not build or its launch is refused."""
+    the kernel does not build or its launch is refused: A in fp32, its
+    rows rounded up to 4 and its d up to 32, must fit 227 KB of shared
+    memory (d <= 1,312 at T = 40, d <= 544 at T = 100, bf16 as fp32)."""
     op = "interactions"
     _build.check_inputs(op, tables={"pooled": pooled},
                         other={"bot_out": (bot_out, (torch.float32,
@@ -63,3 +71,16 @@ def interactions(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
                            f"B={B} T={T} d={d} bot_out {bot_out.dtype} "
                            f"pooled {pooled.dtype}")
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch one empty block on ``device``'s current stream: the least
+    device time a launch takes. A yardstick of measurements, counted
+    nowhere."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.interactions_empty_launch(
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty launch failed (cudaError {err}: "
+                           f"{lib.interactions_error_string(err).decode()})")

@@ -18,6 +18,10 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   # the reduced config on the CPU, through the plain PyTorch path
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+  # row-wise sharding ("full sharding"), composed, in the paper's wire mode
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --config dlrm-rm2-small-sharded --exchange unpooled
+
   # the host chunk tier: full weights in host memory, a hot slab and a
   # chunk cache inside a device budget smaller than the tables
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -46,10 +50,10 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 from repro_torch.obs import Tracer, default_registry
 
-_A6, _A7 = "A6, distributed", "A7, cluster/fabric/online"
+_A6B, _A7 = "A6b, k ranks", "A7, cluster/fabric/online"
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
-    "model_axis": _A6, "exchange": _A6,
+    "model_axis": _A6B,
     **{dest: _A7 for dest in (
         "replicas", "fleet_mode", "board_capacity_mb", "fabric_latency_us",
         "fabric_gbs", "fabric_cache_rows", "scenario", "router", "autoscale",
@@ -125,6 +129,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="measured-hardware calibration JSON "
                          "(repro_torch.core.calibration): host_link "
                          "overrides the host tier's link terms")
+    ap.add_argument("--exchange", default="partial_pool",
+                    choices=["partial_pool", "unpooled"],
+                    help="row-wise wire mode of a row-wise (sharded) "
+                         "config")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -139,7 +147,6 @@ def _parser() -> argparse.ArgumentParser:
         "not ported yet (each raises, naming its ROADMAP item)")
     add = not_ported.add_argument
     add("--model-axis", type=int, default=1)
-    add("--exchange", default="partial_pool")
     add("--replicas", type=int, default=1)
     add("--fleet-mode", choices=["replicated", "sharded"],
         default="replicated")
@@ -191,7 +198,8 @@ def main(argv: Optional[list] = None) -> int:
     engine = Engine(cfg, plan=args.plan, seed=args.seed, alpha=args.alpha,
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
-                    fused_serve=args.fused_serve, device=device,
+                    fused_serve=args.fused_serve, exchange=args.exchange,
+                    device=device,
                     host_capacity_mb=args.host_capacity_mb,
                     host_chunk_rows=args.host_chunk_rows,
                     host_hot_fraction=args.host_hot_fraction,

@@ -16,6 +16,10 @@ of DLRM on one device: the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 8
 
+  # row-wise sharding ("full sharding") in the paper's wire mode
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --config dlrm-rm2-small-sharded --exchange unpooled --steps 50
+
   # the host chunk tier (SGD only): dirty chunks write back to host memory
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 8 --host-capacity-mb 0.1 --alpha 1.05
@@ -40,9 +44,8 @@ _NOT_PORTED = {
     "arch": "A8, LM substrate",
     "batch": "A8, LM substrate",
     "seq": "A8, LM substrate",
-    "exchange": "A6, distributed",
-    "compress_grads": "A6, distributed",
-    "model_axis": "A6, distributed",
+    "compress_grads": "A6b, k ranks",
+    "model_axis": "A6b, k ranks",
     "emit_deltas": "A7, cluster/fabric/online",
     "delta_every_steps": "A7, cluster/fabric/online",
     "delta_dt_s": "A7, cluster/fabric/online",
@@ -85,6 +88,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="measured-hardware calibration JSON "
                         "(repro_torch.core.calibration): host_link "
                         "overrides the host tier's link terms")
+    p.add_argument("--exchange", default="partial_pool",
+                   choices=["partial_pool", "unpooled"],
+                   help="row-wise wire mode of a row-wise (sharded) config")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
     not_ported = p.add_argument_group(
@@ -97,9 +103,6 @@ def _parser() -> argparse.ArgumentParser:
                             help="LM batch (with --workload lm)")
     not_ported.add_argument("--seq", type=int, default=128,
                             help="LM sequence length (with --workload lm)")
-    not_ported.add_argument("--exchange", default="partial_pool",
-                            choices=["partial_pool", "unpooled"],
-                            help="row-wise wire mode (row-wise sharding)")
     not_ported.add_argument("--model-axis", type=int, default=1)
     not_ported.add_argument("--compress-grads", action="store_true")
     not_ported.add_argument("--emit-deltas", default=None, metavar="PATH")
@@ -126,6 +129,7 @@ def main(argv: Optional[list] = None) -> int:
         raise SystemExit(f"[train] {err}")
     engine = Engine(cfg, plan=args.plan, optimizer=args.optimizer,
                     lr=args.lr, alpha=args.alpha, seed=args.seed,
+                    exchange=args.exchange,
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
                     host_capacity_mb=args.host_capacity_mb,

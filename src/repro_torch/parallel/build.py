@@ -64,7 +64,7 @@ def init_dlrm_opt_state(cfg: DLRMConfig, optimizer: str,
     if n != 1 or compress_grads:
         raise NotImplementedError(
             "optimizer state over more than one device or for compressed "
-            "dense grads is not ported yet (ROADMAP A6, distributed)")
+            "dense grads is not ported yet (ROADMAP A6b, k ranks)")
     if optimizer not in ("sgd", "adagrad"):
         raise ValueError(f"optimizer must be 'sgd' or 'adagrad', got "
                          f"{optimizer!r}")
@@ -113,7 +113,7 @@ def build_step(cfg: DLRMConfig, *, mode: str = "serve",
     if compress_grads or dp_axes:
         raise NotImplementedError(
             "compressed dense grads and pure data-parallel axes are not "
-            "ported yet (ROADMAP A6, distributed)")
+            "ported yet (ROADMAP A6b, k ranks)")
     exch = exchange if exchange is not None else make_exchange(cfg)
     depth = int(pipeline_depth)
     if depth < 1:

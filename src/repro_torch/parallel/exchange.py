@@ -5,12 +5,20 @@ hold tables, the Alg. 1 forward (indices in, pooled embeddings and a
 backward context out), the Alg. 2 backward (pooled-output grads expanded
 to flat (row id, row grad) pairs per table group, and applied by a sparse
 optimizer), and whether the serve path may run as one fused gather ->
-pool -> interaction kernel. The port carries two exchanges on one
-device: the table-wise one (the paper's "unsharded" layout) and the
+pool -> interaction kernel. The port carries three exchanges on one
+device: the table-wise one (the paper's "unsharded" layout), the
+row-wise one (the paper's "full sharding", in both wire modes) and the
 planner's tiered one (fast and bulk table groups, as placed by
-``plan="auto"`` or a ``ShardingPlan``). The host tier
-(``hoststore.HostTieredExchange``) is a third, built by the Engine.
-The distributed and row-wise exchanges are a later ROADMAP item (A6).
+``plan="auto"`` or a ``ShardingPlan``; its bulk group row-wise). The host
+tier (``hoststore.HostTieredExchange``) is a fourth, built by the Engine.
+
+The row-wise functions below are the reference's
+(``src/repro/parallel/primitives.py:110-271``) at n=1: this device owns
+every row [0, R) of every table, the masks keep their meaning (ids
+outside the range pool to zero, their grads go to row 0 at zero), and the
+collectives over the ranks (the indices' and grads' all_gather, the
+pools' psum_scatter) are the identity. The exchanges over more devices
+bring them (ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -35,6 +43,78 @@ def acc_key(table_key: str) -> str:
     """Param key -> its AdaGrad accumulator's key ("tables" ->
     "table_acc", "tables_fast" -> "table_acc_fast", ...)."""
     return table_key.replace("tables", "table_acc", 1)
+
+
+def _divisor_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (>= 1)."""
+    c = max(1, min(n, target))
+    while n % c:
+        c -= 1
+    return c
+
+
+def _masked_rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows this device owns, zeros elsewhere. tables (T, R, d) hold
+    global rows [0, R) at n=1 (the reference's r_start is 0); idx (B', T,
+    L) global ids -> (B', T, L, d) in the tables' dtype. An id outside the
+    range takes row 0 times zero (a NaN there stays NaN, as in the
+    reference)."""
+    T, R, _ = tables.shape
+    local = idx.long()
+    mine = (local >= 0) & (local < R)
+    safe = torch.where(mine, local, torch.zeros((), dtype=local.dtype,
+                                                device=local.device))
+    t = torch.arange(T, device=tables.device)[None, :, None]
+    rows = tables[t, safe]                                 # (B', T, L, d)
+    return rows.mul_(mine[..., None].to(rows.dtype))
+
+
+def _masked_partial_pool(tables: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """Partial sum-pool of the rows this device owns: idx (B', T, L) ->
+    (B', T, d)."""
+    return _masked_rows(tables, idx).sum(dim=2)
+
+
+def row_wise_forward(tables: torch.Tensor, indices: torch.Tensor,
+                     mode: str = "partial_pool", lookup_chunk: int = 4096
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 1, full-sharding branch, at n=1. tables (T, R, d), every row
+    of every table; indices (B, T, L) global row ids -> (pooled (B, T, d),
+    the gathered ids (B, T, L), the backward context).
+
+    ``mode`` is the wire format: "partial_pool" pools the owned rows here
+    and reduce-scatters the partial pools; "unpooled" (the paper's)
+    reduce-scatters the unpooled (B, T, L, d) rows and pools at the home
+    device. At n=1 both wires are the identity, so both modes compute the
+    same sums. The masked lookup runs in batch chunks of at most
+    ``lookup_chunk`` samples: the (chunk, T, L, d) row block is the only
+    L-sized tensor alive."""
+    n = 1
+    # the index exchange: an all_gather over the ranks, the identity at
+    # n=1 (ROADMAP A6b brings the collectives)
+    idx_all = indices
+    B, T, L = idx_all.shape
+    if mode == "unpooled":
+        # chunked over each rank's output slots: an (n C', T, L, d) row
+        # block at a time; psum_scatter of the rows, the identity at n=1
+        Bn = B // n
+        Cp = _divisor_chunk(Bn, max(1, lookup_chunk // n))
+        if Bn == Cp:
+            return _masked_rows(tables, idx_all).sum(dim=2), idx_all
+        pooled = [_masked_rows(tables, idx_all[k * Cp:(k + 1) * Cp]).sum(
+            dim=2) for k in range(Bn // Cp)]
+        return torch.cat(pooled), idx_all
+    if mode != "partial_pool":
+        raise ValueError(f"unknown row_wise exchange mode {mode!r}")
+    if B <= lookup_chunk:
+        partial = _masked_partial_pool(tables, idx_all)
+    else:
+        chunk = _divisor_chunk(B, lookup_chunk)
+        partial = torch.cat([_masked_partial_pool(tables, c)
+                             for c in idx_all.split(chunk)])
+    # psum_scatter of the partial pools over the batch: the identity at n=1
+    return partial, idx_all
 
 
 def table_wise_expand_grads(ctx: torch.Tensor, g_pooled: torch.Tensor
@@ -72,6 +152,24 @@ def row_wise_expand_grads(n_rows: int, ctx: torch.Tensor,
     g_rows = g_rows * mine.transpose(0, 1)[..., None].to(g_rows.dtype)
     return (safe.transpose(0, 1).reshape(T, B * L),
             g_rows.reshape(T, B * L, d))
+
+
+def row_wise_backward_update(tables: torch.Tensor, idx_all: torch.Tensor,
+                             g_pooled: torch.Tensor, update_fn: Callable,
+                             lookup_chunk: int = 4096) -> torch.Tensor:
+    """Alg. 2, full-sharding branch, at n=1: the pooled grads (their
+    all_gather over the ranks is the identity here) expanded to the owned
+    rows and applied by ``update_fn(tables, flat_idx, flat_g)`` in batch
+    chunks of at most ``lookup_chunk`` samples, each chunk on the tables
+    the one before it left. The small (T, chunk, d) grads are cast to the
+    tables' dtype BEFORE the L-fold expansion, as the reference does."""
+    B = idx_all.shape[0]
+    chunk = B if B <= lookup_chunk else _divisor_chunk(B, lookup_chunk)
+    for s in range(0, B, chunk):
+        tables = update_fn(tables, *row_wise_expand_grads(
+            tables.shape[1], idx_all[s:s + chunk], g_pooled[s:s + chunk],
+            dtype=tables.dtype))
+    return tables
 
 
 class EmbeddingExchange:
@@ -158,7 +256,7 @@ class TableWiseExchange(EmbeddingExchange):
         if n != 1:
             raise NotImplementedError(
                 f"table-wise exchange over {n} devices is not ported yet "
-                f"(ROADMAP A6, distributed)")
+                f"(ROADMAP A6b, k ranks)")
         super().__init__(cfg, n)
 
     def forward(self, tables, indices):
@@ -174,33 +272,96 @@ class TableWiseExchange(EmbeddingExchange):
         return ops.fused_bag_interactions(tables["tables"], indices, bot_out)
 
 
-class PlannedTieredExchange(EmbeddingExchange):
-    """The planner's tier decisions executed on one device: the fast and
-    the bulk table group each whole and local, under one exchange.
+class RowWiseExchange(EmbeddingExchange):
+    """Paper "full sharding" on one device: every table's rows
+    range-sharded over the devices, which at n=1 gives this device every
+    row. ``mode`` is the wire format, "partial_pool" or "unpooled" (the
+    reference's ``RowWiseExchange``, ``src/repro/parallel/exchange.py:172``);
+    ``lookup_chunk`` bounds the samples a masked lookup or a sparse update
+    handles at once. It has no fused serve path, as in the reference: a
+    session serves it composed."""
 
-    At n=1 both groups are table-wise local (the reference runs the bulk
-    group row-wise over the mesh, which on one device is the whole table),
-    so the forward has no collectives and the fused kernel serves it, on
-    the ids in their original table order. The table permutation and the
-    kernel's per-table map to (group, table of the group) are device
-    tensors built once here, on ``device`` (None = the card), not once per
-    batch."""
+    def __init__(self, cfg: DLRMConfig, n: int = 1,
+                 mode: str = "partial_pool", lookup_chunk: int = 4096):
+        if mode not in ("partial_pool", "unpooled"):
+            raise ValueError(f"unknown row_wise exchange mode {mode!r}")
+        if n != 1:
+            raise NotImplementedError(
+                f"row-wise exchange over {n} devices is not ported yet "
+                f"(ROADMAP A6b, k ranks)")
+        super().__init__(cfg, n)
+        self.mode = mode
+        self.lookup_chunk = lookup_chunk
+
+    def forward(self, tables, indices):
+        return row_wise_forward(tables["tables"], indices, self.mode,
+                                self.lookup_chunk)
+
+    def expand_grads(self, tables, ctx, g_pooled):
+        return {"tables": row_wise_expand_grads(tables["tables"].shape[1],
+                                                ctx, g_pooled)}
+
+    def sparse_apply(self, tables, ctx, g_pooled, update_fn):
+        tables["tables"] = row_wise_backward_update(
+            tables["tables"], ctx, g_pooled, update_fn, self.lookup_chunk)
+        return tables
+
+
+def planned_forward(tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
+                    indices: torch.Tensor, perm: torch.Tensor,
+                    inv: torch.Tensor, n_fast: int,
+                    row_mode: str = "partial_pool",
+                    lookup_chunk: int = 4096
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                               Optional[torch.Tensor]]:
+    """Mixed Alg. 1 executing the planner's placements at n=1: the fast
+    group table-wise, the bulk group row-wise (``row_wise_forward`` in
+    ``row_mode``), the pooled outputs restored to the original table
+    order. ``perm`` (T,) lists the fast tables' ids, then the bulk ones';
+    ``inv`` is its inverse; both long tensors on the ids' device. Returns
+    pooled (B, T, d), the fast group's ids and the bulk group's gathered
+    ids (None for an empty group)."""
+    idx = indices.index_select(1, perm)
+    parts = []
+    ctx_fast = ctx_bulk = None
+    if n_fast:
+        ctx_fast = idx[:, :n_fast]
+        parts.append(dlrm_lib.embedding_bag(tables_fast, ctx_fast))
+    if n_fast < idx.shape[1]:
+        pooled_b, ctx_bulk = row_wise_forward(tables_bulk, idx[:, n_fast:],
+                                              row_mode, lookup_chunk)
+        parts.append(pooled_b)
+    return torch.cat(parts, dim=1).index_select(1, inv), ctx_fast, ctx_bulk
+
+
+class PlannedTieredExchange(EmbeddingExchange):
+    """The planner's tier decisions executed on one device: the fast group
+    table-wise, the bulk group row-wise (``planned_forward``), under one
+    exchange.
+
+    At n=1 the bulk group's row range is every row of its tables, so the
+    forward has no collectives and the fused kernel serves it, on the ids
+    in their original table order; the composed path and training run
+    ``planned_forward``. ``row_mode`` and ``lookup_chunk`` are the bulk
+    group's wire mode and chunk, as the reference's. The table permutation
+    and the kernel's per-table map to (group, table of the group) are
+    device tensors built once here, on ``device`` (None = the card), not
+    once per batch."""
 
     table_keys = ("tables_fast", "tables_bulk")
-    # samples a chunk of the bulk group's sparse update (the reference's
-    # ``lookup_chunk``): the expanded (chunk, Tb, L, d) grad block is the
-    # only L-sized tensor
-    lookup_chunk = 4096
 
     def __init__(self, cfg: DLRMConfig, n: int, plan: ShardingPlan,
-                 device: DeviceArg = None):
+                 device: DeviceArg = None, row_mode: str = "partial_pool",
+                 lookup_chunk: int = 4096):
         if n != 1:
             raise NotImplementedError(
                 f"the tiered exchange over {n} devices is not ported yet "
-                f"(ROADMAP A6, distributed)")
+                f"(ROADMAP A6b, k ranks)")
         super().__init__(cfg, n)
         device = resolve_device(device)
         self.groups = plan_table_groups(plan, n)
+        self.row_mode = row_mode
+        self.lookup_chunk = lookup_chunk
         self.inv_perm = self.groups.inv_perm
         perm = self.groups.fast_ids + self.groups.bulk_ids
         self._perm = torch.as_tensor(perm, dtype=torch.long, device=device)
@@ -209,20 +370,13 @@ class PlannedTieredExchange(EmbeddingExchange):
         self._src = grouped_src(self.inv_perm, device)
 
     def forward(self, tables, indices):
-        """Pool each group, concatenate, restore the original table order
-        (``planned_forward`` of the reference at n=1). The backward context
-        is each group's ids: (fast (B, Tf, L), bulk (B, Tb, L))."""
-        n_fast = len(self.groups.fast_ids)
-        idx = indices.index_select(1, self._perm)
-        ctx = (idx[:, :n_fast], idx[:, n_fast:])
-        parts = []
-        if n_fast:
-            parts.append(dlrm_lib.embedding_bag(tables["tables_fast"],
-                                                ctx[0]))
-        if self.groups.bulk_ids:
-            parts.append(dlrm_lib.embedding_bag(tables["tables_bulk"],
-                                                ctx[1]))
-        return torch.cat(parts, dim=1).index_select(1, self._inv), ctx
+        """``planned_forward``; the backward context is (the fast group's
+        ids (B, Tf, L), the bulk group's (B, Tb, L))."""
+        pooled, ctx_f, ctx_b = planned_forward(
+            tables["tables_fast"], tables["tables_bulk"], indices,
+            self._perm, self._inv, len(self.groups.fast_ids), self.row_mode,
+            self.lookup_chunk)
+        return pooled, (ctx_f, ctx_b)
 
     def _split_g(self, g_pooled):
         g = g_pooled.index_select(1, self._perm)
@@ -242,24 +396,18 @@ class PlannedTieredExchange(EmbeddingExchange):
         return out
 
     def sparse_apply(self, tables, ctx, g_pooled, update_fn):
-        """As ``expand_grads``, then ``update_fn`` on each group in place.
-        The bulk group follows ``row_wise_backward_update``: its pooled
-        grads are cast to the table dtype BEFORE the L-fold expansion (for
-        bf16 tables, another rounding than the fast group's), in batch
-        chunks of at most ``lookup_chunk`` samples."""
+        """As ``expand_grads``, then ``update_fn`` on each group in place;
+        the bulk group through ``row_wise_backward_update`` (its grads cast
+        to the table dtype before the L-fold expansion: for bf16 tables,
+        another rounding than the fast group's)."""
         g_f, g_b = self._split_g(g_pooled)
         if self.groups.fast_ids:
             tables["tables_fast"] = update_fn(
                 tables["tables_fast"], *table_wise_expand_grads(ctx[0], g_f))
         if self.groups.bulk_ids:
-            bulk = tables["tables_bulk"]
-            B = g_b.shape[0]
-            chunk = _divisor_chunk(B, self.lookup_chunk)
-            for s in range(0, B, chunk):
-                bulk = update_fn(bulk, *row_wise_expand_grads(
-                    bulk.shape[1], ctx[1][s:s + chunk], g_b[s:s + chunk],
-                    dtype=bulk.dtype))
-            tables["tables_bulk"] = bulk
+            tables["tables_bulk"] = row_wise_backward_update(
+                tables["tables_bulk"], ctx[1], g_b, update_fn,
+                self.lookup_chunk)
         return tables
 
     def supports_fused_forward(self) -> bool:
@@ -271,25 +419,22 @@ class PlannedTieredExchange(EmbeddingExchange):
             inv_perm=self.inv_perm, src=self._src)
 
 
-def _divisor_chunk(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (>= 1)."""
-    c = max(1, min(n, target))
-    while n % c:
-        c -= 1
-    return c
-
-
 def make_exchange(cfg: DLRMConfig, n: int = 1, *,
                   plan: Optional[ShardingPlan] = None,
+                  row_wise_exchange: str = "partial_pool",
+                  lookup_chunk: int = 4096,
                   device: DeviceArg = None) -> EmbeddingExchange:
-    """The exchange for a config on ``n`` devices: a placed plan dictates
-    the tiered exchange (built on ``device``, None = the card); otherwise
-    ``cfg.sharding`` picks the layout. Resolves one device and raises for
-    more."""
+    """The exchange for a config on ``n`` devices, as the reference's: a
+    placed plan dictates the tiered exchange (built on ``device``, None =
+    the card); otherwise ``cfg.sharding`` picks table-wise or row-wise,
+    with ``row_wise_exchange`` as the row-wise wire mode (the tiered
+    exchange's bulk group's too) and ``lookup_chunk`` its chunk. One
+    device; more raise (ROADMAP A6b)."""
     if plan is not None and plan.placements:
-        return PlannedTieredExchange(cfg, n, plan, device)
-    if cfg.sharding != "table_wise":
-        raise NotImplementedError(
-            f"sharding={cfg.sharding!r} is not ported yet (ROADMAP A6, "
-            f"distributed); this slice serves table_wise configs")
-    return TableWiseExchange(cfg, n)
+        return PlannedTieredExchange(cfg, n, plan, device,
+                                     row_mode=row_wise_exchange,
+                                     lookup_chunk=lookup_chunk)
+    if cfg.sharding == "table_wise":
+        return TableWiseExchange(cfg, n)
+    return RowWiseExchange(cfg, n, mode=row_wise_exchange,
+                           lookup_chunk=lookup_chunk)

@@ -185,15 +185,22 @@ def test_convert_carries_plan_split_trees():
 
 @pytest.mark.parametrize("case", ["row_wise_config", "two_devices"])
 def test_row_wise_and_multi_device_plans_fail_loudly(case):
-    from repro_torch.parallel import make_exchange
+    """More devices still raise (ROADMAP A6b); a row-wise config, which
+    raised naming A6 before, now serves a placed plan (A6a)."""
+    from repro_torch.parallel import PlannedTieredExchange, make_exchange
     cfg = get_dlrm(NAME).reduced()
     plan = _interleaved(ShardingPlan, TablePlacement, cfg.num_tables)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        if case == "row_wise_config":
-            Engine(get_dlrm("dlrm-rm2-small-sharded").reduced(),
-                   device="cpu", plan="auto")
-        else:
-            make_exchange(cfg, 2, plan=plan)
+    if case == "row_wise_config":
+        sess = Engine(get_dlrm("dlrm-rm2-small-sharded").reduced(),
+                      device="cpu", plan="auto").serve_session(
+            max_batch_queries=1)
+        assert isinstance(sess.exchange, PlannedTieredExchange)
+        assert sess.serve_kernel == "fused"
+        probs, _, _ = sess._execute([sess._make_query(0)])
+        assert np.isfinite(probs).all()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        make_exchange(cfg, 2, plan=plan)
 
 
 def test_tiered_exchange_defaults_to_the_card():

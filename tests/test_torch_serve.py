@@ -299,7 +299,7 @@ def test_launcher_report_json(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--model-axis", "2"], "A6"), (["--exchange", "unpooled"], "A6"),
+    (["--model-axis", "2"], "A6b"),
     (["--router", "p2c"], "A7"), (["--min-replicas", "2"], "A7"),
     (["--max-replicas", "8"], "A7"), (["--autoscale-sla-ms", "10"], "A7"),
     (["--board-capacity-mb", "1"], "A7"), (["--fabric-gbs", "50"], "A7"),
@@ -312,6 +312,20 @@ def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serve.main(["--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("exchange", ["partial_pool", "unpooled"])
+def test_launcher_exchange_flag_serves_the_row_wise_config(capsys, exchange):
+    """--exchange, which raised naming A6 before, picks the row-wise wire
+    mode: the sharded config serves composed through it."""
+    from repro_torch.launch import serve
+    rc = serve.main(["--smoke", "--device", "cpu", "--queries", "2",
+                     "--config", "dlrm-rm2-small-sharded", "--exchange",
+                     exchange])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "serve_kernel=composed" in out
+    assert "[serve] dlrm-rm2-small-sharded-smoke:" in out
 
 
 @pytest.mark.parametrize("flag,want", [
@@ -344,7 +358,7 @@ def test_host_tier_refuses_fleet_flags():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A6"), ({"axis": "model"}, "A6")])
+    ({"mesh": object()}, "A6b"), ({"axis": "model"}, "A6b")])
 def test_reference_engine_options_not_ported_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)

@@ -452,15 +452,23 @@ def test_bulk_sparse_apply_casts_before_expansion_bf16():
 
 def test_train_options_not_ported_raise():
     jcfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A6b"):
         build_step(cfg, mode="train", compress_grads=True)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A6b"):
         build_step(cfg, mode="train", dp_axes=("pod",))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A6b"):
         Engine(cfg, compress_grads=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        Engine(cfg, exchange="unpooled", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    # the row-wise wire mode is ported (A6a): a table-wise config keeps
+    # its own exchange, and the mode reaches a row-wise config's
+    eng = Engine(cfg, exchange="unpooled", device="cpu")
+    assert eng.exchange == "unpooled"
+    assert isinstance(eng.train_session().exchange_inst,
+                      type(make_exchange(cfg)))
+    sharded = get_dlrm("dlrm-rm2-small-sharded").reduced()
+    ex = Engine(sharded, exchange="unpooled", device="cpu").train_session(
+        ).exchange_inst
+    assert (type(ex).__name__, ex.mode) == ("RowWiseExchange", "unpooled")
+    with pytest.raises(NotImplementedError, match="A6b"):
         init_dlrm_opt_state(cfg, "adagrad", n=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         LMTrainSession(cfg)
@@ -623,12 +631,22 @@ def test_train_launcher_smoke_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--workload", "lm"], "A8"),
-    (["--emit-deltas", "d.jsonl"], "A7"), (["--compress-grads"], "A6"),
-    (["--model-axis", "2"], "A6"), (["--seq", "64"], "A8"),
-    (["--exchange", "unpooled"], "A6")])
+    (["--emit-deltas", "d.jsonl"], "A7"), (["--compress-grads"], "A6b"),
+    (["--model-axis", "2"], "A6b"), (["--seq", "64"], "A8")])
 def test_train_launcher_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_launcher.main(["--device", "cpu", "--smoke", *flag])
+
+
+def test_train_launcher_exchange_flag_trains_the_row_wise_config(capsys):
+    """--exchange, which raised naming A6 before, picks the row-wise wire
+    mode of the sharded config."""
+    rc = train_launcher.main(["--device", "cpu", "--smoke", "--steps", "3",
+                              "--config", "dlrm-rm2-small-sharded",
+                              "--exchange", "unpooled"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "[train] dlrm dlrm-rm2-small-sharded-smoke: steps=3" in out
 
 
 def test_train_launcher_host_capacity_reaches_the_tier(capsys):
