@@ -113,6 +113,24 @@ Phases; any failure exits non-zero:
      from the same seed and stream, no kernel launched;
   9. checkpoint at step 4 -> resume -> 4 more steps equals an
      uninterrupted 8-step run, on the card at ``cfg.reduced()`` size;
+     9b. the replicated fleet at full width (``repro_torch.cluster``):
+     ``Cluster(get_dlrm("dlrm-rm2-small-unsharded"))`` with B = 200,
+     capacity 4 queries, max_wait_ms 2 and the planner's depth, the
+     replicas sharing the card, in turn and each freed before the next:
+     (i) a flash crowd at the launcher's default load (0.8 x replicas /
+     the measured per-query service) on 2 replicas under p2c with an
+     autoscaler that grows to 3 (every query answered once, probs finite
+     in (0, 1), a scale-up whose remesh copied every param leaf, the
+     spawned replica served and agrees with replica 0, row 1's launches
+     = the sum of resolved depths, 4 queries against the composed path,
+     peak under 3 x the tables + 2 GB); (ii) zipf_drift over two
+     rotations of the hot rows on 2 replicas under round robin with the
+     hit-ratio monitor on the card (a baseline below 1, no lfu_refresh
+     before the first rotation, one after each rotation, and the hit
+     ratio back over the refresh threshold after each refresh); (iii)
+     plan="auto" on 2 replicas under jsq (row 3's launches = the sum of
+     resolved depths, row 1 not launched). Each run prints its report,
+     wall time, achieved / offered QPS and utilizations;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -135,10 +153,14 @@ Phases; any failure exits non-zero:
      deterministic algorithms); the host link measured and served
      through ``calibration=``. Peak device memory and host RSS printed.
 
-Each phase prints its peak device memory. The line before the last holds
-the per-kernel JSON (every TPU kernel of the JAX package, all nine
-ported); the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or of the JAX package ``repro``.
+Each phase prints its peak device memory. Every profile of a flush or a
+training step keeps only whole traces (each device event a whole multiple
+of the flushes or steps; up to 5 tries, else "not measured"), as the
+kernel timings do; phase 4c's row-wise sessions are profiled too. The
+line before the last holds the per-kernel JSON (every TPU kernel of the
+JAX package, all nine ported); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX or of the JAX package
+``repro``.
 """
 from __future__ import annotations
 
@@ -199,6 +221,19 @@ TIME_DECODE_B = 16
 ROW_WISE_CONFIG = "dlrm-rm2-small-sharded"
 ROW_WISE_MODES = ("partial_pool", "unpooled")
 ROW_WISE_TRAIN = (("sgd", 0.01, 3), ("adagrad", 1e-3, 2))   # opt, lr, steps
+# phase 9b, the replicated fleet: the autoscaler's p99 threshold in units
+# of a 4-query flush's service time, the flash crowd's span of virtual
+# time (seed 0's first burst is 2.33-3.03 s), plan="auto"'s query count
+FLEET_SLA_FACTOR = 3.0
+FLASH_SPAN_S = 3.2
+AUTO_FLEET_QUERIES = 400
+# the hit-ratio monitor's profile in (ii): 256 batches touch ~618,000
+# distinct rows a table, more than its 419,430 hot slots, so the
+# baseline falls below 1 (0.95) and stays within reach of the live
+# stream (0.88) until a rotation (0.05). The default 4 batches touch
+# ~25,000: the baseline is 1.0 and the first queries refresh before any
+# drift.
+MONITOR_PROFILE_BATCHES = 256
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -245,6 +280,7 @@ BLOCKED_BATCHES = (200, 800)
 TRAIN_RUNS = (("none", "sgd", 0.0, 0.01),
               ("auto", "adagrad", TIERED_ALPHA, 1e-3))
 TRAIN_STEPS = 20
+PROFILE_STEPS = 2        # steps a whole-trace training profile counts
 # The plan=auto AdaGrad run again at the launchers' lr of 0.01, recorded
 # and not held to a finite loss: the reference diverges there too
 # (tests/test_torch_train.py::
@@ -811,6 +847,8 @@ def phase_row_wise_serve(none, card):
         rep = sess.run_serial(8)
         p50[label].append(rep.p50_ms)
     for label, sess in sessions.items():
+        profile_flushes(sess, label)
+    for label, sess in sessions.items():
         print(f"[row-wise] closed loop, {label} (depth "
               f"{sess.depth_for_samples(cfg.batch_size)} at 1 query): 8 "
               f"queries twice, p50 {p50[label][0]:.4f} and "
@@ -1018,28 +1056,65 @@ def phase_timing(none, auto, dev):
     return rows
 
 
-def profile_flushes(sess, label, table=False, n=5):
-    """torch.profiler over capacity flushes: device time by kernel, and
-    the share of the flush's service time the device was busy."""
+def whole_profile(run, n, tries=5):
+    """torch.profiler over ``run(n)`` (n flushes or steps), the way
+    ``kernel_ms`` counts: each trace runs ``run(n)`` once as a warm-up it
+    throws away, then again, and counts only when each of its device
+    events was recorded a whole multiple of ``n`` times (the profiler
+    drops events now and then, and a trace that lost some reads low).
+    Asked up to ``tries`` times. Returns (run's own result, wall ms of
+    the counted run, device busy ms, the profiler's events, device events
+    by time) or None if no trace is whole."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _warm_then_counted in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = run(n)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        events = prof.key_averages()
+        device = sorted((e for e in events
+                         if e.device_type == DeviceType.CUDA
+                         and not e.key.startswith("ProfilerStep")),
+                        key=lambda e: -e.self_device_time_total)
+        if device and all(e.count % n == 0 for e in device):
+            busy = sum(e.self_device_time_total for e in device) / 1e3
+            return result, wall, busy, events, device
+        print(f"[profile] the profiler recorded "
+              f"{ {e.key[:40]: e.count for e in device} } device events "
+              f"over {n} runs: not whole, asked again")
+    return None
+
+
+def profile_flushes(sess, label, table=False, n=5):
+    """torch.profiler over ``n`` capacity flushes (whole traces only,
+    ``whole_profile``): device time by kernel, and the share of the
+    flush's service time the device was busy."""
     qs = submit_queries(sess.cfg)
     sess._execute(qs)
-    service = 0.0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            service += sess._execute(qs)[1]
-    events = prof.key_averages()
+    samples = len(qs) * sess.query_size
+    got = whole_profile(
+        lambda k: sum(sess._execute(qs)[1] for _ in range(k)), n)
+    if got is None:
+        print(f"[profile] {label}: capacity flush ({samples} samples, "
+              f"depth {sess.depth_for_samples(samples)}): device busy not "
+              f"measured (no whole trace in 5)")
+        return
+    service, _, busy, events, kernels = got
     if table:
         print(events.table(sort_by="cuda_time_total", row_limit=15))
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    busy /= n
     flush = service / n * 1e3
-    print(f"[profile] {label}: capacity flush (800 samples, depth "
-          f"{sess.depth_for_samples(800)}) service {flush:.4f} ms, device "
-          f"busy {busy:.4f} ms ({busy / flush:.0%}), idle "
+    print(f"[profile] {label}: capacity flush ({samples} samples, depth "
+          f"{sess.depth_for_samples(samples)}) service {flush:.4f} ms, "
+          f"device busy {busy:.4f} ms ({busy / flush:.0%}), idle "
           f"{max(flush - busy, 0.0):.4f} ms")
     for e in kernels[:5]:
         print(f"[profile]   {e.self_device_time_total / n / 1e3:.4f} ms a "
@@ -2465,23 +2540,15 @@ def check_one_step(sess, optimizer, lr, seed, alpha, dev):
     return rep.last_loss, sizes
 
 
-def profile_step(sess):
-    """torch.profiler over one more step (its batch draw included): the
-    device's busy and idle share of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.run(1)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    return wall, busy, kernels
+def profile_step(sess, n=PROFILE_STEPS):
+    """torch.profiler over ``n`` more steps (their batch draws included;
+    whole traces only, ``whole_profile``): a step's wall time, its device
+    busy time and the device events, or None if no trace was whole."""
+    got = whole_profile(sess.run, n)
+    if got is None:
+        return None
+    _, wall, busy, _, kernels = got
+    return wall / n, busy / n, kernels
 
 
 def phase_train(dev, card):
@@ -2546,13 +2613,20 @@ def phase_train(dev, card):
         check(peak < table_bytes + 2 * GB,
               f"{label}: peak {peak / GB:.2f} GB is over the tables' bytes "
               f"+ 2 GB")
-        wall, busy, kernels = profile_step(sess)
-        print(f"[profile] train {label}: one step (batch draw included) "
-              f"{wall:.4f} ms, device busy {busy:.4f} ms "
-              f"({busy / wall:.0%}), idle {max(wall - busy, 0.0):.4f} ms")
-        for e in kernels[:5]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:.4f} ms, "
-                  f"{e.count} launches: {e.key[:80]}")
+        prof = profile_step(sess)
+        if prof is None:
+            print(f"[profile] train {label}: device busy not measured (no "
+                  f"whole trace in 5)")
+        else:
+            wall, busy, kernels = prof
+            print(f"[profile] train {label}: a step (batch draw included) "
+                  f"{wall:.4f} ms, device busy {busy:.4f} ms "
+                  f"({busy / wall:.0%}), idle {max(wall - busy, 0.0):.4f} "
+                  f"ms (mean of {PROFILE_STEPS} profiled steps)")
+            for e in kernels[:5]:
+                per_step = e.self_device_time_total / 1e3 / PROFILE_STEPS
+                print(f"[profile]   {per_step:.4f} ms a step, "
+                      f"{e.count // PROFILE_STEPS} launches: {e.key[:80]}")
         out[label] = dict(p50_ms=p50, p99_ms=p99, samples_per_s=rate,
                           peak_gb=peak / GB, depth=sess.pipeline_depth)
         del sess, eng
@@ -2724,6 +2798,305 @@ def phase_resume(dev):
     finally:
         shutil.rmtree(root)
     peak_line("phase 9 (checkpoint -> resume on the card)")
+
+
+# -------------------------------------------------------------- phase 9b
+def record_fleet_depths():
+    """Note the resolved pipeline depth of every flush any ServeSession
+    runs (every replica of a fleet, the spawned ones too), and of the
+    untimed capacity batch each session runs once before its first flush
+    (``_ensure_warm``), by wrapping the class's methods. Returns (flush
+    depths, warm-up depths, a function that unwraps them)."""
+    from repro_torch.engine.serving import ServeSession
+    depths, warm = [], []
+    execute, ensure_warm = ServeSession._execute, ServeSession._ensure_warm
+
+    def recorded(self, queries):
+        samples = self._padded_count(len(queries)) * self.query_size
+        depths.append(self.depth_for_samples(samples))
+        return execute(self, queries)
+
+    def recorded_warm(self):
+        if not self._warm:
+            warm.append(self.depth_for_samples(
+                self.query_size * self.max_batch_queries))
+        ensure_warm(self)
+
+    ServeSession._execute = recorded
+    ServeSession._ensure_warm = recorded_warm
+
+    def unwrap():
+        ServeSession._execute = execute
+        ServeSession._ensure_warm = ensure_warm
+
+    return depths, warm, unwrap
+
+
+def events_until(scenario, qps, t_end):
+    """The scenario's seed-0 events up to virtual time ``t_end`` (a prefix
+    of one draw: thinning is sequential, so it equals ``events(n)``)."""
+    n = int(1.5 * scenario.peak_rate(qps) * t_end) + 64
+    events = scenario.events(n, qps=qps, seed=0)
+    check(events[-1].arrival_s > t_end, "the event draw ends too soon")
+    return [e for e in events if e.arrival_s <= t_end]
+
+
+def drive_fleet(cluster, events, label, scenario, card):
+    """Serve ``events`` through ``cluster.run`` with the launch counts set
+    to 0 just before and read just after; check that every query is
+    answered once with finite probs in (0, 1), and print the report,
+    its wall time, achieved / offered QPS and each replica's
+    utilization. Returns (report, launches, resolved depths of the
+    flushes and of the sessions' warm-up batches)."""
+    from repro_torch.kernels import ops
+    depths, warm, unwrap = record_fleet_depths()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = cluster.run(events, sla_ms=50.0, scenario=scenario)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launch_counts)
+    unwrap()
+    boards = cluster.replicas + cluster._retired
+    flushes = sum(len(r.batch_sizes) for r in boards)
+    check(len(depths) == flushes, f"{label}: {len(depths)} recorded "
+                                  f"flushes, {flushes} counted")
+    check(sorted(cluster.completed) == [e.qid for e in events]
+          and sum(r.served for r in boards) == len(events),
+          f"{label}: not every query was answered exactly once")
+    probs = np.stack([cluster.completed[e.qid].probs for e in events])
+    check(probs.shape == (len(events), cluster.query_size)
+          and bool(np.isfinite(probs).all() and (probs > 0).all()
+                   and (probs < 1).all()),
+          f"{label}: probs not finite in (0, 1) of shape "
+          f"({len(events)}, {cluster.query_size})")
+    print(rep.summary())
+    util = " ".join(f"r{int(x['rid'])}={x['util']:.4f}"
+                    for x in rep.replicas)
+    print(f"[fleet] {label}: {len(events)} queries, {flushes} flushes, "
+          f"wall {wall:.2f} s; achieved/offered QPS "
+          f"{rep.achieved_qps:.2f}/{rep.offered_qps:.2f} = "
+          f"{rep.achieved_qps / rep.offered_qps:.4f}; utilization {util}; "
+          f"p50 {rep.p50_ms:.4f} ms p99 {rep.p99_ms:.4f} ms; launches "
+          f"{ {k: v for k, v in launches.items() if v} } at resolved depths "
+          f"summing to {sum(depths)} over the flushes + {sum(warm)} over "
+          f"{len(warm)} replicas' untimed warm-up batch ({card})")
+    return rep, launches, depths + warm
+
+
+def default_load(cluster):
+    """The serve launcher's default load: 0.8 x replicas / the measured
+    per-query service of replica 0 (a 1-query flush)."""
+    s1 = cluster.replicas[0].session.measure_service_time()
+    qps = 0.8 * cluster.n_replicas / s1
+    print(f"[fleet] default load: 0.8 x {cluster.n_replicas} replicas / "
+          f"{s1 * 1e3:.4f} ms per-query service = {qps:.2f} qps")
+    return qps
+
+
+def agree_composed(cluster, events, label):
+    """Sampled queries' probs against a composed session
+    (fused_serve="off") sharing replica 0's params, at the contract."""
+    from repro_torch.engine import Engine
+    from repro_torch.traffic import materialize_query
+    r0 = cluster.replicas[0].session
+    off = Engine(cluster.cfg, plan=r0.plan if r0.plan is not None
+                 else "none", fused_serve="off").serve_session(
+        max_batch_queries=4, params=r0.params)
+    check(off.serve_kernel == "composed", "fused_serve=off is not composed")
+    picks = [events[0], events[len(events) // 3], events[2 * len(events) // 3],
+             events[-1]]
+    err = 0.0
+    for ev in picks:
+        q = materialize_query(cluster.cfg, ev, device=cluster.device)
+        want = off.serve_direct(q["dense"], q["indices"])
+        got = cluster.completed[ev.qid].probs
+        err = max(err, float(np.abs(got - want).max()))
+        check(np.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"{label}: qid {ev.qid} disagrees with the composed path")
+    print(f"[fleet] {label}: qids {[e.qid for e in picks]} vs the composed "
+          f"path on replica 0's params: max_abs_err={err:.3e}")
+
+
+def check_drift_refreshes(monitor, refreshes, rotate_s, t_end):
+    """Each refresh answers a rotation: none before the first, one in
+    each span between rotations after it, and the mean hit ratio of the
+    span's queries after its refresh is over the refresh threshold and
+    over that of its queries before it."""
+    rot = int(t_end // rotate_s)
+    floor = monitor.refresh_threshold * monitor.baseline
+    check(all(t > rotate_s for t in refreshes),
+          f"(ii): lfu_refresh at {refreshes} s before the first rotation "
+          f"at {rotate_s} s")
+    hist = np.asarray(monitor.history)
+    for k in range(1, rot + 1):
+        lo, hi = k * rotate_s, min((k + 1) * rotate_s, t_end)
+        ref = [t for t in refreshes if lo < t <= hi]
+        check(len(ref) == 1, f"(ii): {len(ref)} lfu_refresh in ({lo}, {hi}] "
+                             f"s, after rotation {k}")
+        t, h = hist[:, 0], hist[:, 1]
+        before = h[(t > lo) & (t <= ref[0])]
+        after = h[(t > ref[0]) & (t <= hi)]
+        check(after.size > 0 and after.mean() > floor
+              and after.mean() > before.mean(),
+              f"(ii): after rotation {k} the hit ratio did not recover")
+        print(f"[fleet] (ii) rotation {k} at {lo:.1f} s: lfu_refresh at "
+              f"{ref[0]:.4f} s; hit ratio {before.mean():.4f} over "
+              f"{before.size} queries before it, {after.mean():.4f} over "
+              f"{after.size} after (threshold {floor:.4f})")
+
+
+def free_fleet(base, label):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < base + 0.1 * GB,
+          f"{label}: the fleet's tensors outlive it")
+
+
+def phase_fleet(dev, card):
+    """Phase 9b: the replicated fleet at full width (ROADMAP A7a):
+    ``Cluster(get_dlrm("dlrm-rm2-small-unsharded"))``, B = 200, capacity
+    4 queries, max_wait_ms 2, the planner's depth; replicas share the
+    card, each on its own virtual busy horizon. (i) a flash crowd on 2
+    replicas under p2c and an autoscaler that grows to 3; (ii) zipf_drift
+    on 2 under round robin with the hit-ratio monitor on the card; (iii)
+    plan="auto" on 2 under jsq. Each run is freed before the next."""
+    from repro_torch.cluster import Cluster, HitRatioMonitor, SLAAutoscaler
+    from repro_torch.configs import get_dlrm
+    from repro_torch.traffic import make_scenario, materialize_query
+
+    t_phase = time.perf_counter()
+    cfg = get_dlrm(CONFIG)
+    table_bytes = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim * 4
+    base = torch.cuda.memory_allocated()
+    out = {}
+
+    # (i) flash crowd, p2c, autoscaling 2 -> 3 replicas
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cluster = Cluster(cfg, n_replicas=2, max_batch_queries=4,
+                      max_wait_ms=2.0, router="p2c")
+    check(cluster.replicas[0].session.serve_kernel == "fused",
+          f"(i): serve_kernel={cluster.replicas[0].session.serve_kernel}")
+    qps = default_load(cluster)
+    s4 = cluster.replicas[0].session.measure_service_time(4)
+    # the threshold needs a measured flush, so the autoscaler joins the
+    # built fleet before its run
+    threshold = FLEET_SLA_FACTOR * s4 * 1e3
+    cluster.autoscaler = SLAAutoscaler(threshold, max_replicas=3)
+    print(f"[fleet] (i) flash_crowd: 2 replicas built in "
+          f"{time.perf_counter() - t0:.2f} s; autoscaler threshold "
+          f"{threshold:.4f} ms ({FLEET_SLA_FACTOR} x the 4-query flush's "
+          f"{s4 * 1e3:.4f} ms), max 3 replicas")
+    scen = make_scenario("flash_crowd")
+    events = events_until(scen, qps, FLASH_SPAN_S)
+    rep, launches, depths = drive_fleet(cluster, events, "(i) flash_crowd",
+                                        "flash_crowd", card)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fused_bag_interactions"] == sum(depths),
+          "(i): row 1's launches differ from the sum of resolved depths")
+    check(launches["fused_grouped_bag_interactions"] == 0,
+          "(i): plan=none launched row 3")
+    ups = [e for e in rep.scale_events if e.action == "up"]
+    n_leaves = len(leaves(cluster.replicas[0].session.params))
+    for e in ups:
+        print(f"[fleet] (i) scale up at t={e.t_s:.4f} s -> {e.n_replicas} "
+              f"replicas, window p99 {e.window_p99_ms:.4f} ms, remesh "
+              f"report {e.remesh} ({n_leaves} param leaves)")
+    check(bool(ups), "(i): the autoscaler never scaled up")
+    check(all(e.remesh == {"resharded": n_leaves, "replicated_fallback": 0}
+              for e in ups), "(i): a remesh report is not every leaf "
+                             "placed, none replicated")
+    spawned = [r for r in cluster.replicas + cluster._retired if r.rid >= 2]
+    check(spawned and all(r.batch_sizes for r in spawned),
+          "(i): a spawned replica served no flush")
+    check(peak < 3 * table_bytes + 2 * GB,
+          f"(i): peak {peak / GB:.2f} GB over 3 x the tables + 2 GB")
+    agree_composed(cluster, events, "(i)")
+    q = materialize_query(cfg, events[-1], device=dev)
+    a = spawned[0].session.serve_direct(q["dense"], q["indices"])
+    b = cluster.replicas[0].session.serve_direct(q["dense"], q["indices"])
+    err = float(np.abs(a - b).max())
+    print(f"[fleet] (i) spawned replica r{spawned[0].rid} vs r0, qid "
+          f"{events[-1].qid}: max_abs_err={err:.3e}")
+    check(np.allclose(a, b, rtol=RTOL, atol=ATOL),
+          "(i): the spawned replica's probs differ from replica 0's")
+    print(f"[memory] (i) peak allocated {peak / GB:.2f} GB (3 x the tables "
+          f"= {3 * table_bytes / GB:.2f} GB)")
+    out["flash_crowd"] = dict(report=rep, peak_gb=peak / GB,
+                              threshold_ms=threshold)
+    del cluster, spawned
+    free_fleet(base, "(i)")
+
+    # (ii) zipf_drift, round robin, the hit-ratio monitor on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    monitor = HitRatioMonitor(cfg, alpha=TIERED_ALPHA, model_cfg=cfg,
+                              profile_batches=MONITOR_PROFILE_BATCHES,
+                              device=dev)
+    check(monitor.baseline < 1.0,
+          f"(ii): baseline hit ratio {monitor.baseline} is not below 1")
+    cluster = Cluster(cfg, n_replicas=2, max_batch_queries=4,
+                      max_wait_ms=2.0, router="round_robin",
+                      alpha=TIERED_ALPHA, monitor=monitor)
+    print(f"[fleet] (ii) zipf_drift: monitor (baseline hit ratio "
+          f"{monitor.baseline:.4f}, {monitor.hot_per_table} hot rows a "
+          f"table) and 2 replicas built in {time.perf_counter() - t0:.2f} s")
+    qps = default_load(cluster)
+    scen = make_scenario("zipf_drift", alpha=TIERED_ALPHA)
+    events = events_until(scen, qps, 2 * scen.rotate_every_s + 0.5)
+    rotations = max(e.perm_salt for e in events) // scen.salt_stride
+    rep, launches, depths = drive_fleet(cluster, events, "(ii) zipf_drift",
+                                        "zipf_drift", card)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fused_bag_interactions"] == sum(depths),
+          "(ii): row 1's launches differ from the sum of resolved depths")
+    check(rotations >= 2, f"(ii): the events span {rotations} rotations")
+    check(len(rep.refreshes) >= 1, "(ii): the monitor fired no lfu_refresh")
+    check_drift_refreshes(monitor, rep.refreshes, scen.rotate_every_s,
+                          events[-1].arrival_s)
+    print(f"[fleet] (ii) {rotations} rotations of the hot rows; "
+          f"lfu_refresh at {[round(t, 4) for t in rep.refreshes]} s; hit "
+          f"ratio {rep.hit_ratio_first:.4f} -> {rep.hit_ratio_last:.4f} "
+          f"(baseline {monitor.baseline:.4f}); peak allocated "
+          f"{peak / GB:.2f} GB")
+    out["zipf_drift"] = dict(report=rep, peak_gb=peak / GB)
+    del cluster, monitor
+    free_fleet(base, "(ii)")
+
+    # (iii) plan="auto", jsq: every replica serves through row 3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cluster = Cluster(cfg, n_replicas=2, plan="auto", alpha=TIERED_ALPHA,
+                      max_batch_queries=4, max_wait_ms=2.0, router="jsq")
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    print(cluster.plan_report.summary())
+    check(cluster.replicas[0].session.serve_kernel == "fused",
+          f"(iii): serve_kernel={cluster.replicas[0].session.serve_kernel}")
+    print(f"[fleet] (iii) plan=auto: 2 replicas built in "
+          f"{time.perf_counter() - t0:.2f} s, peak allocated while building "
+          f"{build_peak / GB:.2f} GB (a replica's build splits fresh tables "
+          f"into new tensors: 21.47 + 2 x 21.47 GB expected)")
+    qps = default_load(cluster)
+    events = make_scenario("stationary", alpha=TIERED_ALPHA).events(
+        AUTO_FLEET_QUERIES, qps=qps, seed=0)
+    rep, launches, depths = drive_fleet(cluster, events, "(iii) plan=auto",
+                                        "stationary", card)
+    check(launches["fused_grouped_bag_interactions"] == sum(depths),
+          "(iii): row 3's launches differ from the sum of resolved depths")
+    check(launches["fused_bag_interactions"] == 0,
+          "(iii): plan=auto launched row 1")
+    check(build_peak < 3 * table_bytes + 2 * GB,
+          f"(iii): building peaked at {build_peak / GB:.2f} GB")
+    agree_composed(cluster, events, "(iii)")
+    out["plan_auto"] = dict(report=rep, peak_gb=build_peak / GB)
+    del cluster
+    free_fleet(base, "(iii)")
+    peak_line(f"phase 9b (the replicated fleet; "
+              f"{time.perf_counter() - t_phase:.1f} s)")
+    return out
 
 
 # --------------------------------------------------------------- phase 10
@@ -3306,6 +3679,7 @@ def main() -> int:
     first_bad = phase_train_diverging(dev, card)
     phase_row_wise_train(card)
     phase_resume(dev)
+    fleet = phase_fleet(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
                  blocked[2], host_errs):
@@ -3340,6 +3714,15 @@ def main() -> int:
     for label, p50 in row_wise_p50.items():
         print(f"[row-wise] {label}: closed-loop p50 {p50[0]:.4f} / "
               f"{p50[1]:.4f} ms ({card})")
+    for label, run in fleet.items():
+        rep = run["report"]
+        print(f"[fleet] {label}: {rep.n_replicas_start}->"
+              f"{rep.n_replicas_end} replicas, p50 {rep.p50_ms:.4f} ms p99 "
+              f"{rep.p99_ms:.4f} ms, achieved/offered "
+              f"{rep.achieved_qps:.2f}/{rep.offered_qps:.2f} qps, "
+              f"{len(rep.scale_events)} scale events, "
+              f"{len(rep.refreshes)} lfu_refresh, peak {run['peak_gb']:.2f} "
+              f"GB ({card})")
     print(json.dumps({"by_batch": by_shape}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

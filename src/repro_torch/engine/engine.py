@@ -328,7 +328,7 @@ class Engine:
         partitioned table set: not ported yet."""
         raise NotImplementedError(
             "Engine.sharded_fleet (the sharded fabric fleet) is not ported "
-            "yet (ROADMAP A7, cluster/fabric/online)")
+            "yet (ROADMAP A7b, sharded fleet and fabric)")
 
     def train_session(self, *, ckpt_dir: Optional[str] = None,
                       ckpt_every: int = 50, ckpt_keep: int = 3,

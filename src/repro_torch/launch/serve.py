@@ -32,11 +32,22 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --trace-out t.json --metrics-out m.json --report-json r.json
 
+  # fleet: 2 replicas under a flash-crowd burst, p2c routing, autoscaling
+  PYTHONPATH=src python -m repro_torch.launch.serve --queries 100 \\
+      --replicas 2 --scenario flash_crowd --router p2c --autoscale
+
+Any of --replicas>1 / --scenario / --autoscale / --record-trace /
+--replay-trace routes through the cluster path (``repro_torch.cluster``):
+a ``TrafficScenario`` event stream (or a recorded JSONL trace) served by
+N replica boards behind the chosen router. On one card the boards share
+the device, each on its own virtual busy horizon.
+
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
 it: a ranking of placements, not a prediction for the card. The
-reference launcher's multi-device, fleet and online flags are accepted so
-that they fail loudly: each names the ROADMAP item that will bring it.
+reference launcher's multi-device, sharded-fleet and online flags are
+accepted so that they fail loudly: each names the ROADMAP item that will
+bring it.
 """
 from __future__ import annotations
 
@@ -50,29 +61,34 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 from repro_torch.obs import Tracer, default_registry
 
-_A6B, _A7 = "A6b, k ranks", "A7, cluster/fabric/online"
+_A6B = "A6b, k ranks"
+_A7B = "A7b, sharded fleet and fabric"
+_A7C = "A7c, online updates"
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
     "model_axis": _A6B,
-    **{dest: _A7 for dest in (
-        "replicas", "fleet_mode", "board_capacity_mb", "fabric_latency_us",
-        "fabric_gbs", "fabric_cache_rows", "scenario", "router", "autoscale",
-        "autoscale_sla_ms", "max_replicas", "min_replicas", "online_every_s",
-        "online_steps", "online_lr", "coherence", "record_deltas",
-        "replay_deltas", "record_trace", "replay_trace")},
+    **{dest: _A7B for dest in (
+        "fleet_mode", "board_capacity_mb", "fabric_latency_us", "fabric_gbs",
+        "fabric_cache_rows")},
+    **{dest: _A7C for dest in (
+        "online_every_s", "online_steps", "online_lr", "coherence",
+        "record_deltas", "replay_deltas")},
 }
 
 
-def _emit_obs(args, tracer, report) -> None:
+def _emit_obs(args, tracer, report, extra_metrics=None) -> None:
     """Write the run's observability artifacts, as the reference launcher
     does: the Chrome trace (--trace-out), the metrics registry's snapshot
-    (--metrics-out) and the SLA report (--report-json)."""
+    (--metrics-out: the process registry merged with a fleet's own
+    per-run registry) and the SLA or fleet report (--report-json)."""
     if args.trace_out and tracer is not None:
         tracer.write(args.trace_out)
         print(f"[serve] trace -> {args.trace_out} "
               f"({tracer.n_events} events)")
     if args.metrics_out:
-        snap = default_registry().snapshot()
+        snap = dict(default_registry().snapshot())
+        if extra_metrics is not None:
+            snap.update(extra_metrics.snapshot())
         with open(args.metrics_out, "w") as f:
             json.dump(snap, f, indent=2, sort_keys=True)
             f.write("\n")
@@ -128,7 +144,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--calibration", default=None, metavar="PATH",
                     help="measured-hardware calibration JSON "
                          "(repro_torch.core.calibration): host_link "
-                         "overrides the host tier's link terms")
+                         "overrides the host tier's link terms, "
+                         "service_multiplier the hit-ratio monitor's "
+                         "retiming curve")
     ap.add_argument("--exchange", default="partial_pool",
                     choices=["partial_pool", "unpooled"],
                     help="row-wise wire mode of a row-wise (sharded) "
@@ -143,23 +161,43 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="write the SLA report (with its per-query blame "
                          "decomposition) as JSON")
+    fleet = ap.add_argument_group("fleet (repro_torch.cluster)")
+    add = fleet.add_argument
+    add("--replicas", type=int, default=1,
+        help=">1 serves a fleet of replica boards behind --router "
+             "(repro_torch.cluster)")
+    add("--scenario", default=None,
+        help="traffic scenario for the fleet path: stationary, diurnal, "
+             "flash_crowd, zipf_drift (zipf_drift enables the hit-ratio "
+             "monitor + lfu_refresh)")
+    add("--router", default="round_robin",
+        help="routing policy: round_robin, jsq, p2c")
+    add("--autoscale", action="store_true",
+        help="SLA-driven autoscaling: add boards on sustained p99 "
+             "violation, drop them on sustained slack; a new board's "
+             "params are copied from a live one (remesh_tree)")
+    add("--autoscale-sla-ms", type=float, default=None,
+        help="p99 threshold the autoscaler reacts to; default --sla-ms "
+             "(set lower to scale before the report SLA is at risk)")
+    add("--max-replicas", type=int, default=4)
+    add("--min-replicas", type=int, default=1,
+        help="autoscaler floor")
+    add("--record-trace", default=None, metavar="PATH",
+        help="write the generated scenario events as a JSONL trace "
+             "before serving")
+    add("--replay-trace", default=None, metavar="PATH",
+        help="serve a recorded JSONL trace instead of generating events "
+             "(bit-identical replay)")
     not_ported = ap.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
     add = not_ported.add_argument
     add("--model-axis", type=int, default=1)
-    add("--replicas", type=int, default=1)
     add("--fleet-mode", choices=["replicated", "sharded"],
         default="replicated")
     add("--board-capacity-mb", type=float, default=None)
     add("--fabric-latency-us", type=float, default=1.0)
     add("--fabric-gbs", type=float, default=100.0)
     add("--fabric-cache-rows", type=int, default=None)
-    add("--scenario", default=None)
-    add("--router", default="round_robin")
-    add("--autoscale", action="store_true")
-    add("--autoscale-sla-ms", type=float, default=None)
-    add("--max-replicas", type=int, default=4)
-    add("--min-replicas", type=int, default=1)
     add("--online-every-s", type=float, default=0.0)
     add("--online-steps", type=int, default=1)
     add("--online-lr", type=float, default=0.05)
@@ -167,8 +205,6 @@ def _parser() -> argparse.ArgumentParser:
         default="propagate")
     add("--record-deltas", default=None)
     add("--replay-deltas", default=None)
-    add("--record-trace", default=None)
-    add("--replay-trace", default=None)
     return ap
 
 
@@ -189,12 +225,15 @@ def main(argv: Optional[list] = None) -> int:
                 f"{flag} is not ported yet (ROADMAP {item})")
 
     cfg = get_dlrm(args.config)
+    full_cfg = cfg
     if args.smoke:
         cfg = cfg.reduced()
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:          # no CUDA device
         raise SystemExit(f"[serve] {err}")
+    if fleet_path:
+        return _cluster_main(args, cfg, full_cfg, device)
     engine = Engine(cfg, plan=args.plan, seed=args.seed, alpha=args.alpha,
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
@@ -230,6 +269,81 @@ def main(argv: Optional[list] = None) -> int:
     print(f"[serve] {cfg.name}:")
     print(report.summary())
     _emit_obs(args, tracer, report)
+    return 0 if report.ok else 1
+
+
+def _cluster_main(args, cfg, full_cfg, device) -> int:
+    """Fleet path: scenario/trace -> router -> N replicas -> ClusterReport."""
+    from repro_torch.cluster import Cluster, HitRatioMonitor, SLAAutoscaler
+    from repro_torch.traffic import load_trace, make_scenario, record_trace
+
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    # resolve the scenario BEFORE building the fleet: a replayed trace's
+    # header decides it (so a recorded zipf_drift trace replays with the
+    # same monitor/refresh machinery the live run had)
+    events = None
+    if args.replay_trace:
+        meta, events = load_trace(args.replay_trace)
+        scen_name = meta.get("scenario", args.scenario or "stationary")
+        print(f"[serve] replaying {len(events)} events from "
+              f"{args.replay_trace} (scenario={scen_name})")
+    else:
+        scen_name = args.scenario or "stationary"
+    if scen_name == "zipf_drift" and args.alpha == 0.0:
+        # a uniform stream has no hot set to erode; without an explicit
+        # --alpha use the scenario's default skew so the drift mechanism
+        # (and the monitor's baseline) is meaningful
+        args.alpha = 1.05
+        print("[serve] zipf_drift with --alpha 0: using alpha=1.05 "
+              "(uniform streams have no hot rows to drift)")
+
+    monitor = None
+    if scen_name == "zipf_drift":
+        # drift erodes the frequency-elected fast tier; monitor + refresh;
+        # a --calibration artifact replaces the modeled hybrid-memory
+        # retiming curve with the measured one
+        monitor = HitRatioMonitor(cfg, alpha=args.alpha, seed=args.seed,
+                                  model_cfg=full_cfg,
+                                  service_multiplier=args.calibration,
+                                  device=device)
+    autoscaler = (SLAAutoscaler(args.autoscale_sla_ms or args.sla_ms,
+                                min_replicas=args.min_replicas,
+                                max_replicas=args.max_replicas)
+                  if args.autoscale else None)
+    tracer = Tracer() if args.trace_out else None
+    cluster = Cluster(
+        cfg, n_replicas=args.replicas, plan=args.plan,
+        exchange=args.exchange, alpha=args.alpha, seed=args.seed,
+        fast_mb=args.fast_mb, max_batch_queries=args.max_batch_queries,
+        max_wait_ms=args.max_wait_ms, router=args.router,
+        autoscaler=autoscaler, monitor=monitor,
+        pipeline_depth=args.pipeline_depth or None, tracer=tracer,
+        verbose=True, device=device)
+    sess = cluster.replicas[0].session
+    print(f"[serve] fleet of {args.replicas} replicas on {device}: "
+          f"serve_kernel={sess.serve_kernel}")
+
+    if events is None:
+        qps = args.qps
+        if qps <= 0:
+            # default load: ~80% of the fleet's aggregate per-query capacity
+            s1 = sess.measure_service_time()
+            qps = 0.8 * args.replicas / s1
+            print(f"[serve] --qps 0: offering 0.8 x fleet capacity = "
+                  f"{qps:.1f} qps (per-query service {s1 * 1e3:.2f} ms)")
+        scenario = make_scenario(scen_name, alpha=args.alpha)
+        events = scenario.events(args.queries, qps=qps, seed=args.seed)
+        if args.record_trace:
+            record_trace(args.record_trace, events, scenario, qps=qps,
+                         seed=args.seed, config=cfg.name)
+            print(f"[serve] recorded trace -> {args.record_trace}")
+
+    report = cluster.run(events, sla_ms=args.sla_ms,
+                         percentile=args.sla_percentile, scenario=scen_name)
+    print(f"[serve] {cfg.name}:")
+    print(report.summary())
+    _emit_obs(args, tracer, report, extra_metrics=cluster.metrics)
     return 0 if report.ok else 1
 
 

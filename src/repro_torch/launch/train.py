@@ -46,9 +46,9 @@ _NOT_PORTED = {
     "seq": "A8, LM substrate",
     "compress_grads": "A6b, k ranks",
     "model_axis": "A6b, k ranks",
-    "emit_deltas": "A7, cluster/fabric/online",
-    "delta_every_steps": "A7, cluster/fabric/online",
-    "delta_dt_s": "A7, cluster/fabric/online",
+    "emit_deltas": "A7c, online updates",
+    "delta_every_steps": "A7c, online updates",
+    "delta_dt_s": "A7c, online updates",
 }
 
 

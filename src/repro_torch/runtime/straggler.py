@@ -15,7 +15,7 @@ here is the control-plane piece that runs on the coordinator:
 
 In the reference, eviction composes with runtime/elastic.py (the job
 checkpoint-restores on the reduced device set), which comes to the port
-with the distributed item (ROADMAP A6); on one device the policy only
+with the distributed item (ROADMAP A6b); on one device the policy only
 reports.
 """
 from __future__ import annotations

@@ -228,8 +228,7 @@ def test_host_capacity_reaches_the_host_tier():
     assert probs.shape == (1, cfg.batch_size) and 0.0 <= stall <= service
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--online-every-s", "1"]])
+@pytest.mark.parametrize("flag", [["--online-every-s", "1"]])
 def test_launcher_flags_not_ported_fail_loudly(flag):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -300,14 +299,12 @@ def test_launcher_report_json(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--model-axis", "2"], "A6b"),
-    (["--router", "p2c"], "A7"), (["--min-replicas", "2"], "A7"),
-    (["--max-replicas", "8"], "A7"), (["--autoscale-sla-ms", "10"], "A7"),
-    (["--board-capacity-mb", "1"], "A7"), (["--fabric-gbs", "50"], "A7"),
-    (["--fabric-latency-us", "2"], "A7"),
-    (["--fabric-cache-rows", "0"], "A7"),
-    (["--coherence", "invalidate"], "A7"), (["--online-lr", "0.1"], "A7"),
-    (["--online-steps", "2"], "A7"),
-    (["--record-deltas", "deltas.jsonl"], "A7")])
+    (["--board-capacity-mb", "1"], "A7b"), (["--fabric-gbs", "50"], "A7b"),
+    (["--fabric-latency-us", "2"], "A7b"),
+    (["--fabric-cache-rows", "0"], "A7b"),
+    (["--coherence", "invalidate"], "A7c"), (["--online-lr", "0.1"], "A7c"),
+    (["--online-steps", "2"], "A7c"),
+    (["--record-deltas", "deltas.jsonl"], "A7c")])
 def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
