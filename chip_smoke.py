@@ -121,7 +121,8 @@ Phases; any failure exits non-zero:
      the measured per-query service) on 2 replicas under p2c with an
      autoscaler that grows to 3 (every query answered once, probs finite
      in (0, 1), a scale-up whose remesh copied every param leaf, the
-     spawned replica served and agrees with replica 0, row 1's launches
+     spawned replica served and, while live, agrees with replica 0 (a
+     replica retired by a scale-down has released its params), row 1's launches
      = the sum of resolved depths, 4 queries against the composed path,
      peak under 3 x the tables + 2 GB); (ii) zipf_drift over two
      rotations of the hot rows on 2 replicas under round robin with the
@@ -131,6 +132,27 @@ Phases; any failure exits non-zero:
      plan="auto" on 2 replicas under jsq (row 3's launches = the sum of
      resolved depths, row 1 not launched). Each run prints its report,
      wall time, achieved / offered QPS and utilizations;
+     9c. the sharded fabric fleet at full width (``repro_torch.fabric``):
+     ``ShardedFleet(get_dlrm("dlrm-rm2-small-unsharded"))`` on tables
+     drawn once into host memory (21.47 GB, shared by every fleet), B =
+     200, capacity 4 queries, max_wait_ms 2, alpha 1.05, the boards sharing
+     the card, each fleet freed before the next: (a) one board of 20,480
+     MiB under a zipf_drift trace at 0.3 x its measured capacity; (b)
+     three boards of 7,000 MiB under jsq (the table set does not fit one
+     board, a table is split into row ranges, the remote-row cache
+     re-elects at least once), (c) the same with the cache off (more wire
+     bytes a query), both bitwise equal to (a) query for query; (d) two
+     boards at the default 12,800 MiB under a flash crowd with an
+     autoscaler to 3 whose threshold the base load stays under (a
+     scale-up at or after the first burst that migrates rows, bytes
+     moved = rows x 128, the autoscaler's migration log equal to the
+     report), bitwise equal to a static 2-board fleet. Every run holds
+     the first flush of each partition's row-4 outputs against
+     ``embedding_bag_ref`` and three queries' probs against a plain path
+     (host rows, the ref, the dense forward). Row 4 (``embedding_bag``)
+     launches once a whole-table owner and once a split pool a flush,
+     plus one untimed warm-up a new shape; peak device memory under the
+     tables + the largest board's slice + 2 GB; the phase under 120 s;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -234,6 +256,27 @@ AUTO_FLEET_QUERIES = 400
 # ~25,000: the baseline is 1.0 and the first queries refresh before any
 # drift.
 MONITOR_PROFILE_BATCHES = 256
+# phase 9c, the sharded fabric fleet: one table set of 40 x 512 MiB (fp32)
+# = 20,480 MiB, held by one board of 20,480 MiB (a), or by three of 7,000
+# MiB (b, c: 13 whole tables a board, 6,656 MiB, and the 40th split over
+# the 344 MiB each board has left), or by two at the default 12,800 MiB
+# that grow to three (d). The query counts keep the phase under
+# FABRIC_PHASE_S: the host's LFU and wire bookkeeping takes tens of ms a
+# query at full width. (a)-(c) serve a zipf_drift trace whose first
+# rotation falls FABRIC_ROTATE_AT of the way through it; (d) a flash crowd
+# whose first burst is stretched or squeezed to begin after
+# FABRIC_BURST_AT queries. The card's host returns freed pages to
+# MemAvailable over seconds, which phase 10 reads: the phase waits up to
+# FABRIC_RELEASE_S for its 21.47 GB to come back.
+FABRIC_ALPHA = 1.05
+FABRIC_REF_MB = 20480
+FABRIC_BOARD_MB = 7000
+FABRIC_QUERIES = 240
+FABRIC_ROTATE_AT = 0.25
+FABRIC_ELASTIC_QUERIES = 240
+FABRIC_BURST_AT = 48
+FABRIC_PHASE_S = 120.0
+FABRIC_RELEASE_S = 40.0
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -698,10 +741,16 @@ def phase_main_auto(dev, none):
     cfg = none.cfg
     table_bytes = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim * 4
     t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     eng = Engine(cfg, plan="auto")
     sess = eng.serve_session(max_batch_queries=4, params=none.params,
                              warmup=True)
     torch.cuda.synchronize()
+    print(f"[memory] phase 4: building the plan=auto session peaked at "
+          f"{torch.cuda.max_memory_allocated() / GB:.2f} GB, "
+          f"{before / GB:.2f} GB before it (the plan=none session's "
+          f"tables, {table_bytes / GB:.2f} GB), "
+          f"{torch.cuda.memory_allocated() / GB:.2f} GB after")
     print(eng.plan_report("inference").summary())
     print(f"[auto] session built in {time.perf_counter() - t0:.2f} s "
           f"(profile, plan, split of the tables); its own tables "
@@ -2946,6 +2995,25 @@ def check_drift_refreshes(monitor, refreshes, rotate_s, t_end):
               f"{after.size} after (threshold {floor:.4f})")
 
 
+def check_spawned(cluster, spawned, q):
+    """Hold each live spawned replica's probs for query ``q`` against
+    replica 0's; a spawned replica that retired again (a scale-down) must
+    have released its params."""
+    b = cluster.replicas[0].session.serve_direct(q["dense"], q["indices"])
+    for r in spawned:
+        if r.retired_at is not None:
+            check(r.session is None, f"(i): retired r{r.rid} holds its params")
+            print(f"[fleet] (i) spawned replica r{r.rid} retired at "
+                  f"{r.retired_at:.4f} s and released its params")
+            continue
+        a = r.session.serve_direct(q["dense"], q["indices"])
+        err = float(np.abs(a - b).max())
+        print(f"[fleet] (i) spawned replica r{r.rid} vs r0: "
+              f"max_abs_err={err:.3e}")
+        check(np.allclose(a, b, rtol=RTOL, atol=ATOL),
+              f"(i): spawned r{r.rid}'s probs differ from replica 0's")
+
+
 def free_fleet(base, label):
     import gc
     gc.collect()
@@ -3014,14 +3082,8 @@ def phase_fleet(dev, card):
     check(peak < 3 * table_bytes + 2 * GB,
           f"(i): peak {peak / GB:.2f} GB over 3 x the tables + 2 GB")
     agree_composed(cluster, events, "(i)")
-    q = materialize_query(cfg, events[-1], device=dev)
-    a = spawned[0].session.serve_direct(q["dense"], q["indices"])
-    b = cluster.replicas[0].session.serve_direct(q["dense"], q["indices"])
-    err = float(np.abs(a - b).max())
-    print(f"[fleet] (i) spawned replica r{spawned[0].rid} vs r0, qid "
-          f"{events[-1].qid}: max_abs_err={err:.3e}")
-    check(np.allclose(a, b, rtol=RTOL, atol=ATOL),
-          "(i): the spawned replica's probs differ from replica 0's")
+    check_spawned(cluster, spawned, materialize_query(cfg, events[-1],
+                                                      device=dev))
     print(f"[memory] (i) peak allocated {peak / GB:.2f} GB (3 x the tables "
           f"= {3 * table_bytes / GB:.2f} GB)")
     out["flash_crowd"] = dict(report=rep, peak_gb=peak / GB,
@@ -3097,6 +3159,363 @@ def phase_fleet(dev, card):
     peak_line(f"phase 9b (the replicated fleet; "
               f"{time.perf_counter() - t_phase:.1f} s)")
     return out
+
+
+# -------------------------------------------------------------- phase 9c
+def first_burst_s(scenario, qps) -> float:
+    """Virtual seconds until a flash crowd's seed-0 rate first rises above
+    its base rate."""
+    rate = scenario.make_rate_fn(qps, 0)
+    t = 0.0
+    while rate(t) <= qps:
+        t += 1e-3
+    return t
+
+
+def plain_fabric_probs(cfg, params, tables_host, events, dev):
+    """The probs of ``events`` recomputed in plain torch, apart from any
+    fleet: each query regenerated from its event, its rows gathered from
+    the host tables and copied to the card as a (T, B*L, d) slab that
+    ``ref.embedding_bag_ref`` pools, then the dense forward and sigmoid
+    at the query's own batch."""
+    from repro_torch.core.dlrm import dlrm_forward_from_pooled
+    from repro_torch.kernels import ref
+    from repro_torch.traffic import materialize_query
+    mlps = {k: params[k] for k in ("bot_mlp", "top_mlp")}
+    out = {}
+    for ev in events:
+        q = materialize_query(cfg, ev, device=dev)
+        idx = q["indices"].long()
+        B, T, L = idx.shape
+        rows = tables_host[torch.arange(T)[None, :, None], idx.cpu()]
+        slab = rows.permute(1, 0, 2, 3).reshape(T, B * L, -1).to(dev)
+        fake = (torch.arange(B, device=dev)[:, None, None] * L
+                + torch.arange(L, device=dev)[None, None, :]).expand(B, T, L)
+        pooled = ref.embedding_bag_ref(slab, fake)
+        out[ev.qid] = torch.sigmoid(dlrm_forward_from_pooled(
+            mlps, q["dense"], pooled)).cpu().numpy()
+    return out
+
+
+def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
+                 errs):
+    """Serve ``events`` through ``fleet.run`` with the launch counts set to
+    0 just before and read just after. Row 4's launches must equal one a
+    whole-table owner and one a split pool in each flush, plus the untimed
+    warm-ups of new (role, shape) keys; every query answered once with
+    finite probs in (0, 1); peak device memory under ``bound_bytes``.
+    The first flush of each partition holds every row-4 output it made
+    (each owner's lookup, the split pool) against ``ref.embedding_bag_ref``
+    on the same inputs (``close``, its errors into ``errs``), and the
+    first, middle and last queries' probs against ``plain_fabric_probs``
+    at RTOL/ATOL. Prints the report and a ``[fabric]`` line. Returns
+    (report, probs by qid, launches, wall seconds)."""
+    from repro_torch.kernels import ops, ref
+    expected, owner_parts = [], fleet._owner_parts
+    checked = set()
+
+    def held(board, idx):
+        """owner_parts, with every row-4 output held against its plain
+        version."""
+        made = []
+
+        def spy(b, name):
+            fn = getattr(b, name)
+
+            def wrapped(*args):
+                out = fn(*args)
+                made.append((name, b, args, out[0]))
+                return out
+            return wrapped
+
+        boards = list(fleet.boards)
+        for b in boards:
+            b.lookup, b.pool_rows = spy(b, "lookup"), spy(b, "pool_rows")
+        try:
+            out = owner_parts(board, idx)
+        finally:
+            for b in boards:
+                del b.lookup, b.pool_rows
+        for name, b, args, got in made:
+            if name == "lookup":
+                tables, ids = b.tables, args[0].to(b.device)
+            else:
+                tables, ids = (a.to(b.device) for a in args)
+            close("embedding_bag", f"{label}, board {b.rid}'s {name}: "
+                  f"tables {tuple(tables.shape)}, ids {tuple(ids.shape)}",
+                  got, ref.embedding_bag_ref(tables, ids), errs)
+        return out
+
+    def counted(board, idx):
+        ex = fleet.exchange
+        expected.append(sum(t.size > 0 for t in ex.tables_by_board)
+                        + int(ex.split_tables.size > 0))
+        layout = (tuple(tuple(t) for t in ex.tables_by_board),
+                  tuple(ex.split_tables))
+        if layout in checked:
+            return owner_parts(board, idx)
+        checked.add(layout)
+        return held(board, idx)
+
+    def warm_keys():
+        return {(id(b), k) for b in fleet.boards + fleet._retired
+                for k in b.warmed if k[0] in ("lookup", "pool")}
+
+    fleet._owner_parts = counted
+    warm0 = warm_keys()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = fleet.run(events, sla_ms=50.0, scenario=scenario)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts["embedding_bag"]
+    others = {k: v for k, v in ops.launch_counts.items()
+              if v and k != "embedding_bag"}
+    fleet._owner_parts = owner_parts
+    warm = len(warm_keys() - warm0)
+    peak = torch.cuda.max_memory_allocated()
+    boards = fleet.boards + fleet._retired
+    check(sorted(fleet.completed) == [e.qid for e in events]
+          and sum(b.served for b in boards) == len(events),
+          f"{label}: not every query was answered exactly once")
+    probs = {e.qid: fleet.completed[e.qid].probs for e in events}
+    stacked = np.stack(list(probs.values()))
+    check(stacked.shape == (len(events), fleet.query_size)
+          and bool(np.isfinite(stacked).all() and (stacked > 0).all()
+                   and (stacked < 1).all()),
+          f"{label}: probs not finite in (0, 1)")
+    check(launches == sum(expected) + warm,
+          f"{label}: row 4 launched {launches} times, expected "
+          f"{sum(expected)} over {len(expected)} flushes + {warm} warm-ups")
+    check(not others, f"{label}: other kernels launched: {others}")
+    check(peak <= bound_bytes, f"{label}: peak {peak / GB:.2f} GB over "
+                               f"{bound_bytes / GB:.2f} GB")
+    some = [events[0], events[len(events) // 2], events[-1]]
+    plain = plain_fabric_probs(fleet.cfg, params, fleet._tables_host, some,
+                               fleet.device)
+    err = max(float(np.abs(probs[q] - p).max()) for q, p in plain.items())
+    check(all(np.allclose(probs[q], p, rtol=RTOL, atol=ATOL)
+              for q, p in plain.items()),
+          f"{label}: probs disagree with the plain path: max_abs_err="
+          f"{err:.3e}")
+    print(f"[fabric] {label}: queries {list(plain)}' probs vs the plain "
+          f"path (host rows, embedding_bag_ref, dense forward): "
+          f"max_abs_err={err:.3e} ok")
+    print(rep.summary())
+    hit = ("none" if rep.remote_hit_first is None else
+           f"{rep.remote_hit_first:.4f} -> {rep.remote_hit_last:.4f}")
+    print(f"[fabric] {label}: {len(events)} queries, "
+          f"{len(rep.replicas)} boards ({rep.n_replicas_start}->"
+          f"{rep.n_replicas_end}), p50 {rep.p50_ms:.4f} ms p99 "
+          f"{rep.p99_ms:.4f} ms, achieved/offered QPS "
+          f"{rep.achieved_qps:.2f}/{rep.offered_qps:.2f}, "
+          f"{rep.bytes_per_query:.1f} B/query, remote lookups "
+          f"{rep.remote_lookup_fraction:.4f}, remote hit {hit} "
+          f"({rep.cache_refreshes} refreshes), link stall "
+          f"{rep.link_stall_share:.4f}, {rep.migrations} scale events, "
+          f"{rep.migrated_bytes / 2**20:.2f} MiB migrated; row 4 launches "
+          f"{launches} = {sum(expected)} over {len(expected)} flushes + "
+          f"{warm} warm-ups; peak {peak / GB:.2f} GB (bound "
+          f"{bound_bytes / GB:.2f}), host RSS {rss_bytes()[0] / GB:.2f} GB, "
+          f"wall {wall:.2f} s ({card})")
+    return rep, probs, launches, wall
+
+
+def same_probs(fleet_probs, want, label):
+    """Every query's probs bitwise equal to the reference run's."""
+    bad = [q for q, p in fleet_probs.items() if not np.array_equal(p, want[q])]
+    check(not bad, f"{label}: {len(bad)} queries' probs differ bitwise from "
+                   f"the reference run (first qid {bad[:1]})")
+    print(f"[fabric] {label}: all {len(fleet_probs)} queries' probs bitwise "
+          f"equal to the reference run's")
+
+
+def phase_fabric(dev, card):
+    """Phase 9c: the sharded fabric fleet at full width (ROADMAP A7b):
+    ``ShardedFleet(get_dlrm("dlrm-rm2-small-unsharded"))``, B = 200,
+    capacity 4 queries, max_wait_ms 2, alpha 1.05, the tables drawn once
+    from seed 0 into host memory and shared; the boards share the card.
+    (a) one board of 20,480 MiB (the reference), (b) three of 7,000 MiB
+    under jsq, cache on, (c) as (b) with the cache off, all three over one
+    zipf_drift trace at 0.3 x (a)'s measured capacity; (d) two boards at
+    the default 12,800 MiB under a flash crowd with an autoscaler to 3,
+    against a static 2-board fleet. (b)-(d) must serve bitwise what their
+    reference serves, and every run agrees with the plain path
+    (``drive_fabric``). Each fleet is freed before the next. Returns (the
+    runs, row 4's errors against its plain version)."""
+    import gc
+    from repro_torch.cluster import SLAAutoscaler
+    from repro_torch.configs import get_dlrm
+    from repro_torch.core.dlrm import init_mlps
+    from repro_torch.fabric import ShardedFleet, fits_one_board
+    from repro_torch.hoststore.exchange import draw_host_tables
+    from repro_torch.traffic import make_scenario
+
+    t_phase = time.perf_counter()
+    cfg = get_dlrm(CONFIG)
+    row_bytes = cfg.embed_dim * 4
+    table_bytes = cfg.num_tables * cfg.rows_per_table * row_bytes
+    base = torch.cuda.memory_allocated()
+    rss0, avail0 = rss_bytes()[0], mem_available()
+    print(rss_line("phase 9c start"))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dict(init_mlps(cfg, gen), tables=draw_host_tables(cfg, 0, dev))
+    print(f"[fabric] tables drawn into host memory in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{params['tables'].numel() * 4 / GB:.2f} GB, shared by every "
+          f"fleet below")
+    kw = dict(alpha=FABRIC_ALPHA, seed=0, max_batch_queries=4,
+              max_wait_ms=2.0, params=params, device=dev)
+    out, errs = {}, {}
+
+    def build(label, **fkw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < base + 0.1 * GB,
+              f"{label}: an earlier fleet's tensors outlive it")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fleet = ShardedFleet(cfg, **kw, **fkw)
+        torch.cuda.synchronize()
+        pm = fleet.partition
+        print(pm.summary())
+        resident = [round(b.resident_bytes(row_bytes) / GB, 3)
+                    for b in fleet.boards]
+        print(f"[fabric] {label}: {pm.n_boards} boards of "
+              f"{pm.board_capacity_bytes / 2**20:.0f} MiB built in "
+              f"{time.perf_counter() - t0:.2f} s; resident {resident} GB; "
+              f"split tables {pm.split_tables}; {rss_line('built')}")
+        return fleet, table_bytes + max(pm.board_bytes) + 2 * GB
+
+    # (a) the reference: one board holds every table
+    ref, bound = build("(a)", n_boards=1, router="jsq",
+                       board_capacity_bytes=int(FABRIC_REF_MB * 2**20))
+    check(ref.boards[0].resident_bytes(row_bytes) == table_bytes,
+          "(a): the one board does not hold every table")
+    s_cap = ref.measure_service_time()
+    qps = 0.3 * 4 / s_cap
+    rotate_s = FABRIC_ROTATE_AT * FABRIC_QUERIES / qps
+    scen = make_scenario("zipf_drift", alpha=FABRIC_ALPHA,
+                         rotate_every_s=rotate_s)
+    events = scen.events(FABRIC_QUERIES, qps=qps, seed=0)
+    rotations = max(e.perm_salt for e in events) // scen.salt_stride
+    check(rotations >= 1, f"the trace spans {rotations} rotations")
+    print(f"[fabric] load: 0.3 x 4 queries / {s_cap * 1e3:.4f} ms capacity "
+          f"batch = {qps:.2f} qps; zipf_drift, a rotation every "
+          f"{rotate_s:.4f} s ({rotations} in {FABRIC_QUERIES} queries)")
+    rep, want, launches, _ = drive_fabric(ref, events, "(a) 1 board",
+                                          "zipf_drift", card, bound, params,
+                                          errs)
+    check(rep.remote_lookup_fraction == 0 and rep.bytes_per_query == 0,
+          "(a): one board sent lookups over the fabric")
+    out["(a) 1 board"] = dict(report=rep, launches=launches)
+    del ref
+
+    # (b) three boards of 7,000 MiB, cache on; (c) the cache off
+    wire = {}
+    for label, cache_on in (("(b) 3 boards, cache on", True),
+                            ("(c) 3 boards, cache off", False)):
+        fleet, bound = build(label[:3], n_boards=3, router="jsq",
+                             board_capacity_bytes=int(FABRIC_BOARD_MB * 2**20),
+                             cache_enabled=cache_on)
+        pm = fleet.partition
+        check(not fits_one_board(cfg, pm.board_capacity_bytes,
+                                 pm.table_bytes) and pm.split_tables,
+              f"{label}: the table set fits one board or no table is split")
+        check(all(b.resident_bytes(row_bytes) <= pm.board_capacity_bytes
+                  for b in fleet.boards),
+              f"{label}: a board holds more than its capacity")
+        rep, probs, launches, _ = drive_fabric(
+            fleet, events, label, "zipf_drift", card, bound, params, errs)
+        same_probs(probs, want, label)
+        check(not rep.fits_one_board, f"{label}: reports that it fits")
+        if cache_on:
+            check(rep.cache_refreshes > 0,
+                  f"{label}: the cache never re-elected")
+        wire[cache_on] = rep.bytes_per_query
+        out[label] = dict(report=rep, launches=launches)
+        del fleet
+    check(wire[False] > wire[True],
+          f"the cache saved no wire bytes: {wire[True]} vs {wire[False]}")
+
+    # (d) elastic: 2 boards at the default capacity, a flash crowd, an
+    # autoscaler to 3; against a static 2-board fleet over the same events
+    elastic, bound = build("(d)", n_boards=2, router="p2c")
+    # the threshold is FLEET_SLA_FACTOR x what a query of the unloaded
+    # fleet can take (the batching deadline, then a capacity batch), so
+    # the base load stays under it and only the crowd crosses it
+    s4 = elastic.measure_service_time(4)
+    threshold = FLEET_SLA_FACTOR * (kw["max_wait_ms"] + s4 * 1e3)
+    qps = 0.3 * 4 / elastic.measure_service_time()
+    k = FABRIC_BURST_AT / (qps * first_burst_s(make_scenario("flash_crowd"),
+                                               qps))
+    scen = make_scenario("flash_crowd", alpha=FABRIC_ALPHA, on_s=0.5 * k,
+                         off_s=1.5 * k)
+    events = scen.events(FABRIC_ELASTIC_QUERIES, qps=qps, seed=0)
+    burst = first_burst_s(scen, qps)
+    auto = SLAAutoscaler(threshold, max_replicas=3)
+    elastic.autoscaler = auto
+    print(f"[fabric] (d): {qps:.2f} qps (0.3 x capacity), first burst at "
+          f"{burst:.4f} s; autoscaler threshold {threshold:.4f} ms "
+          f"({FLEET_SLA_FACTOR} x ({kw['max_wait_ms']} ms deadline + the "
+          f"4-query capacity batch's {s4 * 1e3:.4f} ms)), max 3 boards")
+    rep, probs, launches, _ = drive_fabric(
+        elastic, events, "(d) elastic", "flash_crowd", card, bound, params,
+        errs)
+    ups = [e for e in rep.scale_events if e.action == "up"]
+    for e in rep.scale_events:
+        print(f"[fabric] (d) scale {e.action} at t={e.t_s:.4f} s -> "
+              f"{e.n_replicas} boards, window p99 {e.window_p99_ms:.4f} ms, "
+              f"moved {e.remesh}")
+    check(ups and all(e.remesh["bytes_moved"] > 0 for e in ups),
+          "(d): no scale-up migrated bytes")
+    check(ups[0].t_s >= burst,
+          f"(d): the fleet scaled up at t={ups[0].t_s:.4f} s, before the "
+          f"first burst at {burst:.4f} s: the base load crossed the "
+          f"threshold")
+    check(all(e.remesh["bytes_moved"] == e.remesh["rows_moved"] * row_bytes
+              for e in rep.scale_events),
+          "(d): bytes moved are not rows moved x row bytes")
+    check(len(auto.migration_log) == rep.migrations > 0
+          and rep.migrated_bytes == sum(b for _, b, _ in auto.migration_log),
+          "(d): the autoscaler's migration log disagrees with the report")
+    out["(d) elastic"] = dict(report=rep, launches=launches)
+    del elastic
+    static, bound = build("(d) static", n_boards=2, router="p2c")
+    rep, want, launches, _ = drive_fabric(
+        static, events, "(d) static", "flash_crowd", card, bound, params,
+        errs)
+    same_probs(probs, want, "(d) elastic vs static")
+    out["(d) static"] = dict(report=rep, launches=launches)
+    kw.clear()                          # the last hold on the host tables
+    del static, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < base + 0.1 * GB,
+          "phase 9c: a fleet's tensors outlive it")
+    rss1 = rss_bytes()[0]
+    print(rss_line("phase 9c end"))
+    check(rss1 < rss0 + 2 * GB, f"phase 9c: host RSS {rss1 / GB:.2f} GB, "
+                                f"{rss0 / GB:.2f} GB at its start: the "
+                                f"host tables outlive it")
+    # the host takes freed pages back over seconds (~4 GB/s on the card's
+    # host), and phase 10 sizes its tables by MemAvailable: wait for them
+    t0 = time.perf_counter()
+    while (mem_available() < avail0 - 2 * GB
+           and time.perf_counter() - t0 < FABRIC_RELEASE_S):
+        time.sleep(0.25)
+    print(f"[host] phase 9c: MemAvailable back to "
+          f"{mem_available() / GB:.2f} GB ({avail0 / GB:.2f} GB at its "
+          f"start) after {time.perf_counter() - t0:.1f} s")
+    check(mem_available() >= avail0 - 2 * GB,
+          f"phase 9c: the host did not take its memory back in "
+          f"{FABRIC_RELEASE_S} s")
+    wall = time.perf_counter() - t_phase
+    peak_line(f"phase 9c (the sharded fabric fleet; {wall:.1f} s)")
+    check(wall <= FABRIC_PHASE_S,
+          f"phase 9c took {wall:.1f} s, over {FABRIC_PHASE_S} s")
+    return out, {k: max(v) for k, v in errs.items()}
 
 
 # --------------------------------------------------------------- phase 10
@@ -3680,9 +4099,10 @@ def main() -> int:
     phase_row_wise_train(card)
     phase_resume(dev)
     fleet = phase_fleet(dev, card)
+    fabric, fabric_errs = phase_fabric(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
-                 blocked[2], host_errs):
+                 blocked[2], host_errs, fabric_errs):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -3692,6 +4112,8 @@ def main() -> int:
                 auto_run["launches"]["fused_grouped_bag_interactions"],
                 **tiered[0], **packed[0], **api_serve[0], **api_attention[0],
                 **blocked[0]}
+    fabric_launches = sum(run["launches"] for run in fabric.values())
+    launches["embedding_bag"] += fabric_launches
     # each kernel's row: the serve kernels at the depth-8 micro-batch
     # B = 25, the bags at B = 200, attention at the largest shape where
     # the plain version and the library also run
@@ -3723,6 +4145,15 @@ def main() -> int:
               f"{len(rep.scale_events)} scale events, "
               f"{len(rep.refreshes)} lfu_refresh, peak {run['peak_gb']:.2f} "
               f"GB ({card})")
+    for label, run in fabric.items():
+        rep = run["report"]
+        print(f"[fabric] {label}: {rep.n_replicas_start}->"
+              f"{rep.n_replicas_end} boards, p50 {rep.p50_ms:.4f} ms p99 "
+              f"{rep.p99_ms:.4f} ms, achieved/offered "
+              f"{rep.achieved_qps:.2f}/{rep.offered_qps:.2f} qps, "
+              f"{rep.bytes_per_query:.1f} B/query, remote lookups "
+              f"{rep.remote_lookup_fraction:.4f}, row 4 launches "
+              f"{run['launches']} ({card})")
     print(json.dumps({"by_batch": by_shape}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -3736,7 +4167,9 @@ def main() -> int:
              "host_tier": host["time"],
              "host_tier_pooling_step": host["pooling_step"],
              "host_tier_peak_gb": host["peak_gb"]}
-            if name == "cached_embedding_bag" else {})}
+            if name == "cached_embedding_bag" else {}),
+         **({"fabric_launches": fabric_launches}
+            if name == "embedding_bag" else {})}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

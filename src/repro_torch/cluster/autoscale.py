@@ -19,9 +19,11 @@ percentile + patience + cooldown, no predictive model):
 The MECHANISM lives in the fleet. Replicated mode (`cluster.Cluster`):
 scale-up re-places a live replica's params onto the new sub-mesh via
 `runtime/elastic.remesh_tree` (`Replica.clone_params_onto`), scale-down
-drains and retires a board. The sharded fleet that re-partitions row
-ranges under the same policy is ROADMAP A7b. Every decision is recorded
-as a `ScaleEvent` in the fleet's report.
+drains and retires a board. Sharded mode (`fabric.ShardedFleet`): the
+SAME policy object drives `fabric/elastic.expand_map` / `shrink_map` --
+the fleet re-partitions row ranges live, executes the `MigrationPlan`,
+and records the movement here via `record_migration`. Every decision is
+recorded as a `ScaleEvent` in the fleet's report.
 """
 from __future__ import annotations
 
@@ -68,11 +70,21 @@ class SLAAutoscaler:
         # running (t, board_seconds) at each scale decision — the cost side
         # of the autoscaler-economics frontier; the cluster records it
         self.cost_log: List[Tuple[float, float]] = []
+        # sharded mode only: (t, bytes_moved, stall_s) per executed
+        # MigrationPlan -- what each elastic decision cost the fabric
+        self.migration_log: List[Tuple[float, int, float]] = []
 
     def record_cost(self, now: float, board_seconds: float) -> None:
         """Log the fleet's running boards x time spend at a scale decision
         (called by the cluster, which owns the replica lifetimes)."""
         self.cost_log.append((float(now), float(board_seconds)))
+
+    def record_migration(self, now: float, bytes_moved: int,
+                         stall_s: float) -> None:
+        """Log one executed row-range migration (sharded fleets only; the
+        fleet owns the MigrationPlan, the policy just keeps the ledger)."""
+        self.migration_log.append((float(now), int(bytes_moved),
+                                   float(stall_s)))
 
     def window_p99_ms(self) -> float:
         if not self._lat:

@@ -281,6 +281,7 @@ class Cluster:
         victim = min(self.replicas, key=lambda r: (r.backlog(now), -r.rid))
         self._flush(victim, now, reason="drain")
         victim.retired_at = max(now, victim.free)   # serves out its queue
+        victim.release()
         self.replicas.remove(victim)
         self.router.replica_removed(self.replicas)
         self._retired.append(victim)

@@ -174,6 +174,15 @@ class Replica:
             f.query = None
         return futs
 
+    def release(self) -> None:
+        """Let go of the board's device tensors (its session and the
+        params it serves) when the board retires; the stats stay. The
+        reference keeps a retired replica's params: at full width a
+        scale-down then a scale-up would hold one more table set than the
+        fleet serves."""
+        self.session = None
+        self.engine = None
+
     # -- online updates ------------------------------------------------------
     def apply_row_updates(self, batch) -> int:
         """Scatter one online ``DeltaBatch`` into the live served params:

@@ -36,6 +36,10 @@ step, so a model bigger than the card serves and trains:
                  host_capacity_mb=40960, alpha=1.05)
     serve = eng.serve_session(max_batch_queries=1)
 
+``sharded_fleet(n_boards=...)`` builds the sharded fabric fleet
+(``repro_torch.fabric``): boards that together hold one partitioned table
+set, on the engine's device.
+
 The port serves and trains DLRM on one device. Options of the reference's
 ``Engine`` that it does not carry (a mesh and more devices: ROADMAP A6b)
 raise ``NotImplementedError`` naming the ROADMAP item that brings them.
@@ -324,11 +328,20 @@ class Engine:
         return sess
 
     def sharded_fleet(self, **kw):
-        """The reference's fleet of boards that together own one
-        partitioned table set: not ported yet."""
-        raise NotImplementedError(
-            "Engine.sharded_fleet (the sharded fabric fleet) is not ported "
-            "yet (ROADMAP A7b, sharded fleet and fabric)")
+        """Build a ``repro_torch.fabric.ShardedFleet`` from this engine's
+        config on its device: N boards that TOGETHER own one partitioned
+        table set (vs the replicated ``repro_torch.cluster`` fleet),
+        profiled and partitioned with the engine's (alpha, seed) stream
+        so the placement sees the traffic the fleet will serve. Every
+        keyword (``n_boards``, ``board_capacity_bytes``, ``link``,
+        ``cache_rows``, ``router``, ...) forwards to ``ShardedFleet``."""
+        if not isinstance(self.cfg, DLRMConfig):
+            raise ValueError("sharded_fleet is DLRM-only")
+        from repro_torch.fabric import ShardedFleet
+        return ShardedFleet(
+            self.cfg, alpha=self.alpha, seed=self.seed,
+            profile_batches=self.profile_batches, verbose=self.verbose,
+            device=self.device, **kw)
 
     def train_session(self, *, ckpt_dir: Optional[str] = None,
                       ckpt_every: int = 50, ckpt_keep: int = 3,

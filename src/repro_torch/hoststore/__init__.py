@@ -15,13 +15,13 @@ memory, as the reference's ``repro.hoststore``:
               all-in-device path; ``build_host_exchange`` sizes the hot
               slab / chunk cache for a device-memory budget.
 """
-from .chunks import ChunkParamMgr, EnsureStats, SwapStats
+from .chunks import ChunkParamMgr, EnsureStats, StagingRing, SwapStats
 from .exchange import (HostTieredExchange, build_host_exchange,
                        draw_host_tables)
 from .swap import SwapPlan, micro_batch_indices, overlap_stall, plan_swaps
 
 __all__ = [
-    "ChunkParamMgr", "EnsureStats", "SwapStats",
+    "ChunkParamMgr", "EnsureStats", "StagingRing", "SwapStats",
     "HostTieredExchange", "build_host_exchange", "draw_host_tables",
     "SwapPlan", "micro_batch_indices", "overlap_stall", "plan_swaps",
 ]

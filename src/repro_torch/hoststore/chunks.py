@@ -28,7 +28,7 @@ are chosen for the whole call at once, in the reference's exact order
 then slot), and the transfers are batched: the faulted chunks are
 gathered from the host store into a bounded pinned staging ring and copied
 to the device piece by piece, and dirty victims come back the same way
-(``_StagingRing.to_device`` / ``to_host``).
+(``StagingRing.to_device`` / ``to_host``).
 The copies run on the current stream and each ``ensure`` waits for them,
 so its measured ``copy_s`` is the wall time of the whole transfer; the
 stall the serve path reports stays the reference's modeled one.
@@ -106,7 +106,7 @@ class SwapStats:
                 if self.needed_chunks else 1.0)
 
 
-class _StagingRing:
+class StagingRing:
     """Two pinned host buffers of ``STAGE_BYTES`` (plain ones when the
     device is the CPU) and the event of each one's last copy: a half is
     written again only after its copy has left it. Every transfer between
@@ -187,7 +187,7 @@ class _StagingRing:
 
 
 def copy_to_host(dst: torch.Tensor, src: torch.Tensor,
-                 ring: _StagingRing) -> None:
+                 ring: StagingRing) -> None:
     """dst (CPU) <- src (device), of one size, through the pinned ring."""
     dst, src = dst.view(-1), src.reshape(-1)
     ring.to_host(src.numel(), (1,), lambda a, b: src[a:b, None],
@@ -255,7 +255,7 @@ class ChunkParamMgr:
                                         dtype=host.dtype, device=self.device)
         self.device_pos = torch.full((self.T, self.R), self.pad_pos,
                                      dtype=torch.int32, device=self.device)
-        self._ring: Optional[_StagingRing] = None
+        self._ring: Optional[StagingRing] = None
         self.stats = SwapStats()
 
     # -- chunk geometry ------------------------------------------------------
@@ -301,9 +301,9 @@ class ChunkParamMgr:
         return self.device_cache[:self.pad_pos].view(
             self.cache_slots, self.chunk_rows, self.d)
 
-    def _staging(self) -> _StagingRing:
+    def _staging(self) -> StagingRing:
         if self._ring is None:
-            self._ring = _StagingRing(self.device, self.host.dtype)
+            self._ring = StagingRing(self.device, self.host.dtype)
         return self._ring
 
     # -- eviction ------------------------------------------------------------

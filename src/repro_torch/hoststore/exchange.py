@@ -44,7 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.parallel.exchange import EmbeddingExchange, Tables
 
-from .chunks import ChunkParamMgr, _StagingRing, copy_to_host
+from .chunks import ChunkParamMgr, StagingRing, copy_to_host
 from .swap import SwapPlan, overlap_stall, plan_swaps
 
 
@@ -246,7 +246,7 @@ def draw_host_tables(cfg: DLRMConfig, seed: int = 0,
             dlrm_lib.draw_table(host[t], cfg, gen)
         return host
     table = torch.empty((cfg.rows_per_table, cfg.embed_dim), device=dev)
-    ring = _StagingRing(dev, host.dtype)
+    ring = StagingRing(dev, host.dtype)
     for t in range(cfg.num_tables):
         copy_to_host(host[t], dlrm_lib.draw_table(table, cfg, gen), ring)
     return host

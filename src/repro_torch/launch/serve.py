@@ -36,18 +36,25 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 100 \\
       --replicas 2 --scenario flash_crowd --router p2c --autoscale
 
+  # sharded fleet: 3 boards of 7,000 MiB TOGETHER hold the 20,480 MiB
+  # model (a table split into row ranges), lookups over a modeled fabric
+  PYTHONPATH=src python -m repro_torch.launch.serve --queries 100 \\
+      --replicas 3 --fleet-mode sharded --board-capacity-mb 7000 \\
+      --alpha 1.05 --router jsq
+
 Any of --replicas>1 / --scenario / --autoscale / --record-trace /
 --replay-trace routes through the cluster path (``repro_torch.cluster``):
 a ``TrafficScenario`` event stream (or a recorded JSONL trace) served by
-N replica boards behind the chosen router. On one card the boards share
-the device, each on its own virtual busy horizon.
+N replica boards behind the chosen router. ``--fleet-mode sharded`` routes
+through the sharded fleet (``repro_torch.fabric``) instead, ``--replicas``
+being its board count. On one card the boards share the device, each on
+its own virtual busy horizon.
 
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
 it: a ranking of placements, not a prediction for the card. The
-reference launcher's multi-device, sharded-fleet and online flags are
-accepted so that they fail loudly: each names the ROADMAP item that will
-bring it.
+reference launcher's multi-device and online flags are accepted so that
+they fail loudly: each names the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -56,20 +63,18 @@ import json
 import sys
 from typing import Optional
 
+import numpy as np
+
 from repro_torch.configs.registry import get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 from repro_torch.obs import Tracer, default_registry
 
 _A6B = "A6b, k ranks"
-_A7B = "A7b, sharded fleet and fabric"
 _A7C = "A7c, online updates"
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
     "model_axis": _A6B,
-    **{dest: _A7B for dest in (
-        "fleet_mode", "board_capacity_mb", "fabric_latency_us", "fabric_gbs",
-        "fabric_cache_rows")},
     **{dest: _A7C for dest in (
         "online_every_s", "online_steps", "online_lr", "coherence",
         "record_deltas", "replay_deltas")},
@@ -161,7 +166,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="write the SLA report (with its per-query blame "
                          "decomposition) as JSON")
-    fleet = ap.add_argument_group("fleet (repro_torch.cluster)")
+    fleet = ap.add_argument_group(
+        "fleets (repro_torch.cluster; sharded: repro_torch.fabric)")
     add = fleet.add_argument
     add("--replicas", type=int, default=1,
         help=">1 serves a fleet of replica boards behind --router "
@@ -181,23 +187,36 @@ def _parser() -> argparse.ArgumentParser:
              "(set lower to scale before the report SLA is at risk)")
     add("--max-replicas", type=int, default=4)
     add("--min-replicas", type=int, default=1,
-        help="autoscaler floor")
+        help="autoscaler floor (sharded fleets shrink by retiring boards "
+             "down to this)")
     add("--record-trace", default=None, metavar="PATH",
         help="write the generated scenario events as a JSONL trace "
              "before serving")
     add("--replay-trace", default=None, metavar="PATH",
         help="serve a recorded JSONL trace instead of generating events "
              "(bit-identical replay)")
+    add("--fleet-mode", choices=["replicated", "sharded"],
+        default="replicated",
+        help="replicated: every board a full model copy "
+             "(repro_torch.cluster); sharded: the boards TOGETHER own one "
+             "partitioned table set, lookups routed to owners over the "
+             "modeled fabric (repro_torch.fabric.ShardedFleet), "
+             "--replicas boards")
+    add("--board-capacity-mb", type=float, default=None,
+        help="per-board embedding capacity (MiB, at the tables' stored "
+             "fp32) for the sharded fleet's partitioner; default: fair "
+             "share + 25%%")
+    add("--fabric-latency-us", type=float, default=1.0,
+        help="inter-board fabric link latency (microseconds)")
+    add("--fabric-gbs", type=float, default=100.0,
+        help="inter-board fabric bandwidth (GB/s per board)")
+    add("--fabric-cache-rows", type=int, default=None,
+        help="per-board LFU cache of remote hot rows (rows; 0 disables, "
+             "default ~10%% of the board's remote row space)")
     not_ported = ap.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
     add = not_ported.add_argument
     add("--model-axis", type=int, default=1)
-    add("--fleet-mode", choices=["replicated", "sharded"],
-        default="replicated")
-    add("--board-capacity-mb", type=float, default=None)
-    add("--fabric-latency-us", type=float, default=1.0)
-    add("--fabric-gbs", type=float, default=100.0)
-    add("--fabric-cache-rows", type=int, default=None)
     add("--online-every-s", type=float, default=0.0)
     add("--online-steps", type=int, default=1)
     add("--online-lr", type=float, default=0.05)
@@ -232,6 +251,8 @@ def main(argv: Optional[list] = None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as err:          # no CUDA device
         raise SystemExit(f"[serve] {err}")
+    if args.fleet_mode == "sharded":
+        return _fabric_main(args, cfg, device)
     if fleet_path:
         return _cluster_main(args, cfg, full_cfg, device)
     engine = Engine(cfg, plan=args.plan, seed=args.seed, alpha=args.alpha,
@@ -269,6 +290,89 @@ def main(argv: Optional[list] = None) -> int:
     print(f"[serve] {cfg.name}:")
     print(report.summary())
     _emit_obs(args, tracer, report)
+    return 0 if report.ok else 1
+
+
+def _fabric_main(args, cfg, device) -> int:
+    """Sharded-fleet path: one partitioned model over --replicas boards,
+    lookups routed to owners over the modeled fabric (repro_torch.fabric)."""
+    from repro_torch.cluster import SLAAutoscaler
+    from repro_torch.core.perf_model import fabric_link
+    from repro_torch.fabric import fits_one_board
+    from repro_torch.traffic import load_trace, make_scenario, record_trace
+
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    cap = (int(args.board_capacity_mb * 2 ** 20)
+           if args.board_capacity_mb is not None else None)
+    # resolve the scenario BEFORE building the fleet: the profile, the
+    # partition and the cache warm-up all consume alpha, so a replayed
+    # trace's header (or the zipf_drift alpha guard) must inform them
+    events = None
+    if args.replay_trace:
+        meta, events = load_trace(args.replay_trace)
+        scen_name = meta.get("scenario", args.scenario or "stationary")
+        print(f"[serve] replaying {len(events)} events from "
+              f"{args.replay_trace} (scenario={scen_name})")
+        if args.alpha == 0.0 and events:
+            # profile and cache must see the traffic the trace carries
+            args.alpha = float(np.median([e.alpha for e in events]))
+            if args.alpha:
+                print(f"[serve] --alpha 0 on replay: profiling at the "
+                      f"trace's median alpha {args.alpha:g}")
+    else:
+        scen_name = args.scenario or "stationary"
+    if scen_name == "zipf_drift" and args.alpha == 0.0:
+        args.alpha = 1.05
+        print("[serve] zipf_drift with --alpha 0: using alpha=1.05 "
+              "(uniform streams have no hot rows to drift)")
+    autoscaler = None
+    if args.autoscale:
+        # the elastic threshold may sit BELOW the report SLA: scale when
+        # latency degrades, not only once the SLA is already violated
+        autoscaler = SLAAutoscaler(
+            args.autoscale_sla_ms or args.sla_ms,
+            min_replicas=args.min_replicas, max_replicas=args.max_replicas)
+    engine = Engine(cfg, seed=args.seed, alpha=args.alpha, device=device,
+                    verbose=True)
+    tracer = Tracer() if args.trace_out else None
+    fleet = engine.sharded_fleet(
+        n_boards=args.replicas, board_capacity_bytes=cap,
+        link=fabric_link(args.fabric_latency_us, args.fabric_gbs),
+        cache_rows=args.fabric_cache_rows,
+        cache_enabled=(args.fabric_cache_rows is None
+                       or args.fabric_cache_rows > 0),
+        max_batch_queries=args.max_batch_queries,
+        max_wait_ms=args.max_wait_ms, router=args.router,
+        autoscaler=autoscaler, tracer=tracer)
+    pm = fleet.partition
+    if not fits_one_board(cfg, pm.board_capacity_bytes, pm.table_bytes):
+        print(f"[serve] table set ({pm.total_bytes / 2**20:.2f} MiB) "
+              f"exceeds one board ({pm.board_capacity_bytes / 2**20:.2f} "
+              f"MiB): only the sharded fleet can hold this model")
+
+    if events is None:
+        qps = args.qps
+        if qps <= 0:
+            # sharded throughput does NOT scale with boards: every batch's
+            # lookups occupy all owner boards, so the fleet behaves like
+            # one pipeline of capacity-batch rounds (no board multiplier)
+            s_cap = fleet.measure_service_time()
+            qps = 0.3 * args.max_batch_queries / s_cap
+            print(f"[serve] --qps 0: offering 0.3 x sharded capacity = "
+                  f"{qps:.1f} qps (capacity batch {s_cap * 1e3:.2f} ms)")
+        scenario = make_scenario(scen_name, alpha=args.alpha)
+        events = scenario.events(args.queries, qps=qps, seed=args.seed)
+        if args.record_trace:
+            record_trace(args.record_trace, events, scenario, qps=qps,
+                         seed=args.seed, config=cfg.name)
+            print(f"[serve] recorded trace -> {args.record_trace}")
+
+    report = fleet.run(events, sla_ms=args.sla_ms,
+                       percentile=args.sla_percentile, scenario=scen_name)
+    print(f"[serve] {cfg.name} (sharded, {args.replicas} boards):")
+    print(report.summary())
+    _emit_obs(args, tracer, report, extra_metrics=fleet.metrics)
     return 0 if report.ok else 1
 
 

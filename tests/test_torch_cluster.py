@@ -305,6 +305,26 @@ def test_flash_crowd_autoscale_matches_the_reference(monkeypatch,
     assert "[cluster] scale up" in rep.summary()
 
 
+def test_scale_down_releases_the_retired_replica():
+    """A retired replica lets go of its params (the reference keeps them):
+    its stats stay in the report, and a later scale-up does not hold one
+    more table set than the fleet serves."""
+    _, cfg = _cfgs()
+    scaler = pc.SLAAutoscaler(1e6, min_replicas=1, max_replicas=2, window=4,
+                              patience=1, cooldown_s=0.005)
+    cl = pc.Cluster(cfg, n_replicas=2, max_batch_queries=2, autoscaler=scaler,
+                    device="cpu")
+    events = make_scenario("stationary", alpha=ALPHA).events(
+        24, qps=500.0, seed=5)
+    rep = cl.run(events, sla_ms=1e6)
+    assert [e.action for e in rep.scale_events][:1] == ["down"]
+    assert rep.n_replicas_end == 1 and len(rep.replicas) == 2
+    gone = cl._retired[0]
+    assert gone.session is None and gone.engine is None
+    assert gone.served > 0 and gone.retired_at is not None
+    assert sorted(cl.completed) == [e.qid for e in events]
+
+
 def test_zipf_drift_monitor_matches_the_reference(monkeypatch,
                                                   shared_stream):
     monitors = _monitors(_cfgs())
@@ -399,10 +419,6 @@ def test_launcher_replays_a_recorded_trace(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--fleet-mode", "sharded"], "A7b"),
-    (["--board-capacity-mb", "1"], "A7b"), (["--fabric-gbs", "50"], "A7b"),
-    (["--fabric-latency-us", "2"], "A7b"),
-    (["--fabric-cache-rows", "0"], "A7b"),
     (["--online-every-s", "1"], "A7c"), (["--online-steps", "2"], "A7c"),
     (["--online-lr", "0.1"], "A7c"), (["--coherence", "invalidate"], "A7c"),
     (["--record-deltas", "d.jsonl"], "A7c"),

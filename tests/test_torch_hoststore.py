@@ -107,7 +107,7 @@ def test_copy_to_host_and_rows_to_device_in_pieces(monkeypatch):
     tables = _tables()
     src = torch.from_numpy(tables.copy())
     dst = torch.empty_like(src)
-    chunks_mod.copy_to_host(dst, src, chunks_mod._StagingRing(
+    chunks_mod.copy_to_host(dst, src, chunks_mod.StagingRing(
         torch.device("cpu"), torch.float32))
     assert torch.equal(dst, src)
     mgr = ChunkParamMgr(tables, 2, 4, device="cpu")

@@ -299,9 +299,6 @@ def test_launcher_report_json(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--model-axis", "2"], "A6b"),
-    (["--board-capacity-mb", "1"], "A7b"), (["--fabric-gbs", "50"], "A7b"),
-    (["--fabric-latency-us", "2"], "A7b"),
-    (["--fabric-cache-rows", "0"], "A7b"),
     (["--coherence", "invalidate"], "A7c"), (["--online-lr", "0.1"], "A7c"),
     (["--online-steps", "2"], "A7c"),
     (["--record-deltas", "deltas.jsonl"], "A7c")])
@@ -413,12 +410,6 @@ def test_host_tier_entry_points_default_to_cuda():
 
 def test_reference_axis_default_is_accepted():
     Engine(get_dlrm(NAME).reduced(), device="cpu", axis=["data", "model"])
-
-
-def test_sharded_fleet_names_its_item():
-    eng = Engine(get_dlrm(NAME).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        eng.sharded_fleet(n_boards=2)
 
 
 @pytest.mark.parametrize("kw", [{"batch": 8}, {"seq": 128},
