@@ -153,6 +153,41 @@ Phases; any failure exits non-zero:
      launches once a whole-table owner and once a split pool a flush,
      plus one untimed warm-up a new shape; peak device memory under the
      tables + the largest board's slice + 2 GB; the phase under 120 s;
+     9d. online updates at full width (``repro_torch.online``), on 9c's host
+     tables before they are freed; each delta channel recorded before its
+     run by an ``OnlineTrainer`` on a copy of those tables (lr 0.05, one
+     step an update, the scenario's drift salt) whose ``OnlineSource`` puts
+     5 batches inside the trace, the trainer freed before serving: (i) a
+     ``Cluster`` of 2 replicas (plan none, B = 200, capacity 4, max_wait_ms
+     2, the planner's depth, round robin) under a 400-query zipf_drift trace
+     at the launcher's default load, each batch broadcast at its update
+     barrier (every query answered once, one update a batch, rows pushed =
+     the batches' rows, every updated row of both replicas bitwise its
+     latest value, row 1's launches = the sum of resolved depths over every
+     flush, update flushes included, peak under 2 x the tables + 2 GB); (ii)
+     the sharded fleet over 9c's trace on one channel: (a) one board of
+     20,480 MiB, (b) three of 7,000 MiB (table 39 split, cache on) under
+     coherence "propagate", (c) as (b) under "invalidate"; (b) and (c)
+     bitwise equal to (a) query for query, the fleet's host rows and every
+     owner's resident rows at the updated ids bitwise their latest values,
+     9c's shared host tables unchanged (the fleet's first write copies
+     them), (c) invalidating and (b) propagating, row 4 held and counted as
+     in 9c, peak under the tables + the largest slice + 2 GB, host RSS
+     growth over the phase's start under the tables + the fleet's cache
+     arrays + 4 GB; in (i) and (ii) three queries' probs (one before the
+     first emit, two after later versions) against a plain path that applies
+     each batch emitted at or before the query's arrival (the batches change
+     the last query's pooled rows by ~1% at lr 0.05, which may not move its
+     fp32 probs); (iii) the launchers at --smoke on the card: ``train
+     --emit-deltas`` into ``build/``, replayed by the serve launcher in both
+     fleet modes (one update a recorded batch), then ``--online-every-s``
+     with ``--record-deltas`` in both modes, each recording reloaded equal
+     to the channel its run consumed; then ``refresh_tiered`` on a two-tier
+     store of 262,144 rows a table (``measure_row_freq`` +
+     ``build_tiered_tables`` on the card), row 6 over the updated rows
+     against ``embedding_bag_ref`` on the updated bulk. Each apply, the
+     trainer's step and copy, staleness and RSS are printed; the phase under
+     120 s;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -168,7 +203,11 @@ Phases; any failure exits non-zero:
      resolved depths; row 6 held against its plain version at this shape,
      its cache rows read past element 2**31, with the edge cases of 6a
      on the shared tier; the pooling step's device time and transient
-     memory, row 6 timed);
+     memory, row 6 timed); an online batch written through the host
+     tier (``write_through_host``: cold rows resident in the chunk cache,
+     rewritten in place, and cold rows that are not, faulted in after the
+     write), then a query that looks them up pooled in the cached-bag
+     mode, row 6 against ``embedding_bag_ref`` on the updated host rows;
      SGD training at depth 1 on the same store, its first faulting step
      held against a compact model; at the reduced config, host-tier
      serving and SGD training bitwise equal to plan="none" (under
@@ -277,6 +316,12 @@ FABRIC_ELASTIC_QUERIES = 240
 FABRIC_BURST_AT = 48
 FABRIC_PHASE_S = 120.0
 FABRIC_RELEASE_S = 40.0
+ONLINE_QUERIES = 400     # 9d(i)'s zipf_drift trace
+ONLINE_UPDATES = 5       # delta batches a 9d trace takes
+ONLINE_LR = 0.05         # the online trainer's (and the launcher's) lr
+ONLINE_PHASE_S = 120.0
+ONLINE_TIER_ROWS = 262_144
+ONLINE_SLACK_BYTES = 4 * 10**9
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -2890,7 +2935,7 @@ def events_until(scenario, qps, t_end):
     return [e for e in events if e.arrival_s <= t_end]
 
 
-def drive_fleet(cluster, events, label, scenario, card):
+def drive_fleet(cluster, events, label, scenario, card, online=None):
     """Serve ``events`` through ``cluster.run`` with the launch counts set
     to 0 just before and read just after; check that every query is
     answered once with finite probs in (0, 1), and print the report,
@@ -2901,7 +2946,7 @@ def drive_fleet(cluster, events, label, scenario, card):
     depths, warm, unwrap = record_fleet_depths()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = cluster.run(events, sla_ms=50.0, scenario=scenario)
+    rep = cluster.run(events, sla_ms=50.0, scenario=scenario, online=online)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launch_counts)
@@ -3172,33 +3217,50 @@ def first_burst_s(scenario, qps) -> float:
     return t
 
 
-def plain_fabric_probs(cfg, params, tables_host, events, dev):
-    """The probs of ``events`` recomputed in plain torch, apart from any
-    fleet: each query regenerated from its event, its rows gathered from
-    the host tables and copied to the card as a (T, B*L, d) slab that
-    ``ref.embedding_bag_ref`` pools, then the dense forward and sigmoid
-    at the query's own batch."""
-    from repro_torch.core.dlrm import dlrm_forward_from_pooled
+def plain_pooled(cfg, tables_host, ev, dev, batches=()):
+    """(query, pooled (B, T, d)) of one event in plain torch: the query
+    regenerated from its event, its rows gathered from the host tables
+    (then, in order, every online batch of ``batches`` emitted at or
+    before its arrival applied to the rows it names) and copied to the
+    card as a (T, B*L, d) slab that ``ref.embedding_bag_ref`` pools."""
     from repro_torch.kernels import ref
     from repro_torch.traffic import materialize_query
+    q = materialize_query(cfg, ev, device=dev)
+    ids = q["indices"].long().cpu()
+    B, T, L = ids.shape
+    rows = tables_host[torch.arange(T)[None, :, None], ids]
+    for batch in batches:
+        if batch.t_emit_s > ev.arrival_s:
+            continue
+        for d in batch.deltas:
+            named = torch.from_numpy(d.rows)
+            mine = ids[:, d.table].contiguous()
+            at = torch.searchsorted(named, mine).clamp_(
+                max=named.numel() - 1)
+            hit = named[at] == mine
+            rows[:, d.table][hit] = torch.from_numpy(d.values)[at[hit]]
+    slab = rows.permute(1, 0, 2, 3).reshape(T, B * L, -1).to(dev)
+    fake = (torch.arange(B, device=dev)[:, None, None] * L
+            + torch.arange(L, device=dev)[None, None, :]).expand(B, T, L)
+    return q, ref.embedding_bag_ref(slab, fake)
+
+
+def plain_fabric_probs(cfg, params, tables_host, events, dev, batches=()):
+    """The probs of ``events`` recomputed in plain torch, apart from any
+    fleet (``plain_pooled``), then the dense forward and sigmoid at the
+    query's own batch."""
+    from repro_torch.core.dlrm import dlrm_forward_from_pooled
     mlps = {k: params[k] for k in ("bot_mlp", "top_mlp")}
     out = {}
     for ev in events:
-        q = materialize_query(cfg, ev, device=dev)
-        idx = q["indices"].long()
-        B, T, L = idx.shape
-        rows = tables_host[torch.arange(T)[None, :, None], idx.cpu()]
-        slab = rows.permute(1, 0, 2, 3).reshape(T, B * L, -1).to(dev)
-        fake = (torch.arange(B, device=dev)[:, None, None] * L
-                + torch.arange(L, device=dev)[None, None, :]).expand(B, T, L)
-        pooled = ref.embedding_bag_ref(slab, fake)
+        q, pooled = plain_pooled(cfg, tables_host, ev, dev, batches)
         out[ev.qid] = torch.sigmoid(dlrm_forward_from_pooled(
             mlps, q["dense"], pooled)).cpu().numpy()
     return out
 
 
 def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
-                 errs):
+                 errs, batches=(), coherence="propagate"):
     """Serve ``events`` through ``fleet.run`` with the launch counts set to
     0 just before and read just after. Row 4's launches must equal one a
     whole-table owner and one a split pool in each flush, plus the untimed
@@ -3208,9 +3270,13 @@ def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
     (each owner's lookup, the split pool) against ``ref.embedding_bag_ref``
     on the same inputs (``close``, its errors into ``errs``), and the
     first, middle and last queries' probs against ``plain_fabric_probs``
-    at RTOL/ATOL. Prints the report and a ``[fabric]`` line. Returns
-    (report, probs by qid, launches, wall seconds)."""
+    at RTOL/ATOL. With ``batches`` the run consumes them as a recorded
+    channel under ``coherence``, and the plain path applies each to the
+    queries that arrive at or after its emit. Prints the report and a
+    ``[fabric]`` line. Returns (report, probs by qid, launches, wall
+    seconds)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.online import DeltaChannel
     expected, owner_parts = [], fleet._owner_parts
     checked = set()
 
@@ -3265,7 +3331,9 @@ def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
     warm0 = warm_keys()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = fleet.run(events, sla_ms=50.0, scenario=scenario)
+    online = DeltaChannel(batches) if batches else None
+    rep = fleet.run(events, sla_ms=50.0, scenario=scenario, online=online,
+                    coherence=coherence)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts["embedding_bag"]
@@ -3291,8 +3359,8 @@ def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
     check(peak <= bound_bytes, f"{label}: peak {peak / GB:.2f} GB over "
                                f"{bound_bytes / GB:.2f} GB")
     some = [events[0], events[len(events) // 2], events[-1]]
-    plain = plain_fabric_probs(fleet.cfg, params, fleet._tables_host, some,
-                               fleet.device)
+    plain = plain_fabric_probs(fleet.cfg, params, params["tables"], some,
+                               fleet.device, batches)
     err = max(float(np.abs(probs[q] - p).max()) for q, p in plain.items())
     check(all(np.allclose(probs[q], p, rtol=RTOL, atol=ATOL)
               for q, p in plain.items()),
@@ -3342,7 +3410,10 @@ def phase_fabric(dev, card):
     against a static 2-board fleet. (b)-(d) must serve bitwise what their
     reference serves, and every run agrees with the plain path
     (``drive_fabric``). Each fleet is freed before the next. Returns (the
-    runs, row 4's errors against its plain version)."""
+    runs, row 4's errors against its plain version, and what phase 9d
+    serves next: the host tables (still held), the zipf_drift trace and
+    its scenario, and the phase's memory marks, which
+    ``release_fabric_tables`` takes)."""
     import gc
     from repro_torch.cluster import SLAAutoscaler
     from repro_torch.configs import get_dlrm
@@ -3404,6 +3475,7 @@ def phase_fabric(dev, card):
     print(f"[fabric] load: 0.3 x 4 queries / {s_cap * 1e3:.4f} ms capacity "
           f"batch = {qps:.2f} qps; zipf_drift, a rotation every "
           f"{rotate_s:.4f} s ({rotations} in {FABRIC_QUERIES} queries)")
+    drift_events, drift_scen = events, scen
     rep, want, launches, _ = drive_fabric(ref, events, "(a) 1 board",
                                           "zipf_drift", card, bound, params,
                                           errs)
@@ -3488,34 +3560,541 @@ def phase_fabric(dev, card):
         errs)
     same_probs(probs, want, "(d) elastic vs static")
     out["(d) static"] = dict(report=rep, launches=launches)
-    kw.clear()                          # the last hold on the host tables
-    del static, params
+    kw.clear()
+    del static
     gc.collect()
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated() < base + 0.1 * GB,
           "phase 9c: a fleet's tensors outlive it")
+    wall = time.perf_counter() - t_phase
+    peak_line(f"phase 9c (the sharded fabric fleet; {wall:.1f} s)")
+    check(wall <= FABRIC_PHASE_S,
+          f"phase 9c took {wall:.1f} s, over {FABRIC_PHASE_S} s")
+    held = dict(params=params, events=drift_events, scenario=drift_scen,
+                base=base, rss0=rss0, avail0=avail0)
+    return out, {k: max(v) for k, v in errs.items()}, held
+
+
+def release_fabric_tables(held):
+    """Let go of the host tables phases 9c and 9d served, check that the
+    host RSS is back to 9c's start, and wait for the host to take the
+    pages back: phase 10 sizes its tables by MemAvailable."""
+    import gc
+    base, rss0, avail0 = held["base"], held["rss0"], held["avail0"]
+    held.clear()                        # the last hold on the host tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < base + 0.1 * GB,
+          "phases 9c-9d: a fleet's tensors outlive them")
     rss1 = rss_bytes()[0]
-    print(rss_line("phase 9c end"))
-    check(rss1 < rss0 + 2 * GB, f"phase 9c: host RSS {rss1 / GB:.2f} GB, "
-                                f"{rss0 / GB:.2f} GB at its start: the "
-                                f"host tables outlive it")
+    print(rss_line("phases 9c-9d end"))
+    check(rss1 < rss0 + 2 * GB, f"phases 9c-9d: host RSS {rss1 / GB:.2f} "
+                                f"GB, {rss0 / GB:.2f} GB at 9c's start: the "
+                                f"host tables outlive them")
     # the host takes freed pages back over seconds (~4 GB/s on the card's
     # host), and phase 10 sizes its tables by MemAvailable: wait for them
     t0 = time.perf_counter()
     while (mem_available() < avail0 - 2 * GB
            and time.perf_counter() - t0 < FABRIC_RELEASE_S):
         time.sleep(0.25)
-    print(f"[host] phase 9c: MemAvailable back to "
-          f"{mem_available() / GB:.2f} GB ({avail0 / GB:.2f} GB at its "
+    print(f"[host] phases 9c-9d: MemAvailable back to "
+          f"{mem_available() / GB:.2f} GB ({avail0 / GB:.2f} GB at 9c's "
           f"start) after {time.perf_counter() - t0:.1f} s")
     check(mem_available() >= avail0 - 2 * GB,
-          f"phase 9c: the host did not take its memory back in "
+          f"phases 9c-9d: the host did not take its memory back in "
           f"{FABRIC_RELEASE_S} s")
+
+
+# -------------------------------------------------------------- phase 9d
+def record_channel(cfg, params, events, scen, dev, label):
+    """The online stream of a trace, recorded before serving as the
+    launchers record it: an ``OnlineTrainer`` on a copy of ``params``'
+    tables (lr ONLINE_LR, one step an update, the scenario's drift salt at
+    each emit) driven by an ``OnlineSource`` whose interval puts
+    ONLINE_UPDATES batches inside the trace; then the trainer, and its
+    host copy of the tables, is freed. Returns (the batches, the trainer's
+    timings)."""
+    import gc
+    from repro_torch.online import OnlineSource, OnlineTrainer
+    horizon = events[-1].arrival_s
+    interval = horizon / (ONLINE_UPDATES + 0.5)
+    t0 = time.perf_counter()
+    trainer = OnlineTrainer(cfg, params, lr=ONLINE_LR, seed=0,
+                            alpha=FABRIC_ALPHA, device=dev)
+    copy_s = time.perf_counter() - t0
+    step_s, train = [], trainer.train_steps
+
+    def timed(n, salt=0):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = train(n, salt=salt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return loss
+
+    trainer.train_steps = timed
+    src = OnlineSource(trainer, interval_s=interval, steps_per_update=1,
+                       salt_fn=lambda t: scen.stream_params(t)[1])
+    t0 = time.perf_counter()
+    batches = list(src.run_to(horizon).emitted)
+    run_s = time.perf_counter() - t0
+    del src, trainer, train
+    gc.collect()
+    rows = [b.n_rows for b in batches]
+    salts = [scen.stream_params(b.t_emit_s)[1] for b in batches]
+    check(len(batches) == ONLINE_UPDATES and min(rows) > 0,
+          f"{label}: {len(batches)} batches of {rows} rows")
+    check(all(math.isfinite(b.train_loss) for b in batches),
+          f"{label}: a training loss is not finite")
+    emit_ms = (run_s - sum(step_s)) / len(batches) * 1e3
+    print(f"[online] {label}: trainer copied the tables in {copy_s:.2f} s; "
+          f"{len(batches)} batches, one every {interval * 1e3:.4f} ms of "
+          f"virtual time (salts {salts}), lr {ONLINE_LR}, B="
+          f"{cfg.batch_size}; a step (unique rows to the card, forward and "
+          f"backward there, rows back) p50 "
+          f"{np.percentile(step_s, 50) * 1e3:.3f} ms max "
+          f"{max(step_s) * 1e3:.3f} ms, a batch's diff of the touched rows "
+          f"{emit_ms:.3f} ms; rows a batch {rows}; losses "
+          f"{[round(b.train_loss, 4) for b in batches]}")
+    return batches, dict(copy_s=copy_s, step_ms=[x * 1e3 for x in step_s],
+                         emit_ms=emit_ms, rows=rows)
+
+
+def timed_method(obj, name, sink):
+    """Wrap ``obj.name`` so each call's wall seconds (device work
+    included) go to ``sink``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def updated_rows(batches):
+    """{table: sorted unique rows any batch updated}."""
+    out = {}
+    for b in batches:
+        for d in b.deltas:
+            out.setdefault(d.table, []).append(d.rows)
+    return {t: np.unique(np.concatenate(r)) for t, r in out.items()}
+
+
+def online_plain(label, cfg, params, batches, events, probs, dev):
+    """Three queries' probs -- one arriving before the first emit, two
+    after later versions -- against the plain path that applies each
+    batch emitted at or before the query's arrival."""
+    emits = [b.t_emit_s for b in batches]
+    picks = [events[0],
+             next(e for e in events if e.arrival_s > emits[1]),
+             events[-1]]
+    check(picks[0].arrival_s < emits[0] and picks[2].arrival_s > emits[-2],
+          f"{label}: the picked queries do not straddle the emits")
+    plain = plain_fabric_probs(cfg, params, params["tables"], picks, dev,
+                               batches)
+    err = max(float(np.abs(probs[q] - p).max()) for q, p in plain.items())
+    check(all(np.allclose(probs[q], p, rtol=RTOL, atol=ATOL)
+              for q, p in plain.items()),
+          f"{label}: probs disagree with the plain path: max_abs_err="
+          f"{err:.3e}")
+    seen = [sum(t <= e.arrival_s for t in emits) for e in picks]
+    # the batches changed what the last query pools; at lr ONLINE_LR a
+    # row moves ~1% of itself, so its probs may not move in fp32
+    _, frozen = plain_pooled(cfg, params["tables"], picks[2], dev)
+    _, updated = plain_pooled(cfg, params["tables"], picks[2], dev, batches)
+    moved = float((updated - frozen).abs().max() / frozen.abs().max())
+    shift = float(np.abs(plain_fabric_probs(
+        cfg, params, params["tables"], picks[2:], dev)[picks[2].qid]
+        - probs[picks[2].qid]).max())
+    check(moved > 0, f"{label}: the batches did not change the last "
+                     f"query's pooled rows")
+    print(f"[online] {label}: queries {list(plain)} (seeing {seen} of "
+          f"{len(batches)} batches) vs the plain path (host rows, the "
+          f"batches applied by arrival, embedding_bag_ref, dense forward): "
+          f"max_abs_err={err:.3e} ok; the batches moved the last query's "
+          f"pooled rows by up to {moved:.3e} of their scale and its probs "
+          f"by {shift:.3e}")
+
+
+def latest_rows(tables_host, batches):
+    """{table: (rows any batch updated, their values after every batch in
+    order, on top of ``tables_host``)}."""
+    out = {}
+    for t, rows in updated_rows(batches).items():
+        out[t] = (rows, tables_host[t, torch.from_numpy(rows)].clone())
+    for b in batches:
+        for d in b.deltas:
+            rows, vals = out[d.table]
+            vals[torch.from_numpy(np.searchsorted(rows, d.rows))] = \
+                torch.from_numpy(d.values)
+    return out
+
+
+def check_replica_rows(cluster, latest, dev):
+    """Every updated row on every replica bitwise its latest value."""
+    for r in cluster.replicas:
+        for t, (rows, vals) in latest.items():
+            got = r.session.params["tables"][t, torch.from_numpy(rows).to(
+                dev)].cpu()
+            check(torch.equal(got, vals),
+                  f"(i): r{r.rid}'s table {t} rows differ from the "
+                  f"batches' latest values")
+
+
+def check_owner_rows(fleet, ids, label, dev):
+    """Every owner's resident rows at the updated ids (``ids``: {table:
+    rows}) bitwise the fleet's host rows."""
+    host = fleet._tables_host
+    for t, r in ids.items():
+        rows_t = torch.from_numpy(r)
+        for b in fleet.boards:
+            if t in b.split_rows:
+                row_ids, resident = b.split_rows[t]
+                mine = rows_t[torch.isin(rows_t, row_ids.cpu())]
+                got = resident[torch.searchsorted(row_ids,
+                                                  mine.to(dev))].cpu()
+            elif t in b.table_ids:
+                j = int(np.searchsorted(b.table_ids, t))
+                mine = rows_t
+                got = b.tables[j, rows_t.to(dev)].cpu()
+            else:
+                continue
+            check(torch.equal(got, host[t, mine]),
+                  f"{label}: board {b.rid}'s resident rows of table {t} "
+                  f"differ from the host tables")
+
+
+def online_replicated(dev, card, params):
+    """9d(i): ``Cluster(get_dlrm("dlrm-rm2-small-unsharded"))`` of 2
+    replicas, plan none, B = 200, capacity 4, max_wait_ms 2, the
+    planner's depth, round robin, serving a zipf_drift trace of
+    ONLINE_QUERIES queries at the launcher's default load while a
+    recorded channel of ONLINE_UPDATES batches is broadcast at its update
+    barriers. Returns the run's numbers."""
+    from repro_torch.cluster import Cluster
+    from repro_torch.configs import get_dlrm
+    from repro_torch.online import DeltaChannel
+    from repro_torch.traffic import make_scenario
+    cfg = get_dlrm(CONFIG)
+    table_bytes = cfg.num_tables * cfg.rows_per_table * cfg.embed_dim * 4
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cluster = Cluster(cfg, n_replicas=2, max_batch_queries=4,
+                      max_wait_ms=2.0, router="round_robin",
+                      alpha=FABRIC_ALPHA, device=dev)
+    # the replicas drew their tables from seed 0, as 9c's host copy
+    sample = torch.arange(0, cfg.rows_per_table, 65_537)
+    check(all(torch.equal(r.session.params["tables"][:, sample].cpu(),
+                          params["tables"][:, sample])
+              for r in cluster.replicas),
+          "(i): a replica's tables are not 9c's host tables")
+    qps = default_load(cluster)
+    scen = make_scenario("zipf_drift", alpha=FABRIC_ALPHA,
+                         rotate_every_s=0.5 * ONLINE_QUERIES / qps)
+    events = scen.events(ONLINE_QUERIES, qps=qps, seed=0)
+    batches, train = record_channel(cfg, params, events, scen, dev, "(i)")
+    apply_s = []
+    timed_method(cluster, "_apply_update", apply_s)
+    rep, launches, depths = drive_fleet(
+        cluster, events, "(i) online zipf_drift", "zipf_drift", card,
+        online=DeltaChannel(batches))
+    peak = torch.cuda.max_memory_allocated()
+    o = rep.online
+    check(o is not None and o.n_updates == len(batches) == len(apply_s),
+          f"(i): {o and o.n_updates} updates applied of {len(batches)}")
+    check(o.rows_pushed == sum(b.n_rows for b in batches),
+          "(i): rows pushed differ from the batches' rows")
+    check(launches["fused_bag_interactions"] == sum(depths),
+          "(i): row 1's launches differ from the sum of resolved depths "
+          "over the flushes, update flushes included")
+    check_replica_rows(cluster, latest_rows(params["tables"], batches), dev)
+    probs = {e.qid: cluster.completed[e.qid].probs for e in events}
+    online_plain("(i)", cfg, params, batches, events, probs, dev)
+    check(peak < 2 * table_bytes + 2 * GB,
+          f"(i): peak {peak / GB:.2f} GB over 2 x the tables + 2 GB")
+    flushes = sum(len(r.batch_sizes) for r in cluster.replicas)
+    print(o.summary())
+    print(f"[online] (i) replicated: {o.n_updates} batches broadcast to 2 "
+          f"replicas, {o.rows_pushed} rows a replica; apply (host -> card "
+          f"scatter into both replicas' tables) "
+          f"{[round(x * 1e3, 3) for x in apply_s]} ms; staleness p50 "
+          f"{o.staleness_p50_s * 1e3:.4f} ms max "
+          f"{o.staleness_max_s * 1e3:.4f} ms; {flushes} flushes; p50 "
+          f"{rep.p50_ms:.4f} ms p99 {rep.p99_ms:.4f} ms; row 1 launches "
+          f"{launches['fused_bag_interactions']}; peak {peak / GB:.2f} GB "
+          f"(bound {(2 * table_bytes + 2 * GB) / GB:.2f}) ({card})")
+    out = dict(report=rep, launches=launches["fused_bag_interactions"],
+               apply_ms=[x * 1e3 for x in apply_s], peak_gb=peak / GB,
+               train=train)
+    del cluster
+    free_fleet(base, "(i)")
+    return out
+
+
+def online_sharded(dev, card, held, errs):
+    """9d(ii): the sharded fleet over 9c's host tables and its zipf_drift
+    trace, on one recorded channel: (a) one board of FABRIC_REF_MB, (b)
+    three of FABRIC_BOARD_MB (table 39 split, cache on) under
+    coherence="propagate", (c) as (b) with "invalidate". Returns the
+    runs."""
+    import gc
+    from repro_torch.configs import get_dlrm
+    from repro_torch.fabric import ShardedFleet
+    cfg = get_dlrm(CONFIG)
+    params, events, scen = held["params"], held["events"], held["scenario"]
+    row_bytes = cfg.embed_dim * 4
+    table_bytes = cfg.num_tables * cfg.rows_per_table * row_bytes
+    base = torch.cuda.memory_allocated()
+    rss0 = rss_bytes()[0]
+    batches, train = record_channel(cfg, params, events, scen, dev, "(ii)")
+    ids = updated_rows(batches)
+    orig = {t: params["tables"][t, torch.from_numpy(r)].clone()
+            for t, r in ids.items()}
+    latest = latest_rows(params["tables"], batches)
+    runs, want = {}, None
+    for label, n_boards, mb, mode in (
+            ("(a) 1 board", 1, FABRIC_REF_MB, "propagate"),
+            ("(b) 3 boards, propagate", 3, FABRIC_BOARD_MB, "propagate"),
+            ("(c) 3 boards, invalidate", 3, FABRIC_BOARD_MB, "invalidate")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < base + 0.1 * GB,
+              f"{label}: an earlier fleet's tensors outlive it")
+        torch.cuda.reset_peak_memory_stats()
+        fleet = ShardedFleet(cfg, n_boards=n_boards, router="jsq",
+                             board_capacity_bytes=int(mb * 2**20),
+                             alpha=FABRIC_ALPHA, seed=0, max_batch_queries=4,
+                             max_wait_ms=2.0, params=params, device=dev)
+        pm = fleet.partition
+        check(n_boards == 1 or pm.split_tables == (cfg.num_tables - 1,),
+              f"{label}: split tables {pm.split_tables}")
+        bound = table_bytes + max(pm.board_bytes) + 2 * GB
+        apply_s = []
+        timed_method(fleet, "_apply_delta", apply_s)
+        rep, probs, launches, wall = drive_fabric(
+            fleet, events, f"9d(ii) {label}", "zipf_drift", card, bound,
+            params, errs, batches=batches, coherence=mode)
+        o = rep.online
+        check(o.n_updates == len(batches) == len(apply_s)
+              and o.rows_pushed == sum(b.n_rows for b in batches),
+              f"{label}: {o.n_updates} updates, {o.rows_pushed} rows pushed")
+        if want is None:
+            want = probs
+        else:
+            same_probs(probs, want, f"9d(ii) {label} vs (a)")
+        # every owner's resident rows at the updated ids are the fleet's
+        # host rows; the host tables 9c shares are untouched
+        check(fleet._tables_host.data_ptr() != params["tables"].data_ptr(),
+              f"{label}: the fleet wrote the shared host tables")
+        check(all(torch.equal(params["tables"][t, torch.from_numpy(r)],
+                              orig[t]) for t, r in ids.items()),
+              f"{label}: 9c's host tables changed")
+        check(all(torch.equal(fleet._tables_host[t, torch.from_numpy(r)],
+                              v) for t, (r, v) in latest.items()),
+              f"{label}: the fleet's host rows are not the batches' latest")
+        check_owner_rows(fleet, ids, label, dev)
+        caches = sum(c._last_used.nbytes + c._counts.nbytes
+                     + c._cached.nbytes + c._remote.nbytes
+                     for c in fleet.caches)
+        last_used = sum(c._last_used.nbytes for c in fleet.caches)
+        rss = rss_bytes()[0]
+        grown = rss - rss0
+        check(grown < table_bytes + caches + ONLINE_SLACK_BYTES,
+              f"{label}: host RSS grew {grown / GB:.2f} GB over the "
+              f"phase's start, past the tables + the caches' arrays + "
+              f"{ONLINE_SLACK_BYTES / GB:.0f} GB")
+        print(o.summary())
+        print(f"[online] 9d(ii) {label} ({mode}): p50 {rep.p50_ms:.4f} ms "
+              f"p99 {rep.p99_ms:.4f} ms; {o.n_updates} updates, "
+              f"{o.rows_pushed} rows pushed, {o.rows_propagated} "
+              f"propagated, {o.cache_invalidated_rows} invalidated, push "
+              f"stall {o.push_stall_s * 1e3:.4f} ms, staleness p50 "
+              f"{o.staleness_p50_s * 1e3:.4f} ms max "
+              f"{o.staleness_max_s * 1e3:.4f} ms; apply (host rows, "
+              f"owners' resident rows, caches) "
+              f"{[round(x * 1e3, 3) for x in apply_s]} ms, the first with "
+              f"the copy of the shared host tables ({fleet.host_copy_s:.3f} "
+              f"s); row 4 launches {launches}; host RSS {rss / GB:.2f} GB, "
+              f"{grown / GB:.2f} GB over the phase's start (the fleet's "
+              f"cache arrays {caches / GB:.2f} GB, of which _last_used "
+              f"{last_used / GB:.2f} GB); wall {wall:.2f} s ({card})")
+        runs[label] = dict(report=rep, launches=launches,
+                           apply_ms=[x * 1e3 for x in apply_s],
+                           copy_s=fleet.host_copy_s, rss_grown_gb=grown / GB)
+        del fleet
+    b, c = (runs[k]["report"].online for k in sorted(runs)[1:])
+    check(b.rows_propagated > 0 and b.cache_invalidated_rows == 0,
+          "(b): propagate mode did not propagate")
+    check(c.rows_propagated == 0
+          and c.cache_invalidated_rows > b.cache_invalidated_rows,
+          "(c): invalidate mode propagated or invalidated no more than (b)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, batches, train
+
+
+def online_launchers(card):
+    """9d(iii): the launchers at --smoke on the card: train --emit-deltas
+    into build/, then serve --replay-deltas in both fleet modes (one
+    update a recorded batch); then serve --online-every-s
+    --record-deltas in both modes, each recording reloaded equal, batch
+    for batch, to the channel the run consumed."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve, train
+    from repro_torch.online import DeltaChannel, OnlineSource
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "online_train_deltas.jsonl")
+
+    def run(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        out = buf.getvalue()
+        check(rc == 0, f"{argv} exited {rc}:\n{out}")
+        return out
+
+    out = run(train.main, ["--smoke", "--steps", "12", "--emit-deltas",
+                           path, "--delta-every-steps", "4",
+                           "--delta-dt-s", "0.005"])
+    n = len(DeltaChannel.load(path))
+    check(n == 3, f"train --emit-deltas recorded {n} batches, not 3")
+    fleets = {"replicated": ["--replicas", "2"],
+              "sharded": ["--replicas", "3", "--fleet-mode", "sharded",
+                          "--board-capacity-mb", "0.045"]}
+    common = ["--smoke", "--queries", "24", "--qps", "600"]
+    counts = {}
+    for mode, extra in fleets.items():
+        out = run(serve.main, [*common, *extra, "--replay-deltas", path])
+        got = re.search(r"\[online\] (\d+) updates", out)
+        check(got is not None and int(got.group(1)) == n,
+              f"serve --replay-deltas ({mode}) applied {got and got.group(1)}"
+              f" of {n} batches")
+        counts[f"replay {mode}"] = int(got.group(1))
+    consumed, run_to = [], OnlineSource.run_to
+
+    def kept(self, t_end):
+        ch = run_to(self, t_end)
+        consumed.append(list(ch.emitted))
+        return ch
+
+    OnlineSource.run_to = kept
+    try:
+        for mode, extra in fleets.items():
+            rec = os.path.join(BUILD_DIR, f"online_serve_{mode}.jsonl")
+            out = run(serve.main, [*common, *extra, "--scenario",
+                                   "zipf_drift", "--online-every-s", "0.006",
+                                   "--record-deltas", rec])
+            got = re.search(r"\[online\] (\d+) updates", out)
+            loaded = DeltaChannel.load(rec).emitted
+            check(got is not None and int(got.group(1)) == len(loaded) > 0,
+                  f"serve --online-every-s ({mode}): {got and got.group(1)} "
+                  f"updates, {len(loaded)} recorded")
+            for a, b in zip(loaded, consumed[-1], strict=True):
+                check((a.version, a.t_emit_s, a.step, a.tables)
+                      == (b.version, b.t_emit_s, b.step, b.tables)
+                      and all(np.array_equal(x.rows, y.rows)
+                              and np.array_equal(x.values, y.values)
+                              for x, y in zip(a.deltas, b.deltas)),
+                      f"{rec}: batch {a.version} reloads unequal")
+            counts[f"online {mode}"] = len(loaded)
+    finally:
+        OnlineSource.run_to = run_to
+    print(f"[online] (iii) launchers at --smoke on the card: train "
+          f"--emit-deltas recorded {n} batches; updates applied {counts}; "
+          f"each --record-deltas file reloads equal to the channel its run "
+          f"consumed ({card})")
+    return counts
+
+
+def online_tiered(dev, held, batches, errs):
+    """Coherence under row 6: ``refresh_tiered`` on a two-tier store of
+    ONLINE_TIER_ROWS rows a table (9c's tables cut to them,
+    ``measure_row_freq`` + ``build_tiered_tables`` on the card), one
+    online batch's rows below the cut; row 6 pools lookups of the updated
+    rows and is held against ``embedding_bag_ref`` on the updated bulk.
+    Returns row 6's launches."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.core import tiered_embedding as te
+    from repro_torch.kernels import ops, ref
+    from repro_torch.online import DeltaBatch, RowDelta, refresh_tiered
+    cfg = get_dlrm(CONFIG)
+    R = ONLINE_TIER_ROWS
+    cut = dataclasses.replace(cfg, rows_per_table=R)
+    tables = held["params"]["tables"][:, :R].to(dev)
+    counts = te.measure_row_freq(cut, FABRIC_ALPHA, seed=0, n_batches=4,
+                                 device=dev)
+    store = te.build_tiered_tables(tables, counts, HOT_PER_TABLE)
+    del tables, counts
+    batch = DeltaBatch(version=1, t_emit_s=0.0, step=1, deltas=tuple(
+        RowDelta(d.table, d.rows[d.rows < R], d.values[d.rows < R])
+        for d in batches[0].deltas if (d.rows < R).any()))
+    bulk0 = store.bulk.clone()
+    fresh, n_fast = refresh_tiered(store, batch)
+    check(torch.equal(store.bulk, bulk0),
+          "refresh_tiered changed its input store")
+    del bulk0
+    check(0 < n_fast < batch.n_rows,
+          f"refresh_tiered: {n_fast} of {batch.n_rows} rows hot")
+    gen = torch.Generator(device=dev).manual_seed(91)
+    B, T, L = cfg.batch_size, cfg.num_tables, cfg.lookups_per_table
+    ids = torch.randint(0, R, (B, T, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for d in batch.deltas:
+        rows = torch.from_numpy(d.rows).to(dev, torch.int32)
+        pick = torch.randint(0, rows.numel(), (B, L), generator=gen,
+                             device=dev)
+        ids[:, d.table] = rows[pick]
+        check(torch.equal(fresh.bulk[d.table, rows.long()].cpu(),
+                          torch.from_numpy(d.values)),
+              f"refresh_tiered: table {d.table}'s bulk rows")
+    hot = te.hit_mask(fresh, ids)
+    ops.reset_launch_counts()
+    got = te.tiered_embedding_bag(fresh, ids)
+    launches = ops.launch_counts["cached_embedding_bag"]
+    check(launches == 1, f"row 6 launched {launches} times for one pool")
+    close("cached_embedding_bag",
+          f"refresh_tiered store ({R} rows a table, S={HOT_PER_TABLE}), "
+          f"B={B} lookups of {batch.n_rows} updated rows ({n_fast} hot; "
+          f"{float(hot.float().mean()):.4f} of lookups hot) vs "
+          f"embedding_bag_ref on the updated bulk",
+          got, ref.embedding_bag_ref(fresh.bulk[:, :R], ids), errs)
+    return launches
+
+
+def phase_online(dev, card, held):
+    """Phase 9d: online updates at full width (ROADMAP A7c), on 9c's host
+    tables: (i) the replicated fleet, (ii) the sharded fleet in both
+    coherence modes on one recorded channel, (iii) the launchers at
+    --smoke, then row 6 under ``refresh_tiered``. Returns (the runs,
+    each kernel's launches on the online path, the errors)."""
+    t_phase = time.perf_counter()
+    print(rss_line("phase 9d start"))
+    errs = {}
+    replicated = online_replicated(dev, card, held["params"])
+    runs, batches, train = online_sharded(dev, card, held, errs)
+    launchers = online_launchers(card)
+    row6 = online_tiered(dev, held, batches, errs)
+    torch.cuda.synchronize()
+    launches = {"fused_bag_interactions": replicated["launches"],
+                "embedding_bag": sum(r["launches"] for r in runs.values()),
+                "cached_embedding_bag": row6}
     wall = time.perf_counter() - t_phase
-    peak_line(f"phase 9c (the sharded fabric fleet; {wall:.1f} s)")
-    check(wall <= FABRIC_PHASE_S,
-          f"phase 9c took {wall:.1f} s, over {FABRIC_PHASE_S} s")
-    return out, {k: max(v) for k, v in errs.items()}
+    print(rss_line("phase 9d end"))
+    peak_line(f"phase 9d (online updates; {wall:.1f} s)")
+    print(f"[online] phase 9d: {wall:.1f} s; launches on the online path "
+          f"{launches} ({card})")
+    check(wall <= ONLINE_PHASE_S,
+          f"phase 9d took {wall:.1f} s, over {ONLINE_PHASE_S} s")
+    return (dict(replicated=replicated, sharded=runs, launchers=launchers,
+                 train=train, wall_s=wall), launches,
+            {k: max(v) for k, v in errs.items()})
 
 
 # --------------------------------------------------------------- phase 10
@@ -3929,6 +4508,84 @@ def host_serve_cached_bag(sessions, checked, calib, errs, dev):
                              "transient_gb": step_gb}}
 
 
+def host_write_through(sessions, checked, errs, dev, card):
+    """Phase 10 (after 10b): one online batch written through the host
+    tier at full width with ``write_through_host``: cold rows (not in the
+    hot slab) of the last checked query that are resident in the chunk
+    cache, and cold rows that are not, put into the query; then the query
+    pooled in the cached-bag mode, row 6 reading the flat cache the
+    session's params hold, held against ``embedding_bag_ref`` on the
+    updated host rows. Returns row 6's launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.online import DeltaBatch, RowDelta, write_through_host
+    sess = sessions[0]
+    ex, params = sess.exchange, sess.params
+    mgr = ex.mgr
+    q = checked[max(checked)][0]
+    idx = q["indices"].clone()
+    B, T, L = idx.shape
+    ids = idx.cpu().numpy()
+    t_of = np.broadcast_to(np.arange(T)[None, :, None], ids.shape)
+    cold = ex._hot_map_np[t_of, ids] < 0
+    resident = cold & (mgr.host_pos[t_of, ids] < mgr.pad_pos)
+    rng = np.random.default_rng(17)
+    deltas, n_res, n_out = [], 0, 0
+    for t in range(0, T, 5):
+        res_rows = np.unique(ids[2:, t][resident[2:, t]])[:32]
+        cand = rng.integers(0, mgr.R, 4096)
+        out = np.unique(cand[(ex._hot_map_np[t, cand] < 0)
+                             & (mgr.host_pos[t, cand] == mgr.pad_pos)])
+        out = out[:min(16, L)]
+        idx[1, t, :out.size] = torch.from_numpy(out).to(idx)
+        rows = np.union1d(res_rows, out)
+        deltas.append(RowDelta(t, rows, rng.standard_normal(
+            (rows.size, mgr.d)).astype(np.float32)))
+        n_res += res_rows.size
+        n_out += out.size
+    batch = DeltaBatch(version=1, t_emit_s=0.0, step=1, deltas=tuple(deltas))
+    check(n_res > 0 and n_out > 0,
+          f"write-through: {n_res} resident and {n_out} other cold rows")
+    cache = params["hs_cache"]
+    t0 = time.perf_counter()
+    refreshed = write_through_host(mgr, batch)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    check(refreshed == n_res and params["hs_cache"] is cache
+          and mgr.device_cache is cache,
+          f"write-through refreshed {refreshed} resident rows of {n_res}, "
+          f"or the cache tensor changed")
+    for d in batch.deltas:
+        check(torch.equal(mgr.host[d.table, torch.from_numpy(d.rows)],
+                          torch.from_numpy(d.values)),
+              f"write-through: host table {d.table}")
+    ex.pool_mode = "cached_bag"
+    ops.reset_launch_counts()
+    idx = idx.to(dev)
+    ex.begin_batch(params, idx, 1)
+    got, _ = ex.forward(params, idx)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts["cached_embedding_bag"]
+    ex.pool_mode = "paired"
+    check(launches == 1, f"write-through pool launched row 6 {launches} "
+                         f"times")
+    host_ids = idx.long().cpu()
+    rows = mgr.host[torch.arange(T)[None, :, None], host_ids]
+    slab = rows.permute(1, 0, 2, 3).reshape(T, B * L, -1).to(dev)
+    fake = (torch.arange(B, device=dev)[:, None, None] * L
+            + torch.arange(L, device=dev)[None, None, :]).expand(B, T, L)
+    close("cached_embedding_bag",
+          f"host tier after write_through_host: B={B} T={T} L={L} "
+          f"d={mgr.d}, {n_res} updated rows resident in the chunk cache and "
+          f"{n_out} faulted in after the write, vs embedding_bag_ref on the "
+          f"updated host rows",
+          got, ref.embedding_bag_ref(slab, fake.int()), errs)
+    print(f"[host] write_through_host: {batch.n_rows} rows of {len(deltas)} "
+          f"tables into the host store and {refreshed} resident cache rows "
+          f"in place in {apply_ms:.3f} ms; row 6 launches {launches} "
+          f"({card})")
+    return launches
+
+
 def host_train(cfg, ex, dev, card):
     """Phase 10c: SGD at depth 1 on the same exchange, its cache full of
     10a's chunks, over another seed's stream: the first step held
@@ -3982,6 +4639,8 @@ def phase_host_tier(dev, card):
     sessions, checked = host_serve_paired(cfg, dev, card)
     calib = measure_host_link(dev)
     row6 = host_serve_cached_bag(sessions, checked, calib, errs, dev)
+    row6["write_through_launches"] = host_write_through(sessions, checked,
+                                                        errs, dev, card)
     ex = sessions[0].exchange
     del sessions, checked
     torch.cuda.synchronize()
@@ -4099,10 +4758,12 @@ def main() -> int:
     phase_row_wise_train(card)
     phase_resume(dev)
     fleet = phase_fleet(dev, card)
-    fabric, fabric_errs = phase_fabric(dev, card)
+    fabric, fabric_errs, held = phase_fabric(dev, card)
+    online, online_launches, online_errs = phase_online(dev, card, held)
+    release_fabric_tables(held)
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
-                 blocked[2], host_errs, fabric_errs):
+                 blocked[2], host_errs, fabric_errs, online_errs):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -4114,6 +4775,8 @@ def main() -> int:
                 **blocked[0]}
     fabric_launches = sum(run["launches"] for run in fabric.values())
     launches["embedding_bag"] += fabric_launches
+    for name, n in online_launches.items():
+        launches[name] += n
     # each kernel's row: the serve kernels at the depth-8 micro-batch
     # B = 25, the bags at B = 200, attention at the largest shape where
     # the plain version and the library also run
@@ -4145,6 +4808,16 @@ def main() -> int:
               f"{len(rep.scale_events)} scale events, "
               f"{len(rep.refreshes)} lfu_refresh, peak {run['peak_gb']:.2f} "
               f"GB ({card})")
+    for label, run in [("(i) replicated", online["replicated"]),
+                       *online["sharded"].items()]:
+        o = run["report"].online
+        print(f"[online] 9d{label}: {o.n_updates} updates, "
+              f"{o.rows_pushed} rows pushed, apply "
+              f"{[round(x, 3) for x in run['apply_ms']]} ms, staleness p50 "
+              f"{o.staleness_p50_s * 1e3:.4f} ms max "
+              f"{o.staleness_max_s * 1e3:.4f} ms, p50 "
+              f"{run['report'].p50_ms:.4f} ms p99 {run['report'].p99_ms:.4f}"
+              f" ms ({card})")
     for label, run in fabric.items():
         rep = run["report"]
         print(f"[fabric] {label}: {rep.n_replicas_start}->"
@@ -4164,12 +4837,16 @@ def main() -> int:
             if (name, "bf16_blocks") in errs else {}),
          **measured[name],
          **({"host_tier_launches": host["launches"],
+             "host_tier_write_through_launches":
+             host["write_through_launches"],
              "host_tier": host["time"],
              "host_tier_pooling_step": host["pooling_step"],
              "host_tier_peak_gb": host["peak_gb"]}
             if name == "cached_embedding_bag" else {}),
          **({"fabric_launches": fabric_launches}
-            if name == "embedding_bag" else {})}
+            if name == "embedding_bag" else {}),
+         **({"online_launches": online_launches[name]}
+            if name in online_launches else {})}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,10 @@ onto the new board via ``runtime/elastic.remesh_tree``), and a
 
 The run folds into one ``ClusterReport``: aggregate p50/p90/p99 + Eq. 1
 verdict, achieved vs offered QPS, per-replica utilization, measured vs
-``replicas x PlanReport.predicted_qps``, scale events, refresh events.
-Online row updates (``run(online=...)``) are ROADMAP A7c.
+``replicas x PlanReport.predicted_qps``, scale events, refresh events,
+and, for a run that consumed a delta channel (``run(online=...)``), its
+``OnlineReport``: each batch is broadcast to every replica at an update
+barrier on the virtual clock.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import numpy as np
 
 from repro_torch.cluster.autoscale import ScaleEvent, SLAAutoscaler
 from repro_torch.cluster.monitor import HitRatioMonitor
-from repro_torch.cluster.replica import (MULTI_DEVICE, ONLINE, Replica,
+from repro_torch.cluster.replica import (MULTI_DEVICE, Replica,
                                          slice_devices, submesh)
 from repro_torch.cluster.router import Router, make_router
 from repro_torch.configs.base import DLRMConfig
@@ -88,9 +90,10 @@ class FleetReport:
     board_seconds: float = 0.0
     sla_violations: int = 0
     blame: Optional[BlameReport] = None   # per-query tail attribution
-    # the online-update ledger of a run that consumed a delta channel;
-    # online updates are ROADMAP A7c, so the port leaves it None
-    online: Optional[object] = None
+    # online-update ledger when the run consumed a delta channel
+    # (annotated as a string to avoid a cluster <-> online import cycle;
+    # the value is a repro_torch.online.report.OnlineReport)
+    online: Optional["OnlineReport"] = None
 
     # subclass hook: the bracket tag each summary line carries
     tag: ClassVar[str] = "fleet"
@@ -119,6 +122,8 @@ class FleetReport:
                 f"{self.achieved_qps:.1f}/{self.predicted_qps:.1f} "
                 f"({self.achieved_qps / self.predicted_qps:.2f}x of "
                 f"{self.n_replicas_start} x PlanReport)")
+        if self.online is not None:
+            lines.append(self.online.summary())
         if self.blame is not None:
             lines.append(self.blame.summary())
         return "\n".join(lines)
@@ -342,6 +347,55 @@ class Cluster:
                              lf["done"] - lf["swap_stall_s"], lf["done"],
                              pid=pid, tid=3)
 
+    # -- online updates (repro_torch.online) ---------------------------------
+    def _apply_update(self, batch, now: float) -> None:
+        """Broadcast one ``DeltaBatch`` to every replica. The replicated
+        fleet has no ownership -- each board holds all tables -- and no
+        inter-board fabric is modeled here, so the batch becomes visible
+        instantly at ``now`` on every board; staleness is only the
+        emit->barrier gap."""
+        rows = 0
+        for r in self.replicas:
+            rows = r.apply_row_updates(batch)
+        stale = max(now - batch.t_emit_s, 0.0)
+        o = self._online
+        o["n_updates"] += 1
+        o["last_version"] = max(o["last_version"], batch.version)
+        o["rows_pushed"] += rows
+        o["rows_propagated"] += rows * (len(self.replicas) - 1)
+        o["push_bytes"] += batch.payload_bytes() * len(self.replicas)
+        o["staleness_s"].append(stale)
+        if batch.train_loss == batch.train_loss:     # not NaN
+            o["losses"].append(float(batch.train_loss))
+        self.metrics.counter("update_batches").inc()
+        self.metrics.counter("rows_pushed").inc(rows)
+        self.metrics.counter("rows_propagated").inc(
+            rows * (len(self.replicas) - 1))
+        self.metrics.histogram("update_staleness_s").observe(stale)
+        if self.tracer is not None:
+            self.tracer.track(0, 1, process="control", thread="online")
+            self.tracer.instant("update_apply", "online", now,
+                                args={"version": batch.version, "rows": rows,
+                                      "replicas": len(self.replicas)})
+
+    def _online_report(self):
+        if self._online is None:
+            return None
+        # local import: repro_torch.online reaches this module through
+        # coherence -> fabric.cache -> fabric.fleet
+        from repro_torch.online.report import OnlineReport
+        o = self._online
+        st = o["staleness_s"] or [0.0]
+        return OnlineReport(
+            mode=o["mode"], n_updates=o["n_updates"],
+            last_version=o["last_version"], rows_pushed=o["rows_pushed"],
+            rows_propagated=o["rows_propagated"], cache_invalidated_rows=0,
+            push_bytes=o["push_bytes"], push_stall_s=0.0,
+            staleness_p50_s=float(np.percentile(st, 50)),
+            staleness_max_s=float(np.max(st)),
+            mean_train_loss=(float(np.mean(o["losses"])) if o["losses"]
+                             else float("nan")))
+
     # -- event loop ----------------------------------------------------------
     def _flush(self, replica: Replica, trigger: float,
                reason: str = "full") -> List[QueryFuture]:
@@ -376,12 +430,13 @@ class Cluster:
             online=None) -> ClusterReport:
         """Serve one event stream to completion; see module docstring.
 
-        ``online`` (a delta source whose batches the fleet applies at
-        update barriers) is ROADMAP A7c and raises."""
-        if online is not None:
-            raise NotImplementedError(
-                f"online row updates (Cluster.run(online=...)) are not "
-                f"ported yet ({ONLINE})")
+        ``online`` is an optional delta source (``repro_torch.online``'s
+        ``DeltaChannel`` / ``OnlineSource``: anything with
+        ``next_time()`` / ``poll(now)``). Its batches are applied at
+        UPDATE BARRIERS on the virtual clock -- every board with queued
+        queries flushes at the emit time, then the batch is broadcast to
+        all replicas -- so a query's served values depend only on its
+        arrival time, never on routing or fleet size."""
         if not events:
             raise ValueError("cluster run needs at least one event")
         self._lat_ms: List[float] = []
@@ -393,11 +448,30 @@ class Cluster:
         self.metrics.reset()
         self.attribution = AttributionLog()
         self.metrics.gauge("n_replicas").set(len(self.replicas))
+        self._online = None
+        if online is not None:
+            self._online = dict(mode="replicate", n_updates=0,
+                                last_version=0, rows_pushed=0,
+                                rows_propagated=0, push_bytes=0,
+                                staleness_s=[], losses=[])
         n_start = len(self.replicas)
         i = 0
         while i < len(events) or any(r.batcher.queue for r in self.replicas):
             next_arr = events[i].arrival_s if i < len(events) else float("inf")
             due = min(self.replicas, key=lambda r: r.deadline())
+            # update barrier: an emitted delta batch wins ties against
+            # both arrivals and deadlines, so visibility is a pure
+            # function of arrival time (V(q) = #batches emitted <=
+            # arrival_q) -- the bit-identity invariant across fleet sizes
+            t_upd = online.next_time() if online is not None else None
+            if t_upd is not None and t_upd <= min(next_arr, due.deadline()):
+                # (over a copy: a flush may scale the fleet)
+                for r in list(self.replicas):
+                    if r.batcher.queue:
+                        self._flush(r, t_upd, reason="update")
+                for batch in online.poll(t_upd):
+                    self._apply_update(batch, t_upd)
+                continue
             # deadline wins ties, matching MicroBatcher.due (now >= deadline)
             if next_arr < due.deadline():
                 ev = events[i]
@@ -450,4 +524,5 @@ class Cluster:
             hit_ratio_first=hit_first, hit_ratio_last=hit_last,
             board_seconds=self._board_seconds(makespan),
             sla_violations=int((lat > sla_ms).sum()),
-            blame=self.attribution.blame(percentile))
+            blame=self.attribution.blame(percentile),
+            online=self._online_report())

@@ -39,7 +39,6 @@ from repro_torch.engine.engine import Engine
 from repro_torch.runtime.elastic import none_specs, remesh_tree
 
 MULTI_DEVICE = "ROADMAP A6b, k ranks"
-ONLINE = "ROADMAP A7c, online"
 
 
 def submesh(devices: Sequence, model_axis: int = 1) -> List[torch.device]:
@@ -185,11 +184,27 @@ class Replica:
 
     # -- online updates ------------------------------------------------------
     def apply_row_updates(self, batch) -> int:
-        """Scatter one online ``DeltaBatch`` into the live served params:
-        not ported yet."""
-        raise NotImplementedError(
-            f"online row updates (Replica.apply_row_updates) are not "
-            f"ported yet ({ONLINE})")
+        """Scatter one ``repro_torch.online.DeltaBatch`` into the live
+        served params, in place on the board's device. The replicated
+        fleet has no ownership: every replica holds every table, so the
+        cluster loop broadcasts each batch to all replicas -- after this
+        call the board serves the batch's row values bit-exactly. A
+        replica spawned by ``clone_params_onto`` holds its own copy and
+        takes the rows there. Returns rows written."""
+        params = self.session.params
+        if not isinstance(params, dict) or "tables" not in params:
+            raise ValueError(
+                "online row updates need stacked params with a 'tables' "
+                "leaf; plan-split sessions are not updatable in place "
+                "(re-spawn the replica from refreshed params instead)")
+        tables = params["tables"]
+        n = 0
+        for d in batch.deltas:
+            rows = torch.from_numpy(d.rows).to(tables.device)
+            tables[d.table, rows] = torch.from_numpy(d.values).to(
+                tables.device, tables.dtype)
+            n += d.n_rows
+        return n
 
     # -- elastic re-placement ------------------------------------------------
     def param_specs(self) -> Any:

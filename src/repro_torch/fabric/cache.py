@@ -23,9 +23,14 @@ window of per-query remote-hit ratios, a two-phase trigger that resets
 the counts when the windowed ratio erodes below `refresh_threshold x
 baseline`, and a cooldown before the re-election fires.
 
-A cached row is an exact copy of the owner's row (the tables are frozen):
-the cache changes which lookups pay fabric bytes and latency, never the
-served values.
+A cached row is an exact copy of the owner's CURRENT row: the cache
+changes which lookups pay fabric bytes and latency, never the served
+values. Under online serving (`repro_torch.online`) the update -> cache
+coherence protocol keeps it so: an owner's row update either drops every
+other board's copy (`invalidate_rows`) or piggybacks the fresh payload
+into it (`admit_rows`, which evicts the least recently accessed copies
+when admission would overflow), so a copy is bit-equal to the owner's
+latest version or does not exist.
 
 At full width (RM2-small: 40 x 4,194,304 rows) the reference's
 bookkeeping takes seconds a query, so the port keeps its results and
@@ -41,10 +46,14 @@ changes how they are computed:
   * `_elect` picks the same rows as the reference's stable argsort over
     every (T, R) count (descending count, ties by the lowest flat id,
     never a zero count) from the non-zero counts alone, with a partition
-    at the boundary count.
+    at the boundary count;
+  * the cached-row count is kept as a counter, not recounted over the
+    (T, R) mask;
+  * `admit_rows` picks its LRU victims from the flat ids of the cached
+    rows, in the order the reference's ``np.nonzero`` gives them.
 
-The online-update coherence of the reference (``invalidate_rows``,
-``admit_rows`` and the last-use times they read) is ROADMAP A7c.
+The last-use times are a (T, R) float64 array, as in the reference: 1.34
+GB a board at full width.
 """
 from __future__ import annotations
 
@@ -78,6 +87,11 @@ class RemoteRowCache:
         self._counts = np.zeros((cfg.num_tables, cfg.rows_per_table),
                                 np.int64)
         self._cached = np.zeros((cfg.num_tables, cfg.rows_per_table), bool)
+        self._n_cached = 0
+        # last access time per row (LRU axis of the propagate-admission
+        # eviction); -inf = never accessed
+        self._last_used = np.full((cfg.num_tables, cfg.rows_per_table),
+                                  -np.inf)
         self.baseline = 0.0
         self._window: Deque[float] = deque(maxlen=int(window))
         self._seen = 0
@@ -129,7 +143,7 @@ class RemoteRowCache:
 
     @property
     def cached_rows(self) -> int:
-        return int(np.count_nonzero(self._cached))
+        return self._n_cached
 
     # -- election ------------------------------------------------------------
     def _elect(self, ids: np.ndarray, vals: np.ndarray) -> None:
@@ -138,6 +152,7 @@ class RemoteRowCache:
         ties by the lowest flat id, never a row of count <= 0 -- the rows
         the reference's stable argsort of every negated count elects."""
         self._cached[:] = False
+        self._n_cached = 0
         if not self.enabled or self._n_remote == 0:
             return
         keep = vals > 0
@@ -149,6 +164,7 @@ class RemoteRowCache:
             ties = np.flatnonzero(vals == kth)[:k - above.size]
             ids = ids[np.concatenate([above, ties])]
         self._cached.reshape(-1)[ids] = True
+        self._n_cached = int(ids.size)
 
     def _remote_nonzero(self, values: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
@@ -182,9 +198,61 @@ class RemoteRowCache:
         new = self._as_mask(remote)
         changed = np.flatnonzero(new != self._remote)
         self._counts.reshape(-1)[changed] = 0
+        self._n_cached -= int(np.count_nonzero(
+            self._cached.reshape(-1)[changed]))
         self._cached.reshape(-1)[changed] = False
+        self._last_used.reshape(-1)[changed] = -np.inf
         self._set_remote(new)
         return int(changed.size)
+
+    # -- online-update coherence (repro_torch.online) -------------------------
+    def invalidate_rows(self, table: int, rows) -> int:
+        """Drop cached copies of specific rows an owner just updated
+        (coherence mode "invalidate"). Counts survive -- the rows are as
+        hot as ever, only the bytes went stale. Returns the number of
+        copies actually dropped."""
+        rows = np.asarray(rows, np.int64)
+        hit = rows[self._cached[table, rows]]
+        self._cached[table, hit] = False
+        self._n_cached -= int(hit.size)
+        return int(hit.size)
+
+    def admit_rows(self, table: int, rows, now: float) -> int:
+        """Install fresh copies of updated rows (coherence mode
+        "propagate"): the owner piggybacked the new payloads, so copies
+        this board already holds are refreshed in place for free, and the
+        rest are ADMITTED -- evicting least-recently-accessed cached rows
+        (ties by the lowest flat id) when over capacity. Only rows remote
+        to this board are admitted. Returns rows admitted or refreshed."""
+        rows = np.asarray(rows, np.int64)
+        rows = rows[self._remote[table, rows]]
+        if not self.enabled or rows.size == 0:
+            return 0
+        held = self._cached[table, rows]
+        refreshed, fresh = rows[held], rows[~held]
+        space = self.capacity_rows - self._n_cached
+        if fresh.size > space:
+            # evict least-recently-accessed cached rows that are not
+            # themselves being refreshed
+            R = self.cfg.rows_per_table
+            cand = np.flatnonzero(self._cached)
+            cand = cand[~np.isin(cand, table * R + refreshed,
+                                 assume_unique=True)]
+            if cand.size:
+                order = np.argsort(self._last_used.reshape(-1)[cand],
+                                   kind="stable")
+                drop = cand[order[:min(fresh.size - space, cand.size)]]
+                self._cached.reshape(-1)[drop] = False
+                self._n_cached -= int(drop.size)
+                space += int(drop.size)
+        if fresh.size > space:         # nothing left to evict: admit what fits
+            fresh = fresh[:max(space, 0)]
+        self._cached[table, fresh] = True
+        self._n_cached += int(fresh.size)
+        touched = np.concatenate([refreshed, fresh])
+        self._last_used[table, touched] = np.maximum(
+            self._last_used[table, touched], now)
+        return int(touched.size)
 
     # -- lookup-path queries --------------------------------------------------
     def hit_mask(self, indices) -> np.ndarray:
@@ -213,6 +281,7 @@ class RemoteRowCache:
             return 1.0
         rows, n = np.unique(flat[remote], return_counts=True)
         self._counts.reshape(-1)[rows] += n
+        self._last_used.reshape(-1)[rows] = now
         if hit is None:
             hit = self.hit_mask(indices)
         h = float(np.count_nonzero(hit)) / n_remote

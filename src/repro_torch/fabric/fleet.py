@@ -58,9 +58,14 @@ width (RM2-small: 21.47 GB of tables):
     it installs the new ones; a retired board releases its tensors and
     keeps its stats;
   * a served query's content is dropped from its future (the reference
-    keeps it); its probs stay.
-
-Online row updates (``run(online=...)``) are ROADMAP A7c.
+    keeps it); its probs stay;
+  * an online run (``run(online=...)``) writes each batch's rows in
+    place: into the fleet's host tables, which it copies on its first
+    write (fleets built from one ``params`` share them), and into each
+    owner's resident slices on the device. The reference re-installs
+    every owner's residency from the host tables instead; an installed
+    residency is kept as it is here, and a re-install would move the
+    whole slice through the staging ring for each update.
 """
 from __future__ import annotations
 
@@ -74,7 +79,7 @@ import torch
 
 from repro_torch.cluster.autoscale import ScaleEvent, SLAAutoscaler
 from repro_torch.cluster.cluster import FleetReport
-from repro_torch.cluster.replica import ONLINE, slice_devices, submesh
+from repro_torch.cluster.replica import slice_devices, submesh
 from repro_torch.cluster.router import Router, make_router
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm as dlrm_lib
@@ -89,9 +94,11 @@ from repro_torch.fabric.exchange import FabricExchange
 from repro_torch.fabric.partition import ShardMap, partition_rows
 from repro_torch.hoststore import StagingRing, draw_host_tables
 from repro_torch.kernels import ops
-from repro_torch.obs.attribution import AttributionLog
+from repro_torch.obs.attribution import AttributionLog, interval_overlap_s
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
+from repro_torch.online.delta import ELEM_BYTES, INDEX_BYTES, DeltaBatch
+from repro_torch.online.report import OnlineReport
 from repro_torch.traffic.scenarios import QueryEvent, materialize_query
 
 RowRanges = Dict[int, List[Tuple[int, int]]]   # table -> [(row_lo, row_hi)]
@@ -445,11 +452,15 @@ class ShardedFleet:
         # remesh quiesce windows, for carving remesh_barrier time out of
         # queued queries' waits
         self._barrier_ivals: List[Tuple[float, float]] = []
+        # online delta pushes per owner board (update_stall carve) and
+        # the online run's tallies
+        self._update_ivals: Dict[int, List[Tuple[float, float]]] = {}
+        self._online: Optional[Dict[str, object]] = None
 
         # -- weights: the canonical tables once, in host memory ---------------
-        # Nothing here writes to the host tables, so fleets built from one
-        # `params` share them. A7c's in-place row updates must copy them on
-        # first write.
+        # Fleets built from one `params` share them; an online run's first
+        # row update copies them (`_own_tables`), so another fleet's never
+        # change.
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             params = dict(dlrm_lib.init_mlps(cfg, gen),
@@ -460,6 +471,8 @@ class ShardedFleet:
             tables = tables.cpu()
         self._tables_host = tables
         self._params = dict(params, tables=tables)
+        self._tables_owned = False
+        self.host_copy_s = 0.0       # wall seconds of that copy
 
         # -- partition: profiled access stats -> row-range ownership ---------
         self.row_freq = te.measure_row_freq(
@@ -781,11 +794,24 @@ class ShardedFleet:
         # (busy owners delayed their slice) and the modeled fabric round
         compute_s = max(owner_s.values()) + pool_s + t_dense
         queue_extra = (parts_ready - start) - max(owner_s.values())
+        # the share of the owner-queue coupling caused by a remote owner's
+        # online delta push: overlap of the critical owner's queue window
+        # [start, begin] with that owner's update_push intervals, capped at
+        # queue_extra so the carve keeps the closure exact
+        update_extra = 0.0
+        if queue_extra > 0 and self._update_ivals and owner_windows:
+            crit_o, crit_begin, _ = max(owner_windows, key=lambda w: w[2])
+            update_extra = min(
+                interval_overlap_s(start, crit_begin,
+                                   self._update_ivals.get(crit_o, ())),
+                queue_extra)
         self.attribution.record_batch(
             [(f.qid, f.arrival) for f in futs], rid=board.rid,
             trigger=trigger, start=start, done=done, compute_s=compute_s,
             link_stall_s=traffic.t_link_s, queue_extra_s=queue_extra,
-            barriers=self._barrier_ivals)
+            barriers=self._barrier_ivals,
+            update_ivals=self._update_ivals.get(board.rid, ()),
+            update_extra_s=update_extra)
         self.metrics.counter("service_s").inc(window)
         self.metrics.counter("link_stall_s").inc(traffic.t_link_s)
         self.metrics.counter("queries_served", rid=board.rid).inc(len(futs))
@@ -840,13 +866,142 @@ class ShardedFleet:
                     self._scale_down(done, p99)
         return futs
 
-    # -- online delta application ------------------------------------------
-    def _apply_delta(self, batch, now: float, mode: str) -> None:
-        """Make one online ``DeltaBatch`` visible fleet-wide: not ported
-        yet."""
-        raise NotImplementedError(
-            f"online row updates (ShardedFleet._apply_delta, coherence "
-            f"{mode!r}) are not ported yet ({ONLINE})")
+    # -- online delta application (repro_torch.online) -----------------------
+    def _own_tables(self) -> None:
+        """Copy the host tables on the first write: until then they may be
+        shared with the fleets built from the same ``params``."""
+        if self._tables_owned:
+            return
+        t0 = time.perf_counter()
+        self._tables_host = self._tables_host.clone()
+        self._tables_owned = True
+        self.host_copy_s = time.perf_counter() - t0
+
+    def _write_owned_rows(self, d) -> Dict[int, int]:
+        """Write one ``RowDelta`` into each owner's resident copy, in place
+        on its device: a whole table's rows in the board's stacked tables,
+        a split table's in its compact slice, found by a search of the
+        slice's sorted row ids. Returns {owner rid: rows written}."""
+        vals = torch.from_numpy(d.values).to(self._tables_host.dtype)
+        split = set(self.partition.split_tables)
+        written: Dict[int, int] = {}
+        for s in self.partition.table_shards(d.table):
+            lo, hi = np.searchsorted(d.rows, [s.row_lo, s.row_hi])
+            if hi <= lo:
+                continue
+            b = self.boards[s.board]
+            rows = torch.from_numpy(d.rows[lo:hi]).to(b.device)
+            v = vals[lo:hi].to(b.device)
+            if d.table in split:
+                row_ids, resident = b.split_rows[d.table]
+                resident[torch.searchsorted(row_ids, rows)] = v
+            else:
+                j = int(np.searchsorted(b.table_ids, d.table))
+                b.tables[j, rows] = v
+            written[s.board] = written.get(s.board, 0) + int(hi - lo)
+        return written
+
+    def _apply_delta(self, batch: DeltaBatch, now: float, mode: str) -> None:
+        """Make one ``DeltaBatch`` visible fleet-wide, ATOMICALLY at ``now``
+        on the virtual clock: the host tables and every owner's resident
+        copy take the rows, and every board's remote-row cache is
+        reconciled per the coherence mode -- so after this returns, every
+        copy anywhere is bit-equal to the new version or gone. The wire
+        cost of the push (payloads in from the trainer + propagation /
+        invalidation out to the other boards) then occupies each owner's
+        fabric lane, advancing its busy horizon -- queries queued behind
+        it read as update_stall in the attribution."""
+        from repro_torch.online.coherence import apply_to_remote_cache
+
+        self._own_tables()
+        owner_rows: Dict[int, int] = {}
+        for d in batch.deltas:
+            self._tables_host[d.table, torch.from_numpy(d.rows)] = \
+                torch.from_numpy(d.values).to(self._tables_host.dtype)
+            for rid, n in self._write_owned_rows(d).items():
+                owner_rows[rid] = owner_rows.get(rid, 0) + n
+
+        invalidated = admitted = 0
+        for b in self.boards:
+            inv, adm = apply_to_remote_cache(self.caches[b.rid], batch,
+                                             now=now, mode=mode)
+            invalidated += inv
+            admitted += adm
+
+        # virtual-clock push pricing per owner: payload in from the
+        # training tier, per-peer payloads (propagate) or row ids
+        # (invalidate) out to the other boards' caches
+        row_bytes = INDEX_BYTES + self.cfg.embed_dim * ELEM_BYTES
+        per_peer = row_bytes if mode == "propagate" else INDEX_BYTES
+        n_b = len(self.boards)
+        total_bytes = 0
+        stall_s = 0.0
+        visible = now
+        for rid, n_rows in sorted(owner_rows.items()):
+            owner = self.boards[rid]
+            bytes_in = n_rows * row_bytes
+            bytes_out = n_rows * per_peer * max(n_b - 1, 0)
+            t_push = perf_model.fabric_exchange_time(
+                bytes_out, bytes_in, n_b, self.link)
+            self.metrics.counter("rows_pushed", rid=rid).inc(n_rows)
+            total_bytes += bytes_in + bytes_out
+            if t_push <= 0.0:
+                # free push (single board: the trainer writes the host
+                # copy in place) -- nothing occupies the fabric lane
+                continue
+            start = max(now, owner.free)
+            end = start + t_push
+            owner.free = end
+            owner.busy_s += t_push
+            stall_s += t_push
+            visible = max(visible, end)
+            self._update_ivals.setdefault(rid, []).append((start, end))
+            if self.tracer is not None:
+                self.tracer.track(rid + 1, 2, thread="fabric")
+                self.tracer.span("update_push", "fabric", start, end,
+                                 pid=rid + 1, tid=2,
+                                 args={"version": batch.version,
+                                       "rows": n_rows, "mode": mode,
+                                       "bytes": bytes_in + bytes_out})
+        staleness = visible - batch.t_emit_s
+        self.metrics.counter("update_batches").inc()
+        self.metrics.counter("update_push_bytes").inc(total_bytes)
+        self.metrics.counter("update_push_s").inc(stall_s)
+        self.metrics.counter("cache_invalidated_rows",
+                             cause="update").inc(invalidated)
+        self.metrics.counter("rows_propagated").inc(admitted)
+        self.metrics.histogram("update_staleness_s").observe(staleness)
+        o = self._online
+        if o is not None:
+            o["n_updates"] += 1
+            o["last_version"] = max(o["last_version"], batch.version)
+            o["rows_pushed"] += sum(owner_rows.values())
+            o["rows_propagated"] += admitted
+            o["invalidated"] += invalidated
+            o["push_bytes"] += total_bytes
+            o["push_stall_s"] += stall_s
+            o["staleness_s"].append(staleness)
+            if batch.train_loss == batch.train_loss:   # not NaN
+                o["losses"].append(batch.train_loss)
+
+    def _online_report(self) -> Optional[OnlineReport]:
+        o = self._online
+        if o is None:
+            return None
+        st = np.asarray(o["staleness_s"] or [0.0], np.float64)
+        losses = o["losses"]
+        return OnlineReport(
+            mode=str(o["mode"]), n_updates=int(o["n_updates"]),
+            last_version=int(o["last_version"]),
+            rows_pushed=int(o["rows_pushed"]),
+            rows_propagated=int(o["rows_propagated"]),
+            cache_invalidated_rows=int(o["invalidated"]),
+            push_bytes=int(o["push_bytes"]),
+            push_stall_s=float(o["push_stall_s"]),
+            staleness_p50_s=float(np.percentile(st, 50)),
+            staleness_max_s=float(st.max()),
+            mean_train_loss=(float(np.mean(losses)) if losses
+                             else float("nan")))
 
     # -- event loop ----------------------------------------------------------
     def run(self, events: Sequence[QueryEvent], *, sla_ms: float = 50.0,
@@ -856,13 +1011,17 @@ class ShardedFleet:
         clock -- the cluster event loop with two-level routing (and, when
         an autoscaler is wired, live re-partitioning).
 
-        ``online`` (a delta channel applied at update barriers, with the
-        ``coherence`` protocol for the caches) is ROADMAP A7c and
-        raises."""
-        if online is not None:
-            raise NotImplementedError(
-                f"online row updates (ShardedFleet.run(online=..., "
-                f"coherence={coherence!r})) are not ported yet ({ONLINE})")
+        ``online`` streams a delta channel into the run: anything speaking
+        ``next_time()`` / ``poll(now)`` (an ``online.OnlineSource``, a
+        recorded ``online.DeltaChannel``). Updates are applied at UPDATE
+        BARRIERS: when the clock reaches an emit time, every queued query
+        (which arrived strictly before it) is flushed against the
+        pre-update tables, then the batch lands atomically -- so the table
+        version a query sees is a pure function of its arrival time,
+        independent of fleet size, routing, and batching. ``coherence``
+        picks what other boards' caches do with an updated row
+        ("invalidate" drops the copy; "propagate" piggybacks the fresh
+        payload)."""
         if not events:
             raise ValueError("fleet run needs at least one event")
         self._lat_ms: List[float] = []
@@ -872,6 +1031,15 @@ class ShardedFleet:
         self.scale_events = []
         self._retired = []
         self._barrier_ivals = []
+        self._update_ivals = {}
+        self._online = None
+        if online is not None:
+            from repro_torch.online.coherence import check_mode
+            check_mode(coherence)
+            self._online = dict(mode=coherence, n_updates=0, last_version=0,
+                                rows_pushed=0, rows_propagated=0,
+                                invalidated=0, push_bytes=0,
+                                push_stall_s=0.0, staleness_s=[], losses=[])
         self.metrics.reset()
         self.attribution = AttributionLog()
         self.metrics.gauge("n_boards").set(len(self.boards))
@@ -880,6 +1048,17 @@ class ShardedFleet:
         while i < len(events) or any(b.batcher.queue for b in self.boards):
             next_arr = events[i].arrival_s if i < len(events) else float("inf")
             due = min(self.boards, key=lambda b: b.deadline())
+            t_upd = online.next_time() if online is not None else None
+            if t_upd is not None and t_upd <= min(next_arr, due.deadline()):
+                # UPDATE BARRIER (updates win ties): every queued query
+                # arrived before this emit time and serves the pre-update
+                # tables; flush them all, then apply atomically
+                for b in list(self.boards):
+                    if b.batcher.queue:
+                        self._flush(b, t_upd, reason="update")
+                for batch in online.poll(t_upd):
+                    self._apply_delta(batch, t_upd, coherence)
+                continue
             # deadline wins ties, matching MicroBatcher.due (now >= deadline)
             if next_arr < due.deadline():
                 ev = events[i]
@@ -951,4 +1130,5 @@ class ShardedFleet:
             migration_s=self.metrics.value("migration_s"),
             cache_invalidated_rows=int(
                 self.metrics.value("cache_invalidated_rows")),
-            blame=self.attribution.blame(percentile))
+            blame=self.attribution.blame(percentile),
+            online=self._online_report())

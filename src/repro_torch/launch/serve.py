@@ -42,19 +42,34 @@ PPF(D_Q, P) <= C_SLA (Eq. 1). Runs on the card unless ``--device cpu``.
       --replicas 3 --fleet-mode sharded --board-capacity-mb 7000 \\
       --alpha 1.05 --router jsq
 
+  # online updates: a tables-only trainer emits row deltas every 50 ms of
+  # virtual time into a 2-replica fleet (recorded for replay), then the
+  # recording replayed into a sharded fleet whose caches invalidate
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --replicas 2 --scenario zipf_drift --online-every-s 0.05 \\
+      --record-deltas d.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --replicas 3 --fleet-mode sharded --replay-deltas d.jsonl \\
+      --coherence invalidate
+
 Any of --replicas>1 / --scenario / --autoscale / --record-trace /
 --replay-trace routes through the cluster path (``repro_torch.cluster``):
 a ``TrafficScenario`` event stream (or a recorded JSONL trace) served by
 N replica boards behind the chosen router. ``--fleet-mode sharded`` routes
 through the sharded fleet (``repro_torch.fabric``) instead, ``--replicas``
 being its board count. On one card the boards share the device, each on
-its own virtual busy horizon.
+its own virtual busy horizon. The online flags (``--online-*``,
+``--coherence``, ``--record-deltas``, ``--replay-deltas``) stream row
+deltas into either fleet path (``repro_torch.online``); the stream is
+trained and recorded before the run, and the trainer's host copy of the
+tables is freed before serving starts. As in the reference, a single
+board serves frozen params whatever they say.
 
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
 it: a ranking of placements, not a prediction for the card. The
-reference launcher's multi-device and online flags are accepted so that
-they fail loudly: each names the ROADMAP item that will bring it.
+reference launcher's multi-device flag is accepted so that it fails
+loudly, naming the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
@@ -70,15 +85,10 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 from repro_torch.obs import Tracer, default_registry
 
-_A6B = "A6b, k ranks"
-_A7C = "A7c, online updates"
 # flag -> ROADMAP item; any value other than the flag's default raises
-_NOT_PORTED = {
-    "model_axis": _A6B,
-    **{dest: _A7C for dest in (
-        "online_every_s", "online_steps", "online_lr", "coherence",
-        "record_deltas", "replay_deltas")},
-}
+_NOT_PORTED = {"model_axis": "A6b, k ranks"}
+_ONLINE_FLAGS = ("online_every_s", "online_steps", "online_lr", "coherence",
+                 "record_deltas", "replay_deltas")
 
 
 def _emit_obs(args, tracer, report, extra_metrics=None) -> None:
@@ -213,17 +223,32 @@ def _parser() -> argparse.ArgumentParser:
     add("--fabric-cache-rows", type=int, default=None,
         help="per-board LFU cache of remote hot rows (rows; 0 disables, "
              "default ~10%% of the board's remote row space)")
-    not_ported = ap.add_argument_group(
-        "not ported yet (each raises, naming its ROADMAP item)")
-    add = not_ported.add_argument
-    add("--model-axis", type=int, default=1)
-    add("--online-every-s", type=float, default=0.0)
-    add("--online-steps", type=int, default=1)
-    add("--online-lr", type=float, default=0.05)
+    online = ap.add_argument_group(
+        "online updates, on either fleet path (repro_torch.online)")
+    add = online.add_argument
+    add("--online-every-s", type=float, default=0.0,
+        help="stream continuous training into the fleet run: emit a "
+             "row-delta batch every this many virtual seconds (0 = frozen "
+             "params, the default)")
+    add("--online-steps", type=int, default=1,
+        help="trainer SGD steps folded into each delta batch")
+    add("--online-lr", type=float, default=0.05,
+        help="online trainer learning rate (tables-only SGD)")
     add("--coherence", choices=["invalidate", "propagate"],
-        default="propagate")
-    add("--record-deltas", default=None)
-    add("--replay-deltas", default=None)
+        default="propagate",
+        help="update->cache protocol on the sharded fleet: drop every "
+             "other board's cached copy of an updated row, or piggyback "
+             "the fresh payload into the caches")
+    add("--record-deltas", default=None, metavar="PATH",
+        help="write the emitted delta channel as JSONL (bit-identical "
+             "replay via --replay-deltas)")
+    add("--replay-deltas", default=None, metavar="PATH",
+        help="consume a recorded delta-channel JSONL (e.g. from "
+             "repro_torch.launch.train --emit-deltas) instead of training "
+             "inline")
+    not_ported = ap.add_argument_group(
+        "not ported yet (raises, naming its ROADMAP item)")
+    not_ported.add_argument("--model-axis", type=int, default=1)
     return ap
 
 
@@ -255,6 +280,11 @@ def main(argv: Optional[list] = None) -> int:
         return _fabric_main(args, cfg, device)
     if fleet_path:
         return _cluster_main(args, cfg, full_cfg, device)
+    if any(getattr(args, dest) != ap.get_default(dest)
+           for dest in _ONLINE_FLAGS):
+        print("[serve] the online flags drive the fleet paths (--replicas "
+              ">1, --scenario, --fleet-mode sharded); one board serves "
+              "frozen params")
     engine = Engine(cfg, plan=args.plan, seed=args.seed, alpha=args.alpha,
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
@@ -291,6 +321,46 @@ def main(argv: Optional[list] = None) -> int:
     print(report.summary())
     _emit_obs(args, tracer, report)
     return 0 if report.ok else 1
+
+
+def _online_channel(args, cfg, params, events, scen_name, device):
+    """Resolve the --online-*/--replay-deltas flags into a
+    ``DeltaChannel`` (None = frozen serving). Inline training pre-records
+    the whole stream (``OnlineSource.run_to``), so the channel a run
+    consumes is identical across fleet sizes and replayable via
+    --record-deltas; the trainer, and its host copy of the tables, is
+    freed before the run."""
+    from repro_torch.online import DeltaChannel, OnlineSource, OnlineTrainer
+    from repro_torch.traffic import make_scenario
+    if args.replay_deltas:
+        ch = DeltaChannel.load(args.replay_deltas)
+        print(f"[serve] replaying {len(ch)} delta batches from "
+              f"{args.replay_deltas}")
+        return ch
+    if args.online_every_s <= 0:
+        return None
+    if not isinstance(params, dict) or "tables" not in params:
+        raise SystemExit(
+            "--online-every-s needs stacked params with a 'tables' leaf "
+            "(plan-split sessions can't take in-place row updates); use "
+            "--plan none")
+    trainer = OnlineTrainer(cfg, params, lr=args.online_lr,
+                            seed=args.seed, alpha=args.alpha, device=device)
+    salt_fn = None
+    if scen_name == "zipf_drift":
+        # train on the drifted stream the fleet is actually serving
+        scen = make_scenario(scen_name, alpha=args.alpha)
+        salt_fn = lambda t: scen.stream_params(t)[1]
+    ch = OnlineSource(trainer, interval_s=args.online_every_s,
+                      steps_per_update=args.online_steps,
+                      salt_fn=salt_fn).run_to(events[-1].arrival_s)
+    print(f"[serve] online: {len(ch)} delta batches (every "
+          f"{args.online_every_s:g}s x {args.online_steps} steps, "
+          f"lr={args.online_lr:g})")
+    if args.record_deltas:
+        ch.record(args.record_deltas)
+        print(f"[serve] recorded deltas -> {args.record_deltas}")
+    return ch
 
 
 def _fabric_main(args, cfg, device) -> int:
@@ -368,8 +438,11 @@ def _fabric_main(args, cfg, device) -> int:
                          seed=args.seed, config=cfg.name)
             print(f"[serve] recorded trace -> {args.record_trace}")
 
+    online = _online_channel(args, cfg, fleet._params, events, scen_name,
+                             device)
     report = fleet.run(events, sla_ms=args.sla_ms,
-                       percentile=args.sla_percentile, scenario=scen_name)
+                       percentile=args.sla_percentile, scenario=scen_name,
+                       online=online, coherence=args.coherence)
     print(f"[serve] {cfg.name} (sharded, {args.replicas} boards):")
     print(report.summary())
     _emit_obs(args, tracer, report, extra_metrics=fleet.metrics)
@@ -443,8 +516,11 @@ def _cluster_main(args, cfg, full_cfg, device) -> int:
                          seed=args.seed, config=cfg.name)
             print(f"[serve] recorded trace -> {args.record_trace}")
 
+    online = _online_channel(args, cfg, cluster.replicas[0].session.params,
+                             events, scen_name, device)
     report = cluster.run(events, sla_ms=args.sla_ms,
-                         percentile=args.sla_percentile, scenario=scen_name)
+                         percentile=args.sla_percentile, scenario=scen_name,
+                         online=online)
     print(f"[serve] {cfg.name}:")
     print(report.summary())
     _emit_obs(args, tracer, report, extra_metrics=cluster.metrics)

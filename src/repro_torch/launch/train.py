@@ -24,15 +24,24 @@ of DLRM on one device: the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 8 --host-capacity-mb 0.1 --alpha 1.05
 
-The reference launcher's LM, distributed and online flags are accepted so
-that they fail loudly: each names the ROADMAP item that will bring it.
+  # record the rows each 4-step segment changed as a delta channel, for
+  # repro_torch.launch.serve --replay-deltas
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 12 --emit-deltas d.jsonl --delta-every-steps 4 \\
+      --delta-dt-s 0.05
+
+The reference launcher's LM and distributed flags are accepted so that
+they fail loudly: each names the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from typing import Optional
+
+import torch
 
 from repro_torch.configs.registry import get_dlrm
 from repro_torch.device import resolve_device
@@ -46,10 +55,64 @@ _NOT_PORTED = {
     "seq": "A8, LM substrate",
     "compress_grads": "A6b, k ranks",
     "model_axis": "A6b, k ranks",
-    "emit_deltas": "A7c, online updates",
-    "delta_every_steps": "A7c, online updates",
-    "delta_dt_s": "A7c, online updates",
 }
+
+
+def _run_with_deltas(args, session):
+    """Run training in --delta-every-steps segments, delta-encoding the
+    embedding tables between segments into a recorded
+    ``repro_torch.online.DeltaChannel`` JSONL (--emit-deltas), the stream
+    ``repro_torch.launch.serve --replay-deltas`` feeds a live fleet.
+
+    The snapshot is one host copy of the tables; each segment's batch is
+    ``diff_tables`` of it against the live tables (compared a slice at a
+    time on the device, so no second device copy is held), and its rows
+    are then written into the snapshot. Rows the batch leaves out compare
+    equal (``!=``), so every later diff is the one of whole snapshots."""
+    from repro_torch.hoststore.chunks import StagingRing, copy_to_host
+    from repro_torch.online import DeltaChannel, diff_tables
+
+    params = session.params
+    if not isinstance(params, dict) or "tables" not in params:
+        raise SystemExit(
+            "--emit-deltas needs stacked params with a 'tables' leaf "
+            "(dlrm workload, --plan none, no host tier)")
+    tables = params["tables"]
+    snap = torch.empty(tables.shape, dtype=tables.dtype)
+    if tables.device.type == "cuda":
+        ring = StagingRing(tables.device, tables.dtype)
+        for t in range(tables.shape[0]):
+            copy_to_host(snap[t], tables[t], ring)
+    else:
+        snap.copy_(tables)
+    channel = DeltaChannel()
+    seg = max(1, args.delta_every_steps)
+    reports = []
+    done = 0
+    version = 0
+    while done < args.steps:
+        n = min(seg, args.steps - done)
+        reports.append(session.run(n))
+        done += n
+        version += 1
+        batch = diff_tables(
+            snap, session.params["tables"], version=version,
+            t_emit_s=version * args.delta_dt_s, step=done,
+            train_loss=reports[-1].last_loss)
+        for d in batch.deltas:
+            snap[d.table, torch.from_numpy(d.rows)] = torch.from_numpy(
+                d.values).to(snap.dtype)
+        channel.push(batch)
+    n_batches = channel.record(args.emit_deltas)
+    rows = sum(b.n_rows for b in channel.emitted)
+    print(f"[train] deltas -> {args.emit_deltas} ({n_batches} batches, "
+          f"{rows} row updates)")
+    first, last = reports[0], reports[-1]
+    return dataclasses.replace(
+        last, start_step=first.start_step,
+        steps_run=sum(r.steps_run for r in reports),
+        first_loss=first.first_loss,
+        history=[h for r in reports for h in r.history])
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -93,6 +156,18 @@ def _parser() -> argparse.ArgumentParser:
                    help="row-wise wire mode of a row-wise (sharded) config")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
+    p.add_argument("--emit-deltas", default=None, metavar="PATH",
+                   help="record the run's embedding-row updates as a "
+                        "delta-channel JSONL (repro_torch.online): the "
+                        "table rows each --delta-every-steps segment "
+                        "changed, versioned + timestamped, consumable by "
+                        "repro_torch.launch.serve --replay-deltas")
+    p.add_argument("--delta-every-steps", type=int, default=10,
+                   help="trainer steps folded into one delta batch")
+    p.add_argument("--delta-dt-s", type=float, default=1.0,
+                   help="virtual seconds between delta emits (stamps "
+                        "t_emit_s = version x this; match it to the "
+                        "serving trace's timescale)")
     not_ported = p.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
     not_ported.add_argument("--workload", choices=["dlrm", "lm"],
@@ -105,9 +180,6 @@ def _parser() -> argparse.ArgumentParser:
                             help="LM sequence length (with --workload lm)")
     not_ported.add_argument("--model-axis", type=int, default=1)
     not_ported.add_argument("--compress-grads", action="store_true")
-    not_ported.add_argument("--emit-deltas", default=None, metavar="PATH")
-    not_ported.add_argument("--delta-every-steps", type=int, default=10)
-    not_ported.add_argument("--delta-dt-s", type=float, default=1.0)
     return p
 
 
@@ -144,7 +216,10 @@ def main(argv: Optional[list] = None) -> int:
     print(f"[train] device={session.device} optimizer={args.optimizer} "
           f"pipeline_depth={session.pipeline_depth} resume_step="
           f"{session.resume_step}")
-    report = session.run(args.steps)
+    if args.emit_deltas:
+        report = _run_with_deltas(args, session)
+    else:
+        report = session.run(args.steps)
     print(report.summary())
     if args.report_json:
         plan_report = engine.plan_report("training")

@@ -347,12 +347,18 @@ def test_unported_fleet_options_name_their_item():
                    devices=["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
         pc.submesh(["cpu", "cpu"], model_axis=2)
+    # online updates (A7c) work: an empty channel changes nothing, and a
+    # batch lands in the replica's tables
+    from repro_torch.online import DeltaBatch, DeltaChannel, RowDelta
     cl = pc.Cluster(cfg, n_replicas=1, device="cpu", max_batch_queries=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        cl.run(make_scenario("stationary").events(2, qps=10.0),
-               online=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        cl.replicas[0].apply_row_updates(object())
+    rep = cl.run(make_scenario("stationary").events(2, qps=10.0),
+                 online=DeltaChannel())
+    assert rep.online.n_updates == 0 and rep.n_queries == 2
+    batch = DeltaBatch(version=1, t_emit_s=0.0, step=1, deltas=(
+        RowDelta(1, np.array([3]), np.ones((1, cfg.embed_dim), np.float32)),))
+    assert cl.replicas[0].apply_row_updates(batch) == 1
+    assert torch.equal(cl.replicas[0].session.params["tables"][1, 3],
+                       torch.ones(cfg.embed_dim))
     assert pc.slice_devices(["a", "b", "c"], 4, 2) == ["c", "a"]
     with pytest.raises(ValueError, match="pool has"):
         pc.slice_devices(["a"], 0, 2)
@@ -418,15 +424,56 @@ def test_launcher_replays_a_recorded_trace(capsys, tmp_path):
     assert a["hit_ratio_first"] is not None and b["hit_ratio_first"] is not None
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--online-every-s", "1"], "A7c"), (["--online-steps", "2"], "A7c"),
-    (["--online-lr", "0.1"], "A7c"), (["--coherence", "invalidate"], "A7c"),
-    (["--record-deltas", "d.jsonl"], "A7c"),
-    (["--replay-deltas", "d.jsonl"], "A7c")])
-def test_launcher_sharded_and_online_fleets_name_their_item(flag, item):
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        serve.main(["--smoke", "--device", "cpu", "--replicas", "2", *flag])
+def _online_lines(out):
+    """(batches the launcher trained, the run's [online] update count)."""
+    import re
+    trained = re.search(r"\[serve\] online: (\d+) delta batches", out)
+    ran = re.search(r"\[online\] (\d+) updates -> v(\d+) \((\w+)\)", out)
+    return (int(trained.group(1)) if trained else None,
+            (int(ran.group(1)), int(ran.group(2)), ran.group(3))
+            if ran else None)
+
+
+def _replayable(cfg, path):
+    """A recorded two-batch channel for --replay-deltas."""
+    from repro_torch.online import DeltaBatch, DeltaChannel, RowDelta
+    rng = np.random.default_rng(5)
+    DeltaChannel([DeltaBatch(version=v, t_emit_s=0.01 * v, step=v, deltas=(
+        RowDelta(v, np.array([2, 9]), rng.standard_normal(
+            (2, cfg.embed_dim)).astype(np.float32)),)) for v in (1, 2)]
+    ).record(str(path))
+
+
+@pytest.mark.parametrize("flag", [
+    ["--online-every-s", "0.01"], ["--online-steps", "2"],
+    ["--online-lr", "0.1"], ["--coherence", "invalidate"],
+    ["--record-deltas", "d.jsonl"], ["--replay-deltas", "d.jsonl"]])
+def test_launcher_online_flags_drive_the_fleet(flag, capsys, tmp_path):
+    """Each online flag on the replicated fleet path: the trainer's stream
+    is recorded before the run and every batch is applied."""
+    from repro_torch.online import DeltaChannel
+    flag = [str(tmp_path / f) if f.endswith(".jsonl") else f for f in flag]
+    if flag[0] == "--replay-deltas":
+        _replayable(_cfgs()[1], flag[1])
+    every = [] if flag[0] in ("--online-every-s", "--replay-deltas") else [
+        "--online-every-s", "0.02"]
+    rc, out = _serve(capsys, "--queries", "12", "--replicas", "2",
+                     "--scenario", "zipf_drift", "--qps", "300", *every,
+                     *flag)
+    assert rc == 0, out
+    trained, (n, last, mode) = _online_lines(out)
+    assert mode == "replicate" and n == last
+    if flag[0] == "--replay-deltas":
+        assert trained is None and n == 2
+        assert f"[serve] replaying 2 delta batches from {flag[1]}" in out
+        return
+    assert n == trained > 0
+    steps, lr = ("2", "0.05") if flag[0] == "--online-steps" else (
+        "1", "0.1" if flag[0] == "--online-lr" else "0.05")
+    interval = "0.01" if flag[0] == "--online-every-s" else "0.02"
+    assert (f"(every {interval}s x {steps} steps, lr={lr})") in out
+    if flag[0] == "--record-deltas":
+        assert len(DeltaChannel.load(flag[1])) == n
 
 
 def test_launcher_refuses_the_host_tier_on_a_fleet():

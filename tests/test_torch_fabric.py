@@ -526,12 +526,18 @@ def test_engine_builds_a_sharded_fleet():
 
 def test_unported_fabric_options_name_their_item():
     _, cfg = _cfgs()
+    # online updates (A7c) work: an empty channel changes nothing, and a
+    # batch lands in the host tables and the owner's resident rows
+    from repro_torch.online import DeltaBatch, DeltaChannel, RowDelta
     fleet = pf.ShardedFleet(cfg, n_boards=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        fleet.run(make_scenario("stationary").events(2, qps=10.0),
-                  online=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        fleet._apply_delta(object(), 0.0, "propagate")
+    rep = fleet.run(make_scenario("stationary").events(2, qps=10.0),
+                    online=DeltaChannel(), coherence="invalidate")
+    assert rep.online.n_updates == 0 and rep.online.mode == "invalidate"
+    batch = DeltaBatch(version=1, t_emit_s=0.0, step=1, deltas=(
+        RowDelta(1, np.array([3]), np.ones((1, cfg.embed_dim), np.float32)),))
+    fleet._apply_delta(batch, 0.0, "propagate")
+    assert torch.equal(fleet._tables_host[1, 3], torch.ones(cfg.embed_dim))
+    assert torch.equal(fleet.boards[0].tables[1, 3], torch.ones(cfg.embed_dim))
     with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
         pf.ShardedFleet(cfg, n_boards=1, devices=["cpu", "cpu"],
                         devices_per_board=2)
@@ -624,10 +630,29 @@ def test_launcher_sharded_fleet_autoscales_and_replays(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--online-every-s", "1"], ["--coherence", "invalidate"],
+    ["--online-every-s", "0.01"], ["--coherence", "invalidate"],
     ["--replay-deltas", "d.jsonl"]])
-def test_launcher_sharded_online_flags_name_their_item(flag):
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        serve.main(["--smoke", "--device", "cpu", "--fleet-mode", "sharded",
-                    *flag])
+def test_launcher_sharded_online_flags_take_effect(flag, capsys, tmp_path):
+    """The online flags on the sharded path: inline training or a replayed
+    recording, each batch applied under the chosen coherence mode."""
+    from test_torch_cluster import _online_lines, _replayable
+    path = tmp_path / "r.json"
+    if flag[0] == "--replay-deltas":
+        flag = [flag[0], str(tmp_path / flag[1])]
+        _replayable(_cfgs()[1], flag[1])
+    every = [] if flag[0] != "--coherence" else ["--online-every-s", "0.01"]
+    rc, out = _serve(capsys, "--queries", "12", "--replicas", "3",
+                     "--qps", "400", "--board-capacity-mb", "0.045",
+                     "--report-json", str(path), *every, *flag)
+    assert rc == 0, out
+    trained, (n, last, mode) = _online_lines(out)
+    rep = _report(path)["online"]
+    assert rep["kind"] == "OnlineReport" and rep["n_updates"] == n == last
+    assert mode == ("invalidate" if flag[0] == "--coherence"
+                    else "propagate")
+    if flag[0] == "--replay-deltas":
+        assert trained is None and n == 2 and rep["rows_pushed"] == 4
+    else:
+        assert n == trained > 0 and rep["rows_pushed"] > 0
+    if mode == "invalidate":
+        assert rep["rows_propagated"] == 0

@@ -228,11 +228,30 @@ def test_host_capacity_reaches_the_host_tier():
     assert probs.shape == (1, cfg.batch_size) and 0.0 <= stall <= service
 
 
-@pytest.mark.parametrize("flag", [["--online-every-s", "1"]])
-def test_launcher_flags_not_ported_fail_loudly(flag):
+@pytest.mark.parametrize("flag", [
+    ["--online-every-s", "1"], ["--coherence", "invalidate"],
+    ["--online-lr", "0.1"], ["--online-steps", "2"],
+    ["--record-deltas", "deltas.jsonl"]])
+def test_single_board_serves_frozen_params_under_online_flags(
+        flag, capsys, tmp_path):
+    """The online flags drive the fleet paths; on one board they change
+    nothing, as in the reference launcher: no channel is trained or
+    recorded, and the session serves as it does without them."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        serve.main(["--smoke", "--device", "cpu", *flag])
+    flag = [str(tmp_path / f) if f.endswith(".jsonl") else f for f in flag]
+    argv = ["--smoke", "--device", "cpu", "--queries", "2",
+            "--report-json", str(tmp_path / "r.json")]
+    assert serve.main(argv) == 0
+    frozen = capsys.readouterr().out
+    assert serve.main([*argv, *flag]) == 0
+    out = capsys.readouterr().out
+    assert "one board serves frozen params" in out
+    assert "[serve] online:" not in out and "[online]" not in out
+    assert not (tmp_path / "deltas.jsonl").exists()
+    def kept(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith(("[serve] serve_kernel=", "[serve] dlrm"))]
+    assert kept(out) == kept(frozen) and len(kept(out)) == 2
 
 
 @pytest.mark.parametrize("depth", range(1, 9))
@@ -297,11 +316,7 @@ def test_launcher_report_json(capsys, tmp_path):
     assert rep["mode"] == "serial" and rep["ok"] is True
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--model-axis", "2"], "A6b"),
-    (["--coherence", "invalidate"], "A7c"), (["--online-lr", "0.1"], "A7c"),
-    (["--online-steps", "2"], "A7c"),
-    (["--record-deltas", "deltas.jsonl"], "A7c")])
+@pytest.mark.parametrize("flag,item", [(["--model-axis", "2"], "A6b")])
 def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
