@@ -70,7 +70,9 @@ Phases; any failure exits non-zero:
         hd = 128, window 4,096, causal, bf16) at the prefill_32k length
         (T = S = 32,768, batch cut from 32 to 1), held against its plain
         version at T = S = 8,192 and on sampled rows at 32,768, with edge
-        cases (hd = 120, internlm2-1.8b's 16/8 heads, non-causal, T != S,
+        cases (hd = 120, h2o-danube-3-4b's 32/8 heads of 120 at T = S =
+        4,200 past its 4,096 window and its decode over a 4,096-slot ring,
+        internlm2-1.8b's 16/8 heads, non-causal, T != S,
         fully masked rows, fp32; the tensor-core path's tile edges: T and S
         of 127-129, hd = 32, 64, 120, 128, windows of 1 and 127, B = 2
         with Hq / Hkv = 1 and 4), each row also held to its own norm, and
@@ -188,6 +190,29 @@ Phases; any failure exits non-zero:
      against ``embedding_bag_ref`` on the updated bulk. Each apply, the
      trainer's step and copy, staleness and RSS are printed; the phase under
      120 s;
+     9e. the LM substrate (ROADMAP A8a), after 9c's host tables are
+     released: (a) internlm2-1.8b at full width and depth (24 layers, d
+     2,048, 16/8 heads of 128, ff 8,192, padded vocab 94,208: 1.896 B
+     params) trains 30 AdamW steps through ``Engine(get_arch(
+     "internlm2-1.8b"), lr=3e-4).train_session(batch=8, seq=128,
+     schedule_steps=30)`` (row 8 in every forward, the backward plain
+     torch), its first step's loss and grad norm held against the same
+     step with plain attention, every loss finite, and the windowed
+     decrease (mean of the first 5 against the last 5) at ``reduced()`` on
+     the card; then ``make_prefill_step`` at B = 2 x T = 32,768
+     (prefill_32k, batch cut from 32) and 32 tokens of
+     ``make_decode_step`` over S = 32,800 (decode_32k, batch cut from 128)
+     on the trained weights, timed; a 2 x 2,048 prompt and 8 greedy tokens
+     against the plain path (rows 8 and 9's plain versions on the same
+     CUDA tensors), and the last 4 tokens decoded after a prefill of the
+     rest against the prefill of all (row 9 against row 8); (b)
+     mixtral-8x7b at full width, depth cut to 2: prefill 1 x 8,192 past
+     the 4,096 window (the MoE at capacity 2,560), 16 decode steps on the
+     wrapped ring, against the plain path; (c) whisper-base whole: the
+     encoder over 1,500 frames, cross-attention T != S, decode with the
+     projected memory, against the plain path. Rows 8 and 9's launches
+     equal the layers x forwards and decode steps; the phase under 120 s,
+     its peak printed, everything freed before phase 10;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -226,6 +251,7 @@ JAX package, all nine ported); the last line is ``{"ok": true,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -322,6 +348,40 @@ ONLINE_LR = 0.05         # the online trainer's (and the launcher's) lr
 ONLINE_PHASE_S = 120.0
 ONLINE_TIER_ROWS = 262_144
 ONLINE_SLACK_BYTES = 4 * 10**9
+# Phase 9e, the LM substrate (A8a). (a) internlm2-1.8b at full width and
+# depth: 30 AdamW steps at batch 8 x 128 (lr 3e-4, the LM session's
+# default), prefill at prefill_32k's seq with its batch cut from 32 to 2
+# (a 32-row cache would be 103 GB), 32 decode tokens over S = 32,800
+# (decode_32k's depth, its batch cut from 128), and a 2 x 2,048 prompt
+# held against the plain path (at 32,768 the plain attention would hold
+# 137 GB of scores), with the last LM_SPLIT_K tokens decoded after a
+# prefill of the rest; the windowed decrease at reduced(), AdamW at the
+# reference's test_loss_decreases lr of 3e-3. (b) mixtral-8x7b at full
+# width, depth cut 32 -> 2: a prompt past its 4,096 window, then decode
+# on the wrapped ring. (c) whisper-base whole.
+# Tolerances of the kernel path against the plain one (the same CUDA
+# tensors, rows 8 and 9's plain versions), set beforehand: the CPU tests
+# hold two reduced layers against the reference at 8 bf16 ulps of the
+# scale and 2% of the norm; 24 layers at full width get 16 ulps and 2%;
+# the first step's loss within 1e-2 absolute and its grad norm within 2%.
+LM_ARCH = "internlm2-1.8b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 30
+LM_TRAIN_LR = 3e-4
+LM_SMALL_LR = 3e-3
+LM_PREFILL = (2, 32_768)
+LM_DECODE_STEPS = 32
+LM_CHECK = (2, 2_048)
+LM_CHECK_TOKENS = 8
+LM_SPLIT_K = 4
+MIXTRAL_LAYERS = 2
+MIXTRAL_PREFILL = (1, 8_192)
+MIXTRAL_DECODE = 16
+WHISPER_PROMPT = (2, 64)
+WHISPER_DECODE = 8
+LM_ULPS = 16
+LM_REL = 2e-2
+LM_LOSS_TOL = 1e-2
+LM_PHASE_S = 120.0
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -2053,6 +2113,9 @@ def phase_api_attention(dev):
     # windows of 1 and 127, T > S with fully masked rows with and without
     # causal, B = 2 with Hq / Hkv = 1 and 4
     for B, T, S, hq, hkv, d, causal, w, dtype in (
+            # h2o-danube-3-4b's attention: 32/8 heads of 120 (bf16, hd %
+            # 16 == 8, TMA's fill pads it), a prompt past its 4,096 window
+            (1, 4200, 4200, 32, 8, 120, True, 4096, torch.bfloat16),
             (1, 1000, 1000, 32, 8, 120, True, 256, torch.bfloat16),
             (1, 1000, 1000, 32, 8, 120, True, 256, torch.float32),
             (1, 2048, 2048, 16, 8, 128, True, None, torch.bfloat16),
@@ -2115,7 +2178,9 @@ def phase_api_attention(dev):
     close_attention("flash_decode", f"B=8 poisoned tail past length {n}",
                     poisoned, ref.flash_decode_ref(dq, kc, vc, lens), errs)
     del kc, vc
-    for B, S, hq, hkv, d, dtype in ((4, 3000, 32, 8, 120, torch.bfloat16),
+    # h2o-danube-3-4b's decode: its 4,096-slot ring (lengths in [0, S])
+    for B, S, hq, hkv, d, dtype in ((2, 4096, 32, 8, 120, torch.bfloat16),
+                                    (4, 3000, 32, 8, 120, torch.bfloat16),
                                     (4, 3000, 16, 8, 128, torch.bfloat16),
                                     (3, 2000, 32, 4, 128, torch.float32),
                                     (5, 77, 8, 8, 64, torch.float32),
@@ -4677,6 +4742,425 @@ def phase_host_tier(dev, card):
     return row6, {k: max(v) for k, v in errs.items()}
 
 
+# -------------------------------------------------------------- phase 9e
+@contextlib.contextmanager
+def plain_attention():
+    """Rows 8 and 9's plain versions in place of the kernels, on the same
+    CUDA tensors: the model code calls ``ops.flash_attention`` and
+    ``ops.flash_decode`` through the module, and the plain versions count
+    no launch."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.flash_decode
+    ops.flash_attention = ref.flash_attention_ref
+    ops.flash_decode = ref.flash_decode_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_decode = saved
+
+
+def lm_config(name, n_layers=None):
+    """An architecture's full config (depth cut to ``n_layers`` if given)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def lm_close(label, got, want):
+    """bf16 logits against their plain path: within LM_ULPS bf16 ulps of
+    the reference's scale elementwise and LM_REL of its norm."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: not finite")
+    err = (g - w).abs().max().item()
+    tol = LM_ULPS * 2.0 ** -8 * w.abs().max().item()
+    rel = ((g - w).norm() / w.norm()).item()
+    print(f"[lm] {label}: max_abs_err={err:.4e} (tol {tol:.4e}), "
+          f"err/norm {rel:.3e} (limit {LM_REL}) "
+          f"{'ok' if err <= tol and rel <= LM_REL else 'OVER TOLERANCE'}")
+    check(err <= tol and rel <= LM_REL, f"{label}: disagrees with the "
+                                        f"plain path")
+    return tol
+
+
+def lm_greedy(label, tokens, ref_logits, vocab, tol):
+    """Greedy tokens equal the reference's argmax wherever its top-2
+    margin over the real vocab exceeds ``tol``."""
+    lg = ref_logits[..., :vocab].float()
+    top2 = lg.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    same = (tokens == lg.argmax(-1))
+    print(f"[lm] {label}: greedy tokens equal at {int(same.sum())} of "
+          f"{same.numel()}, {int(sure.sum())} with a clear margin")
+    check(bool(same[sure].all()), f"{label}: a greedy token differs where "
+                                  f"the margin is clear")
+
+
+def lm_run(params, cfg, prompt, max_len, n_new, feed=None,
+           encoder_embeds=None):
+    """Prefill ``prompt`` and decode ``n_new`` tokens (greedy, or ``feed``'s
+    tokens) through the port's model functions: (logits (B, 1 + n_new, V)
+    fp32 of the last prompt position and each decoded one, the tokens
+    fed (B, n_new), the prefill's ms (the encoder and its memory
+    included), the decode's ms a token), on the host clock, synchronised
+    at both ends."""
+    from repro_torch.models import transformer as T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden, extras = T.forward(params, cfg, prompt, collect=True,
+                                   encoder_embeds=encoder_embeds)
+        caches = T.caches_from_prefill(cfg, extras, hidden.shape[1], max_len)
+        del extras
+        memory = None
+        if cfg.is_encoder_decoder:
+            memory = T._project_kv_memory(
+                cfg, params["cross_attn"],
+                T.encode(params, cfg, encoder_embeds))
+        logits = [T.logits_from_hidden(params, cfg,
+                                       hidden[:, -1:])[:, 0].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fed = []
+        for i in range(n_new):
+            tok = (feed[:, i] if feed is not None
+                   else logits[-1][:, :cfg.vocab_size].argmax(-1))
+            fed.append(tok)
+            hid, caches = T.forward_with_state(
+                params, cfg, tok[:, None], caches, hidden.shape[1] + i,
+                memory_kv=memory)
+            logits.append(T.logits_from_hidden(params, cfg, hid)[:, 0]
+                          .float())
+        torch.cuda.synchronize()
+    del caches
+    t2 = time.perf_counter()
+    return (torch.stack(logits, 1), torch.stack(fed, 1) if fed else None,
+            (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(1, n_new))
+
+
+def lm_against_plain(label, params, cfg, prompt, max_len, n_new, card,
+                     encoder_embeds=None):
+    """Prefill + ``n_new`` greedy steps through the kernels (their times
+    printed), then the same prompt and tokens through the plain versions:
+    logits and greedy tokens held. Returns the kernel path's (logits,
+    tokens)."""
+    got, toks, prefill_ms, decode_ms = lm_run(
+        params, cfg, prompt, max_len, n_new, encoder_embeds=encoder_embeds)
+    print(f"[lm] {label}: prefill {prefill_ms:.2f} ms, decode "
+          f"{decode_ms:.3f} ms a token (first calls at these shapes) "
+          f"({card})")
+    with plain_attention():
+        want, *_ = lm_run(params, cfg, prompt, max_len, n_new, feed=toks,
+                          encoder_embeds=encoder_embeds)
+    tol = lm_close(f"{label} logits (prefill + {n_new} decode steps)", got,
+                   want)
+    lm_greedy(f"{label} greedy", toks, want[:, :n_new], cfg.vocab_size, tol)
+    del want
+    return got, toks
+
+
+def lm_profile(label, run, n, card, top=10):
+    """``whole_profile`` over ``run(n)``: per call, wall and device busy ms
+    and the ``top`` device events by time; None if no trace was whole."""
+    got = whole_profile(run, n)
+    if got is None:
+        print(f"[profile] {label}: not measured (no whole trace)")
+        return None
+    _, wall, busy, _, device = got
+    print(f"[profile] {label}: wall {wall / n:.3f} ms, device busy "
+          f"{busy / n:.3f} ms ({busy / wall:.1%}) a call ({card})")
+    for e in device[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / n:9.3f} ms "
+              f"{e.count // n:5d}x {e.key[:90]}")
+    return dict(wall_ms=wall / n, busy_ms=busy / n,
+                top=[(e.key[:90], e.self_device_time_total / 1e3 / n)
+                     for e in device[:top]])
+
+
+def lm_train(dev, card):
+    """(a)1-3: internlm2-1.8b at full width and depth, 30 AdamW steps
+    through the Engine; the first step's loss and grad norm held against
+    the same step with plain attention; the windowed decrease at
+    ``reduced()``. Returns the session's params (its optimizer state
+    freed), the loss curve and the train row-8 launches expected."""
+    from repro_torch.data.lm import make_lm_batch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as LM
+    cfg = lm_config(LM_ARCH)
+    B, S, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    sess = Engine(cfg, lr=LM_TRAIN_LR, device=dev).train_session(
+        batch=B, seq=S, schedule_steps=steps)
+    n_params = sum(x.numel() for _, x in leaves(sess.params))
+    print(f"[lm] {cfg.name}: {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / GB:.2f} GB fp32), {cfg.n_layers} layers, "
+          f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, padded vocab "
+          f"{cfg.padded_vocab}")
+    batch0 = make_lm_batch(cfg, 0, 0, B, S, device=dev)
+    with plain_attention():
+        loss0, grads = LM.value_and_grad(LM.make_loss_fn(cfg), sess.params,
+                                         batch0)
+        gnorm0 = float(LM.global_norm(grads))
+    del grads, batch0
+    loss0 = float(loss0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = sess.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    losses = [h["loss"] for h in rep.history]
+    first = rep.history[0]
+    print(f"[lm] train loss curve {[round(x, 4) for x in losses]}")
+    print(f"[lm] first step: loss {first['loss']:.5f} vs plain attention "
+          f"{loss0:.5f}; grad norm {first['grad_norm']:.5f} vs "
+          f"{gnorm0:.5f}")
+    check(all(math.isfinite(x) for x in losses), "an LM loss is not finite")
+    check(abs(first["loss"] - loss0) <= LM_LOSS_TOL,
+          "the first step's loss disagrees with the plain attention's")
+    check(abs(first["grad_norm"] - gnorm0) <= LM_REL * gnorm0,
+          "the first step's grad norm disagrees with the plain attention's")
+    want = {"flash_attention": cfg.n_layers * steps, "flash_decode": 0}
+    check({k: counts[k] for k in want} == want,
+          f"train launches {counts}, want {want}")
+    dts = sorted(h["dt"] for h in rep.history)
+    p50 = dts[len(dts) // 2]
+    tokens = B * (S - 1)
+    print(f"[lm] train {cfg.name} B={B} seq={S}: {steps} steps in "
+          f"{wall:.2f} s, step p50 {p50 * 1e3:.2f} ms, "
+          f"{tokens / p50:.0f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / GB:.2f} GB ({card})")
+    ops.reset_launch_counts()
+    prof = lm_profile(f"train step {cfg.name} B={B} seq={S}", sess.run,
+                      PROFILE_STEPS, card)
+    extra = ops.launch_counts["flash_attention"]
+    params = sess.params
+    del sess, rep
+    torch.cuda.empty_cache()
+
+    small = lm_config(LM_ARCH).reduced()
+    ops.reset_launch_counts()
+    rep = Engine(small, lr=LM_SMALL_LR, device=dev).train_session(
+        batch=4, seq=33, schedule_steps=LM_TRAIN_STEPS).run(LM_TRAIN_STEPS)
+    small_losses = [h["loss"] for h in rep.history]
+    head, tail = np.mean(small_losses[:5]), np.mean(small_losses[-5:])
+    print(f"[lm] {small.name} on the card: loss curve "
+          f"{[round(x, 4) for x in small_losses]}; mean of the first 5 "
+          f"{head:.4f}, of the last 5 {tail:.4f}")
+    check(all(math.isfinite(x) for x in small_losses) and tail < head,
+          "the reduced LM's windowed loss did not decrease")
+    check(ops.launch_counts["flash_attention"]
+          == small.n_layers * LM_TRAIN_STEPS, "reduced train launches")
+    # the profiled steps launch row 8 too (their count depends on the
+    # profiler's tries)
+    launches = (cfg.n_layers * steps + small.n_layers * LM_TRAIN_STEPS
+                + extra)
+    return params, dict(losses=losses, p50_ms=p50 * 1e3,
+                        tokens_per_s=tokens / p50, wall_s=wall,
+                        profile=prof, launches=launches,
+                        first_loss=(first["loss"], loss0),
+                        first_grad_norm=(first["grad_norm"], gnorm0))
+
+
+def lm_serve_internlm(params, dev, card):
+    """(a)4-7 on the trained params: prefill 2 x 32,768 and decode 32
+    tokens through the entry points (rows 8 and 9), timed; then a 2 x 2,048
+    prompt against the plain path, and decode-after-prefill of T - k
+    against the prefill of T."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as LM
+    cfg = lm_config(LM_ARCH)
+    L_ = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, Tn = LM_PREFILL
+    max_len = Tn + LM_DECODE_STEPS
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches, tok = LM.make_prefill_step(cfg, max_len)(params,
+                                                     {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    kv_gb = sum(c[n].numel() * c[n].element_size() for c in caches
+                for n in ("k", "v")) / GB
+    decode = LM.make_decode_step(cfg)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE_STEPS):
+        caches, tok = decode(params, caches, tok, Tn + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / LM_DECODE_STEPS
+    counts = dict(ops.launch_counts)
+    want = {"flash_attention": L_, "flash_decode": L_ * LM_DECODE_STEPS}
+    check({k: counts[k] for k in want} == want,
+          f"prefill/decode launches {counts}, want {want}")
+    toks = torch.stack(out, 1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a decoded token is outside the vocab")
+    check(int((caches[0]["pos"] >= 0).sum(-1).min()) == max_len,
+          "the decode cache is not full after prefill + decode")
+    peak = torch.cuda.max_memory_allocated() / GB
+    # decode steps at the last position again, over the full cache
+    ops.reset_launch_counts()
+    prof = lm_profile(
+        f"decode step {cfg.name} B={B} S={max_len}",
+        lambda n: [decode(params, caches, tok, max_len - 1)
+                   for _ in range(n)], 4, card)
+    extra = ops.launch_counts["flash_decode"]
+    print(f"[lm] prefill {cfg.name} B={B} T={Tn} (prefill_32k, batch cut "
+          f"from 32): {prefill_s * 1e3:.1f} ms, {B * Tn / prefill_s:.0f} "
+          f"tokens/s; KV cache {kv_gb:.2f} GB; decode {LM_DECODE_STEPS} "
+          f"tokens over S={max_len} (decode_32k, batch cut from 128): "
+          f"{decode_s * 1e3:.2f} ms a token, {B / decode_s:.1f} tokens/s; "
+          f"peak {peak:.2f} GB ({card})")
+    del caches
+    torch.cuda.empty_cache()
+
+    # (a)6: a shorter prompt against the plain path, (a)7: decode the
+    # last k tokens after a prefill of T - k
+    B, Tn = LM_CHECK
+    k = LM_SPLIT_K
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    full, _ = lm_against_plain(f"{cfg.name} B={B} T={Tn}", params, cfg,
+                               prompt, Tn + LM_CHECK_TOKENS,
+                               LM_CHECK_TOKENS, card)
+    split, *_ = lm_run(params, cfg, prompt[:, :Tn - k], Tn, k,
+                       feed=prompt[:, Tn - k:])
+    tol = lm_close(f"{cfg.name} decode of the last {k} after a prefill of "
+                   f"{Tn - k} vs the prefill of {Tn}", split[:, -1],
+                   full[:, 0])
+    lm_greedy("decode-after-prefill greedy", split[:, -1, :cfg.vocab_size]
+              .argmax(-1), full[:, 0], cfg.vocab_size, tol)
+    counts = dict(ops.launch_counts)
+    want = {"flash_attention": 2 * L_,
+            "flash_decode": L_ * (LM_CHECK_TOKENS + k)}
+    check({n: counts[n] for n in want} == want,
+          f"check launches {counts}, want {want}")
+    return dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3,
+                kv_gb=kv_gb, peak_gb=peak, profile=prof,
+                launches={"flash_attention": 3 * L_, "flash_decode":
+                          L_ * (LM_DECODE_STEPS + LM_CHECK_TOKENS + k)
+                          + extra})
+
+
+def lm_mixtral(dev, card):
+    """(b) mixtral-8x7b at full width, depth cut to 2: prefill 1 x 8,192
+    (past the 4,096 window) and 16 decode steps on the wrapped ring,
+    against the plain path; the MoE at capacity 2,560."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = lm_config("mixtral-8x7b", MIXTRAL_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = T.init_model(cfg, gen)
+    n = sum(x.numel() for _, x in leaves(params))
+    B, Tn = MIXTRAL_PREFILL
+    C = L.moe_capacity(cfg, B * Tn)
+    print(f"[lm] {cfg.name} depth {cfg.n_layers} (cut from 32): "
+          f"{n / 1e9:.3f} B params ({n * 4 / GB:.2f} GB fp32); prefill "
+          f"B={B} T={Tn}, window {cfg.sliding_window}, MoE capacity {C}")
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm_against_plain(f"{cfg.name} depth {cfg.n_layers} B={B} T={Tn}",
+                     params, cfg, prompt, Tn + MIXTRAL_DECODE,
+                     MIXTRAL_DECODE, card)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    L_ = cfg.n_layers
+    want = {"flash_attention": L_, "flash_decode": L_ * MIXTRAL_DECODE}
+    check({k: counts[k] for k in want} == want,
+          f"mixtral launches {counts}, want {want}")
+    print(f"[lm] {cfg.name}: kernel and plain paths in {wall:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / GB:.2f} GB ({card})")
+    del params
+    torch.cuda.empty_cache()
+    return want, C
+
+
+def lm_whisper(dev, card):
+    """(c) whisper-base at full width and depth: the encoder over 1,500
+    frames (row 8, non-causal), cross-attention T != S (row 8), decode with
+    the projected memory (rows 9 and 8), against the plain path."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = lm_config("whisper-base")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = T.init_model(cfg, gen)
+    B, Tn = WHISPER_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    frames = torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=dev) * 0.02
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm_against_plain(f"{cfg.name} B={B} T={Tn} over "
+                     f"{cfg.encoder_seq_len} frames", params, cfg, prompt,
+                     Tn + WHISPER_DECODE, WHISPER_DECODE, card,
+                     encoder_embeds=frames)
+    print(f"[lm] {cfg.name}: kernel and plain paths in "
+          f"{time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / GB:.2f} GB ({card})")
+    counts = dict(ops.launch_counts)
+    L_, E_ = cfg.n_layers, cfg.n_encoder_layers
+    # the prefill's forward (encoder, self- and cross-attention), the
+    # encoder again for the decode memory, then a step's cross-attention
+    want = {"flash_attention": 2 * E_ + 2 * L_ + L_ * WHISPER_DECODE,
+            "flash_decode": L_ * WHISPER_DECODE}
+    check({k: counts[k] for k in want} == want,
+          f"whisper launches {counts}, want {want}")
+    del params
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_lm(dev, card):
+    """Phase 9e: the LM substrate at full width (see the module doc)."""
+    t_phase = time.perf_counter()
+    peaks = []
+
+    def peak():
+        peaks.append(torch.cuda.max_memory_allocated() / GB)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    params, train = lm_train(dev, card)
+    serve = lm_serve_internlm(params, dev, card)
+    del params
+    torch.cuda.empty_cache()
+    peak()
+    mixtral, C = lm_mixtral(dev, card)
+    peak()
+    whisper = lm_whisper(dev, card)
+    peak()
+    launches = {
+        "flash_attention": train["launches"]
+        + serve["launches"]["flash_attention"] + mixtral["flash_attention"]
+        + whisper["flash_attention"],
+        "flash_decode": serve["launches"]["flash_decode"]
+        + mixtral["flash_decode"] + whisper["flash_decode"]}
+    wall = time.perf_counter() - t_phase
+    check(torch.cuda.memory_allocated() < 1 * GB,
+          f"{torch.cuda.memory_allocated() / GB:.2f} GB still allocated "
+          f"after phase 9e")
+    print(f"[lm] phase 9e: {wall:.1f} s, peak {max(peaks):.2f} GB "
+          f"(internlm2 {peaks[0]:.2f}, mixtral {peaks[1]:.2f}, whisper "
+          f"{peaks[2]:.2f}); launches on the LM path {launches} ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    check(wall < LM_PHASE_S, f"phase 9e took {wall:.1f} s, over "
+                             f"{LM_PHASE_S} s")
+    return dict(train=train, serve=serve, launches=launches, wall_s=wall,
+                moe_capacity=C, peak_gb=max(peaks))
+
+
 def leaves(tree, path=""):
     if tree is None:
         return []
@@ -4761,6 +5245,7 @@ def main() -> int:
     fabric, fabric_errs, held = phase_fabric(dev, card)
     online, online_launches, online_errs = phase_online(dev, card, held)
     release_fabric_tables(held)
+    lm = phase_lm(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
                  blocked[2], host_errs, fabric_errs, online_errs):
@@ -4776,6 +5261,8 @@ def main() -> int:
     fabric_launches = sum(run["launches"] for run in fabric.values())
     launches["embedding_bag"] += fabric_launches
     for name, n in online_launches.items():
+        launches[name] += n
+    for name, n in lm["launches"].items():
         launches[name] += n
     # each kernel's row: the serve kernels at the depth-8 micro-batch
     # B = 25, the bags at B = 200, attention at the largest shape where
@@ -4818,6 +5305,12 @@ def main() -> int:
               f"{o.staleness_max_s * 1e3:.4f} ms, p50 "
               f"{run['report'].p50_ms:.4f} ms p99 {run['report'].p99_ms:.4f}"
               f" ms ({card})")
+    tr, sv = lm["train"], lm["serve"]
+    print(f"[lm] {LM_ARCH}: train step p50 {tr['p50_ms']:.2f} ms, "
+          f"{tr['tokens_per_s']:.0f} tokens/s; prefill "
+          f"{LM_PREFILL[0]}x{LM_PREFILL[1]} {sv['prefill_ms']:.1f} ms; "
+          f"decode {sv['decode_ms']:.2f} ms a token; phase 9e "
+          f"{lm['wall_s']:.1f} s, peak {lm['peak_gb']:.2f} GB ({card})")
     for label, run in fabric.items():
         rep = run["report"]
         print(f"[fabric] {label}: {rep.n_replicas_start}->"
@@ -4846,7 +5339,8 @@ def main() -> int:
          **({"fabric_launches": fabric_launches}
             if name == "embedding_bag" else {}),
          **({"online_launches": online_launches[name]}
-            if name in online_launches else {})}
+            if name in online_launches else {}),
+         "lm_launches": lm["launches"].get(name, 0)}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,27 +36,35 @@ step, so a model bigger than the card serves and trains:
                  host_capacity_mb=40960, alpha=1.05)
     serve = eng.serve_session(max_batch_queries=1)
 
+An LM config (``configs.get_arch``) takes plan="none" and builds the LM
+substrate's training session, AdamW over the attention families:
+
+    eng = Engine(get_arch("internlm2-1.8b"), lr=3e-4)
+    train = eng.train_session(batch=8, seq=128, schedule_steps=30)
+
 ``sharded_fleet(n_boards=...)`` builds the sharded fabric fleet
 (``repro_torch.fabric``): boards that together hold one partitioned table
 set, on the engine's device.
 
-The port serves and trains DLRM on one device. Options of the reference's
-``Engine`` that it does not carry (a mesh and more devices: ROADMAP A6b)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The port serves and trains DLRM, and trains the LM, on one device.
+Options of the reference's ``Engine`` that it does not carry (a mesh and
+more devices: ROADMAP A6b) raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.core import perf_model
 from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.planning import (PlanReport, build_auto_plan,
                                          resolve_depth_for_batch)
 from repro_torch.engine.serving import ServeSession
-from repro_torch.engine.training import HOST_TIER_CKPT, TrainSession
+from repro_torch.engine.training import (HOST_TIER_CKPT, LMTrainSession,
+                                        TrainSession)
 from repro_torch.hoststore import HostTieredExchange, build_host_exchange
 from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
@@ -68,12 +76,37 @@ _ROW_WISE_EXCHANGES = ("partial_pool", "unpooled")
 _AXIS = ("data", "model")
 
 
+def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
+              host_capacity_mb) -> None:
+    """The reference's refusals of DLRM-only options for an LM config, and
+    A8b's for an arch that needs a Mamba or RWKV6 mixer."""
+    from repro_torch.models.transformer import check_ported
+    if not isinstance(cfg, ModelConfig):
+        raise TypeError(f"cfg must be a DLRMConfig or a ModelConfig, got "
+                        f"{type(cfg).__name__}")
+    if plan not in (None, "none"):
+        raise ValueError("plan placement is DLRM-only; LM configs take "
+                         "plan='none'")
+    if compress_grads or pipeline_depth not in (None, 1):
+        raise ValueError("pipeline_depth/compress_grads are DLRM-only")
+    if dp_axes:
+        raise ValueError("dp_axes is DLRM-only (the LM substrate has its "
+                         "own sharding rules)")
+    if host_capacity_mb is not None:
+        raise ValueError("host_capacity_mb (the host chunk tier) is "
+                         "DLRM-only")
+    check_ported(cfg)
+
+
 class Engine:
-    """Session factory over one DLRM config on one device.
+    """Session factory over one DLRM or LM config on one device.
 
     Parameters
     ----------
-    cfg            : DLRMConfig.
+    cfg            : DLRMConfig, or an LM ModelConfig (plan="none", no
+                     pipeline depth, host tier, dp_axes or compressed
+                     grads: those are DLRM-only and raise ValueError, as
+                     in the reference).
     plan           : "none" | "auto" | ShardingPlan (see module doc).
     fast_mb        : fast-tier capacity (MiB) for plan="auto"; the default
                      fits ~half the tables, so the placement is MIXED.
@@ -135,12 +168,13 @@ class Engine:
                  host_chunk_rows: Optional[int] = None,
                  host_hot_fraction: float = 0.5, host_link=None,
                  calibration=None, metrics=None):
-        if not isinstance(cfg, DLRMConfig):
-            raise NotImplementedError(
-                "LM configs are not ported yet (ROADMAP A8, LM substrate)")
+        self.is_dlrm = isinstance(cfg, DLRMConfig)
         if isinstance(plan, str) and plan not in ("none", "auto"):
             raise ValueError(f"plan must be 'none', 'auto', or a "
                              f"ShardingPlan; got {plan!r}")
+        if not self.is_dlrm:
+            _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
+                      host_capacity_mb)
         if host_capacity_mb is not None:
             if host_capacity_mb <= 0:
                 raise ValueError(f"host_capacity_mb must be > 0, got "
@@ -298,6 +332,8 @@ class Engine:
         device. Under the host tier the session serves a fresh host
         exchange's tables and takes only the MLPs of ``params``.
         ``warmup=True`` runs one untimed capacity batch first."""
+        if not self.is_dlrm:
+            raise ValueError("serve_session is DLRM-only")
         plan = self.build_plan("inference")
         exchange = self._exchange_args(plan)
         if self.host_capacity_mb is not None and self.pipeline_depth is None:
@@ -345,26 +381,23 @@ class Engine:
 
     def train_session(self, *, ckpt_dir: Optional[str] = None,
                       ckpt_every: int = 50, ckpt_keep: int = 3,
-                      batch: Optional[int] = None,
-                      seq: Optional[int] = None,
-                      chain_prob: Optional[float] = None,
-                      schedule_steps: Optional[int] = None
-                      ) -> TrainSession:
-        """Build the training pipeline: the plan for "training" (profiled
-        in that mode under plan="auto") -> train step at the resolved
-        depth -> params and optimizer state on the engine's device ->
-        TrainLoop with checkpoint-resume, keeping ``ckpt_keep``
-        snapshots. A session's ``params`` serve through
-        ``serve_session(params=...)`` of the same engine. ``batch``,
-        ``seq``, ``chain_prob`` and ``schedule_steps`` are the reference's
-        LM-session options, not ported yet."""
-        lm = dict(batch=batch, seq=seq, chain_prob=chain_prob,
-                  schedule_steps=schedule_steps)
-        given = [k for k, v in lm.items() if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"{', '.join(given)} (LM training sessions) are not ported "
-                f"yet (ROADMAP A8, LM substrate)")
+                      batch: int = 8, seq: int = 128,
+                      chain_prob: float = 0.8, schedule_steps: int = 100):
+        """Build the training pipeline. A DLRM config: the plan for
+        "training" (profiled in that mode under plan="auto") -> train step
+        at the resolved depth -> params and optimizer state on the
+        engine's device -> TrainLoop with checkpoint-resume, keeping
+        ``ckpt_keep`` snapshots; its ``params`` serve through
+        ``serve_session(params=...)`` of the same engine. An LM config:
+        ``LMTrainSession`` (``batch``, ``seq``, ``chain_prob`` and
+        ``schedule_steps`` apply; a DLRM session ignores them, as in the
+        reference)."""
+        if not self.is_dlrm:
+            return LMTrainSession(
+                self.cfg, device=self.device, lr=self.lr, seed=self.seed,
+                batch=batch, seq=seq, chain_prob=chain_prob,
+                schedule_steps=schedule_steps, ckpt_dir=ckpt_dir,
+                ckpt_every=ckpt_every, ckpt_keep=ckpt_keep)
         if ckpt_dir and self.host_capacity_mb is not None:
             raise NotImplementedError(HOST_TIER_CKPT)
         plan = self.build_plan("training")

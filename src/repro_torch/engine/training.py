@@ -3,9 +3,9 @@
 Wraps ``runtime.TrainLoop`` (resume-from-latest, async checkpointing,
 straggler accounting) around the plan-executing train step
 (``parallel.build_step(mode="train")``) and its plan-aware optimizer
-state, as the reference's ``repro.engine.training``. Built by
-``Engine.train_session()``. The LM workload's session comes with the LM
-substrate (ROADMAP A8).
+state, as the reference's ``repro.engine.training``; and, for the LM
+workload, around the LM train step (``models.lm.make_train_step``) with
+AdamW under a cosine schedule. Built by ``Engine.train_session()``.
 """
 from __future__ import annotations
 
@@ -15,12 +15,16 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.core import dlrm as dlrm_lib
 from repro_torch.core.planner import ShardingPlan
+from repro_torch.data.lm import make_lm_batch
 from repro_torch.data.recsys import make_recsys_batch
 from repro_torch.device import DeviceArg, resolve_device
+from repro_torch.models import lm
+from repro_torch.models import transformer as T
 from repro_torch.obs.serialize import report_asdict, report_to_json
+from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.parallel.build import build_step, init_dlrm_opt_state
 from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import (plan_table_groups,
@@ -32,7 +36,7 @@ from repro_torch.runtime import TrainLoop
 class TrainReport:
     """Result of one ``TrainSession.run`` call."""
 
-    workload: str              # "dlrm" (the LM workload is A8)
+    workload: str              # "dlrm" | "lm"
     config: str
     start_step: int
     steps_run: int
@@ -181,11 +185,39 @@ class TrainSession(_SessionBase):
 
 
 class LMTrainSession(_SessionBase):
-    """LM training (the reference's ``models.lm`` step + TrainLoop)."""
+    """LM training on one device: ``models.lm.make_train_step`` + TrainLoop,
+    as the reference's ``LMTrainSession``.
+
+    The params are a fresh ``init_model`` from ``seed`` on ``device``
+    (None: the card); AdamW at ``lr`` under ``cosine_schedule(10,
+    schedule_steps)``; batch ``s`` is ``make_lm_batch(cfg, s, seed, batch,
+    seq, chain_prob)`` drawn on the device, so a resumed session sees the
+    stream the uninterrupted one would. The state is ``{"params", "opt",
+    "step"}``, updated in place; checkpoints hold all of it."""
 
     workload = "lm"
 
-    def __init__(self, *_, **__):
-        raise NotImplementedError(
-            "LM training sessions are not ported yet (ROADMAP A8, LM "
-            "substrate)")
+    def __init__(self, cfg: ModelConfig, *, device: DeviceArg = None,
+                 lr: float = 3e-4, seed: int = 0, batch: int = 8,
+                 seq: int = 128, chain_prob: float = 0.8,
+                 schedule_steps: int = 100,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+                 ckpt_keep: int = 3):
+        self.device = device = resolve_device(device)
+        opt = adamw(lr, lr_schedule=cosine_schedule(10, schedule_steps))
+        params = T.init_model(
+            cfg, torch.Generator(device=device).manual_seed(seed))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        loop = TrainLoop(
+            step_fn=lm.make_train_step(cfg, opt),
+            batch_fn=lambda s: make_lm_batch(cfg, s, seed, batch, seq,
+                                             chain_prob, device=device),
+            ckpt=(CheckpointManager(ckpt_dir, keep=ckpt_keep)
+                  if ckpt_dir else None),
+            ckpt_every=ckpt_every)
+        super().__init__(cfg, loop, state)
+
+    @property
+    def params(self) -> Any:
+        return self._state["params"]

@@ -2,7 +2,8 @@
 
 Maps flags onto ``Engine(...)`` / ``TrainSession`` (plan -> train step ->
 params and optimizer state -> checkpointed TrainLoop) and runs real steps
-of DLRM on one device: the card unless ``--device cpu``.
+of DLRM, or of an LM (``--workload lm``), on one device: the card unless
+``--device cpu``.
 
   # full width on the card, checkpoints every 50 steps
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -30,8 +31,17 @@ of DLRM on one device: the card unless ``--device cpu``.
       --steps 12 --emit-deltas d.jsonl --delta-every-steps 4 \\
       --delta-dt-s 0.05
 
-The reference launcher's LM and distributed flags are accepted so that
-they fail loudly: each names the ROADMAP item that will bring it.
+  # the LM substrate: internlm2-1.8b, AdamW under a cosine schedule
+  PYTHONPATH=src python -m repro_torch.launch.train --workload lm \\
+      --arch internlm2-1.8b --batch 8 --seq 128 --lr 3e-4 --steps 30
+
+  # its reduced config on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --workload lm \\
+      --arch internlm2-1.8b --smoke --device cpu --steps 8
+
+The reference launcher's distributed flags are accepted so that they fail
+loudly: each names the ROADMAP item that will bring it. Under --workload
+lm the DLRM-only flags are ignored with a note, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,16 +53,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.registry import get_dlrm
+from repro_torch.configs.registry import get_arch, get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
 
 # flag -> ROADMAP item; any value other than the flag's default raises
 _NOT_PORTED = {
-    "workload": "A8, LM substrate",
-    "arch": "A8, LM substrate",
-    "batch": "A8, LM substrate",
-    "seq": "A8, LM substrate",
     "compress_grads": "A6b, k ranks",
     "model_axis": "A6b, k ranks",
 }
@@ -168,31 +174,50 @@ def _parser() -> argparse.ArgumentParser:
                    help="virtual seconds between delta emits (stamps "
                         "t_emit_s = version x this; match it to the "
                         "serving trace's timescale)")
+    p.add_argument("--workload", choices=["dlrm", "lm"], default="dlrm")
+    p.add_argument("--arch", default="internlm2-1.8b",
+                   help="LM architecture (with --workload lm)")
+    p.add_argument("--batch", type=int, default=8,
+                   help="LM batch (with --workload lm)")
+    p.add_argument("--seq", type=int, default=128,
+                   help="LM sequence length (with --workload lm)")
     not_ported = p.add_argument_group(
         "not ported yet (each raises, naming its ROADMAP item)")
-    not_ported.add_argument("--workload", choices=["dlrm", "lm"],
-                            default="dlrm")
-    not_ported.add_argument("--arch", default="internlm2-1.8b",
-                            help="LM architecture (with --workload lm)")
-    not_ported.add_argument("--batch", type=int, default=8,
-                            help="LM batch (with --workload lm)")
-    not_ported.add_argument("--seq", type=int, default=128,
-                            help="LM sequence length (with --workload lm)")
     not_ported.add_argument("--model-axis", type=int, default=1)
     not_ported.add_argument("--compress-grads", action="store_true")
     return p
 
 
+def _lm_flags(args) -> None:
+    """The reference's notes for DLRM-only flags under --workload lm: each
+    is dropped."""
+    if args.plan != "none":
+        print("[train] --plan is DLRM-only; ignoring it for the lm "
+              "workload")
+        args.plan = "none"
+    if args.pipeline_depth > 1 or args.compress_grads:
+        print("[train] --pipeline-depth/--compress-grads are DLRM-only; "
+              "ignoring them for the lm workload")
+        args.pipeline_depth, args.compress_grads = 0, False
+    if args.host_capacity_mb is not None:
+        print("[train] --host-capacity-mb is DLRM-only; ignoring it "
+              "for the lm workload")
+        args.host_capacity_mb = None
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.workload == "lm":
+        _lm_flags(args)
     for dest, item in _NOT_PORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
 
-    cfg = get_dlrm(args.config)
+    cfg = get_dlrm(args.config) if args.workload == "dlrm" else get_arch(
+        args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     try:
@@ -210,12 +235,19 @@ def main(argv: Optional[list] = None) -> int:
                     calibration=args.calibration, device=device,
                     verbose=True)
     session = engine.train_session(ckpt_dir=args.ckpt_dir,
-                                   ckpt_every=args.ckpt_every)
+                                   ckpt_every=args.ckpt_every,
+                                   batch=args.batch, seq=args.seq,
+                                   schedule_steps=args.steps)
     if args.host_capacity_mb is not None:
         print(f"[train] {session.exchange_inst.summary()}")
-    print(f"[train] device={session.device} optimizer={args.optimizer} "
-          f"pipeline_depth={session.pipeline_depth} resume_step="
-          f"{session.resume_step}")
+    if args.workload == "lm":
+        print(f"[train] device={session.device} optimizer=adamw "
+              f"batch={args.batch} seq={args.seq} resume_step="
+              f"{session.resume_step}")
+    else:
+        print(f"[train] device={session.device} optimizer={args.optimizer} "
+              f"pipeline_depth={session.pipeline_depth} resume_step="
+              f"{session.resume_step}")
     if args.emit_deltas:
         report = _run_with_deltas(args, session)
     else:

@@ -431,9 +431,16 @@ def test_reference_axis_default_is_accepted():
                                 {"chain_prob": 0.8},
                                 {"schedule_steps": 100}])
 def test_lm_train_session_options_name_their_item(kw):
+    """The LM-session options are ported (ROADMAP A8a): a DLRM session
+    ignores them, as the reference's does; an LM config's session takes
+    them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.engine import TrainSession
+    from repro_torch.engine.training import LMTrainSession
     eng = Engine(get_dlrm(NAME).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        eng.train_session(**kw)
+    assert isinstance(eng.train_session(**kw), TrainSession)
+    lm = Engine(get_arch("internlm2-1.8b").reduced(), device="cpu")
+    assert isinstance(lm.train_session(**kw), LMTrainSession)
 
 
 def test_serve_launcher_host_tier_smoke_on_cpu():

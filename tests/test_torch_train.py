@@ -31,7 +31,7 @@ from repro.launch.mesh import make_host_mesh
 from repro.parallel import updates as jax_updates
 from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
-from repro_torch.configs import get_dlrm
+from repro_torch.configs import get_arch, get_dlrm
 from repro_torch.core import dlrm
 from repro_torch.core.planner import ShardingPlan, TablePlacement
 from repro_torch.engine import Engine
@@ -470,8 +470,10 @@ def test_train_options_not_ported_raise():
     assert (type(ex).__name__, ex.mode) == ("RowWiseExchange", "unpooled")
     with pytest.raises(NotImplementedError, match="A6b"):
         init_dlrm_opt_state(cfg, "adagrad", n=2, device="cpu")
+    # the LM session is ported for the attention families (A8a); an arch
+    # that needs a Mamba or RWKV6 mixer still raises, naming A8b
     with pytest.raises(NotImplementedError, match="A8"):
-        LMTrainSession(cfg)
+        LMTrainSession(get_arch("rwkv6-3b").reduced(), device="cpu")
 
 
 # -------------------------------------------------------------- sessions
@@ -677,11 +679,25 @@ def test_train_launcher_emits_deltas(every, steps, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--workload", "lm"], "A8"), (["--compress-grads"], "A6b"),
-    (["--model-axis", "2"], "A6b"), (["--seq", "64"], "A8")])
+    (["--workload", "lm", "--arch", "rwkv6-3b"], "A8"),
+    (["--compress-grads"], "A6b"), (["--model-axis", "2"], "A6b"),
+    (["--workload", "lm", "--arch", "jamba-1.5-large-398b", "--seq", "64"],
+     "A8")])
 def test_train_launcher_flags_not_ported_raise(flag, item):
+    """--workload lm trains the attention families (A8a); the archs that
+    need a Mamba or RWKV6 mixer raise, naming A8b."""
     with pytest.raises(NotImplementedError, match=item):
         train_launcher.main(["--device", "cpu", "--smoke", *flag])
+
+
+def test_train_launcher_lm_flags_are_ignored_under_dlrm(capsys):
+    """--seq and --batch are the LM session's; a DLRM run ignores them, as
+    the reference's launcher does."""
+    rc = train_launcher.main(["--device", "cpu", "--smoke", "--steps", "2",
+                              "--seq", "64", "--batch", "3"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "[train] dlrm dlrm-rm2-small-unsharded-smoke: steps=2" in out
 
 
 def test_train_launcher_exchange_flag_trains_the_row_wise_config(capsys):
