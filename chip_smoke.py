@@ -213,6 +213,41 @@ Phases; any failure exits non-zero:
      projected memory, against the plain path. Rows 8 and 9's launches
      equal the layers x forwards and decode steps; the phase under 120 s,
      its peak printed, everything freed before phase 10;
+     9f. the SSM mixers (ROADMAP A8b), after 9e: (a) rwkv6-3b at full
+     width and depth (32 RWKV6 time-mix + channel-mix layers, d 2,560, 40
+     heads of 64, ff 8,960, vocab 65,536: 3.089 B params): one layer's
+     mixer on the first batch with the 64-step chunks rematerialized
+     against no chunking (loss and grads), then 8 AdamW steps through
+     ``Engine(get_arch("rwkv6-3b"), lr=3e-4).train_session(batch=8,
+     seq=129, schedule_steps=30)`` (T = 128 tokens a row, so the chunks
+     rematerialize; the last 2 under the profiler): every loss finite,
+     the peak under 76 GB (the reference's own full-width loss rises at
+     this lr, as the port's does: ``tests/test_torch_lm_train.py`` holds
+     the port's AdamW steps at full width to the reference's); at
+     ``reduced()`` 30 steps at lr 3e-3, the mean of the last 3 losses
+     below the first; ``make_prefill_step`` at 2 x 2,048 and 32 tokens
+     of ``make_decode_step`` on the trained weights, timed, the decode
+     state's bytes; a 2 x 256 prompt and 8 greedy tokens through prefill
+     and decode against one forward over the 264 tokens; (b) jamba's
+     Mamba mixer at jamba's full widths (d 8,192, d_inner 16,384, d_state
+     16: 420.3 M params): ``mamba_scan`` over 2 x 1,024 against the fold
+     of 1,024 ``mamba_step`` calls, both timed, on bf16 and fp32 inputs
+     (the final SSM state held in fp32); (c) jamba-1.5-large-398b
+     whole at ``reduced()`` (16 layers, 14 Mamba + 2 attention, 4 experts
+     top-2; at full width one unit's four MoE layers alone are ~155 GB):
+     loss and grads under ``forward(remat=True)`` against remat off (row 8
+     recomputed), a 2 x 512 prompt and 8 decode steps against the plain
+     path, then the long_500k depth: row 9 itself on one query against
+     524,288 slots in which 8 keys from the first slot to the last carry
+     the softmax, against its plain version, and the plain output moving
+     past the row tolerance without the first slot's key; then 4 decode
+     tokens ending at position 524,287 over a 524,288-slot cache seeded
+     on the card (K drawn 8 wide, so a few keys carry each softmax), with
+     drawn SSM states, against the plain path, and the plain path's
+     logits moving past that tolerance with V zeroed over the first 1/8
+     of the slots. Rows 8 and 9's launches
+     counted; a train step, a prefill and a decode step of rwkv6-3b
+     profiled; the phase under 120 s;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -250,6 +285,7 @@ JAX package, all nine ported); the last line is ``{"ok": true,
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -382,6 +418,50 @@ LM_ULPS = 16
 LM_REL = 2e-2
 LM_LOSS_TOL = 1e-2
 LM_PHASE_S = 120.0
+# Phase 9f, the SSM mixers (A8b). rwkv6-3b at full width and depth: batch
+# 8, seq 129 (a batch row is seq - 1 = 128 tokens, a multiple of the
+# 64-step chunk, so the chunks rematerialize; at 127 they would not, and
+# autograd would save a (8, 40, 64, 64) fp32 state a step and more), 8
+# AdamW steps at the session's lr, its cosine over 30 steps as phase 9e's,
+# under a peak limit of the card's 80 GB less 4; the losses are finite.
+# At full width the reference's own loss rises at lr 3e-4, as the port's
+# does (tests/test_torch_lm_train.py holds the port's AdamW steps there to
+# the reference's), and on the card the port's rises once the warmup
+# brings the lr near 3e-4, so the decrease (the mean of the last 3 losses
+# below the first) is held at reduced(), 30 steps at phase 9e's lr of
+# 3e-3; prefill 2 x 2,048 and 32 decode tokens; a 2 x 256 prompt and 8
+# greedy tokens against one forward. Mamba at jamba's full widths over 2
+# x 1,024. jamba at reduced(): a 2 x 512 prompt, 8 decode steps, and the
+# long_500k depth at B = 1. Tolerances, set beforehand: the chunked
+# mixer's loss within 1e-5 relative and grads within 1e-4 of their norm of
+# the unchunked one (the same ops); model paths at phase 9e's LM_ULPS /
+# LM_REL; the scan against the fold of its steps within 2% of the output's
+# norm (bf16 and fp32 inputs) and, in fp32, 1e-4 of the final SSM state's
+# (in bf16 the projections round differently over B x T rows and over B:
+# 7.5e-4 on the card).
+SSM_ARCH = "rwkv6-3b"
+SSM_LAYERS = None          # full depth; 24 if the peak passes the limit
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 8, 129, 8
+SSM_PEAK_LIMIT_GB = 76.0
+SSM_PREFILL = (2, 2_048)
+SSM_DECODE_STEPS = 32
+SSM_CHECK = (2, 256)
+SSM_CHECK_TOKENS = 8
+SSM_LOSS_REL = 1e-5
+SSM_GRAD_REL = 1e-4
+JAMBA_ARCH = "jamba-1.5-large-398b"
+MAMBA_SCAN = (2, 1_024)
+MAMBA_OUT_REL = 2e-2
+MAMBA_STATE_REL = 1e-4
+JAMBA_TRAIN = (2, 64)
+JAMBA_PROMPT = (2, 512)
+JAMBA_DECODE = 8
+LONG_SLOTS = 524_288       # long_500k's seq
+LONG_DECODE = 4
+LONG_K_STD = 8.0           # the seeded keys' spread (module doc)
+LONG_NEEDLES = 8
+NEEDLE_SCORE = 24.0
+SSM_PHASE_S = 120.0
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -1210,7 +1290,7 @@ def phase_timing(none, auto, dev):
     return rows
 
 
-def whole_profile(run, n, tries=5):
+def whole_profile(run, n, tries=5, cpu=True):
     """torch.profiler over ``run(n)`` (n flushes or steps), the way
     ``kernel_ms`` counts: each trace runs ``run(n)`` once as a warm-up it
     throws away, then again, and counts only when each of its device
@@ -1218,12 +1298,17 @@ def whole_profile(run, n, tries=5):
     drops events now and then, and a trace that lost some reads low).
     Asked up to ``tries`` times. Returns (run's own result, wall ms of
     the counted run, device busy ms, the profiler's events, device events
-    by time) or None if no trace is whole."""
+    by time) or None if no trace is whole. ``cpu=False`` records device
+    events alone (a run of ~10^5 host ops traces in a fraction of the
+    time) and sums them by name from the trace's own event list
+    (``device_totals``; the profiler's events are then None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+        with profile(activities=activities,
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _warm_then_counted in range(2):
@@ -1233,8 +1318,8 @@ def whole_profile(run, n, tries=5):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
                 prof.step()
-        events = prof.key_averages()
-        device = sorted((e for e in events
+        events = prof.key_averages() if cpu else None
+        device = sorted((e for e in (events if cpu else device_totals(prof))
                          if e.device_type == DeviceType.CUDA
                          and not e.key.startswith("ProfilerStep")),
                         key=lambda e: -e.self_device_time_total)
@@ -1245,6 +1330,24 @@ def whole_profile(run, n, tries=5):
               f"{ {e.key[:40]: e.count for e in device} } device events "
               f"over {n} runs: not whole, asked again")
     return None
+
+
+DeviceEvents = collections.namedtuple(
+    "DeviceEvents", "key device_type count self_device_time_total")
+
+
+def device_totals(prof):
+    """A trace's events summed by name and device, as ``key_averages``
+    sums kernels (count, total µs), read from the trace's own event list:
+    ``key_averages`` builds an event tree first, ~15 s of host time for
+    ~10^5 events."""
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        got = sums.setdefault((e.name(), e.device_type()), [0, 0])
+        got[0] += 1
+        got[1] += e.duration_ns()
+    return [DeviceEvents(name, kind, count, ns / 1e3)
+            for (name, kind), (count, ns) in sums.items()]
 
 
 def profile_flushes(sess, label, table=False, n=5):
@@ -4860,10 +4963,10 @@ def lm_against_plain(label, params, cfg, prompt, max_len, n_new, card,
     return got, toks
 
 
-def lm_profile(label, run, n, card, top=10):
+def lm_profile(label, run, n, card, top=10, cpu=True):
     """``whole_profile`` over ``run(n)``: per call, wall and device busy ms
     and the ``top`` device events by time; None if no trace was whole."""
-    got = whole_profile(run, n)
+    got = whole_profile(run, n, cpu=cpu)
     if got is None:
         print(f"[profile] {label}: not measured (no whole trace)")
         return None
@@ -5161,6 +5264,481 @@ def phase_lm(dev, card):
                 moe_capacity=C, peak_gb=max(peaks))
 
 
+# -------------------------------------------------------------- phase 9f
+def rel_err(got, want):
+    """||got - want|| / ||want||, in fp32."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm()).item()
+
+
+def ssm_mixer_chunks(params, cfg, batch, dev, card):
+    """(a)1: layer 0's RWKV6 mixer on the first batch's normed embeddings,
+    its 64-step chunks rematerialized against no chunking: the loss (a
+    drawn cotangent's inner product with the output) and its grads w.r.t.
+    the mixer's params and input. Returns the autograd peaks (GB)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.common import COMPUTE_DTYPE
+    with torch.no_grad():
+        emb = torch.nn.functional.embedding(
+            batch["tokens"], params["embed"].to(COMPUTE_DTYPE))
+        h = L.rms_norm(emb, params["units"][0]["norm1"][0], cfg.norm_eps)
+    del emb
+    p0 = {k: v[0].detach() for k, v in params["units"][0]["rwkv"].items()}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cot = torch.randn(h.shape, generator=gen, device=dev)
+    runs = {}
+    for chunk in (S.SSM_CHUNK, 0):
+        live = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        hl = h.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            y, _ = S.rwkv6_scan(live, hl, cfg, chunk=chunk)
+            loss = (y.float() * cot).sum()
+            del y
+            grads = torch.autograd.grad(loss, [hl, *live.values()])
+        torch.cuda.synchronize()
+        runs[chunk] = (loss.item(), grads, time.perf_counter() - t0,
+                       (torch.cuda.max_memory_allocated() - base) / GB)
+        del live, hl, loss
+    (l64, g64, s64, m64), (l0, g0, s0, m0) = runs[S.SSM_CHUNK], runs[0]
+    loss_rel = abs(l64 - l0) / abs(l0)
+    grad_rel = max(rel_err(a, b) for a, b in zip(g64, g0))
+    print(f"[ssm] {cfg.name} layer 0's mixer, B={h.shape[0]} T={h.shape[1]}:"
+          f" chunk {S.SSM_CHUNK} loss {l64:.6f} vs no chunking {l0:.6f} "
+          f"(rel {loss_rel:.2e}, limit {SSM_LOSS_REL}); grads at most "
+          f"{grad_rel:.2e} of their norm off (limit {SSM_GRAD_REL}); "
+          f"forward + backward {s64 * 1e3:.1f} / {s0 * 1e3:.1f} ms, "
+          f"autograd peak {m64:.3f} / {m0:.3f} GB ({card})")
+    check(loss_rel <= SSM_LOSS_REL, "the chunked mixer's loss disagrees")
+    check(grad_rel <= SSM_GRAD_REL, "the chunked mixer's grads disagree")
+    return m64, m0
+
+
+def ssm_train(dev, card):
+    """(a)1-2: rwkv6-3b at full width (depth ``SSM_LAYERS``): the chunk
+    check, then ``SSM_TRAIN_STEPS`` AdamW steps through the Engine, the
+    last profiled. Returns the params (the optimizer state freed) and the
+    numbers."""
+    from repro_torch.data.lm import make_lm_batch
+    from repro_torch.engine import Engine
+    from repro_torch.models import ssm as S
+    cfg = lm_config(SSM_ARCH, SSM_LAYERS)
+    B, S_, steps = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS
+    sess = Engine(cfg, lr=LM_TRAIN_LR, device=dev).train_session(
+        batch=B, seq=S_, schedule_steps=LM_TRAIN_STEPS)
+    n_params = sum(x.numel() for _, x in leaves(sess.params))
+    print(f"[ssm] {cfg.name}: {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / GB:.2f} GB fp32), {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.d_model // cfg.ssm.head_dim} heads of "
+          f"{cfg.ssm.head_dim}, ff {cfg.d_ff}, padded vocab "
+          f"{cfg.padded_vocab}")
+    batch0 = make_lm_batch(cfg, 0, 0, B, S_, device=dev)
+    T_ = batch0["tokens"].shape[1]
+    check(T_ > S.SSM_CHUNK and T_ % S.SSM_CHUNK == 0,
+          f"T = {T_} does not chunk")
+    chunk_peaks = ssm_mixer_chunks(sess.params, cfg, batch0, dev, card)
+    del batch0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the last 2 of the steps are the profile's (its warm-up and the
+    # counted step; more if a trace comes back partial): the step p50 is
+    # the others'
+    t0 = time.perf_counter()
+    rep = sess.run(steps - 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    history = list(rep.history)
+    dts = sorted(h["dt"] for h in history)
+    p50 = dts[len(dts) // 2]
+
+    def profiled(n):
+        got = sess.run(n)
+        history.extend(got.history)
+        return got
+    prof = lm_profile(f"train step {cfg.name} B={B} T={T_}", profiled, 1,
+                      card, cpu=False)
+    peak = torch.cuda.max_memory_allocated() / GB
+    losses = [h["loss"] for h in history]
+    tokens = B * T_
+    print(f"[ssm] train loss curve {[round(x, 4) for x in losses]}, grad "
+          f"norms {[round(h['grad_norm'], 2) for h in history]}; mean "
+          f"of the last 3 {np.mean(losses[-3:]):.4f} against the first "
+          f"{losses[0]:.4f}")
+    print(f"[ssm] train {cfg.name} B={B} T={T_}: {len(losses)} steps, the "
+          f"first {steps - 2} in {wall:.2f} s, step p50 {p50 * 1e3:.1f} ms, "
+          f"{tokens / p50:.0f} tokens/s, peak {peak:.2f} GB (limit "
+          f"{SSM_PEAK_LIMIT_GB}) ({card})")
+    check(len(losses) >= steps, f"{len(losses)} rwkv6 steps")
+    check(all(math.isfinite(x) for x in losses),
+          "an rwkv6 loss is not finite")
+    check(peak < SSM_PEAK_LIMIT_GB, f"rwkv6 training peaked at {peak:.2f} "
+                                    f"GB")
+    params = sess.params
+    del sess, rep
+    torch.cuda.empty_cache()
+
+    # the decrease, where the schedule lets the loss move in a few steps:
+    # reduced(), lr 3e-3 (phase 9e's), 30 steps of 4 x 32 tokens
+    small = lm_config(SSM_ARCH).reduced()
+    t0 = time.perf_counter()
+    rep = Engine(small, lr=LM_SMALL_LR, device=dev).train_session(
+        batch=4, seq=33, schedule_steps=LM_TRAIN_STEPS).run(LM_TRAIN_STEPS)
+    small_losses = [h["loss"] for h in rep.history]
+    print(f"[ssm] {small.name} on the card: loss curve "
+          f"{[round(x, 4) for x in small_losses]}; mean of the last 3 "
+          f"{np.mean(small_losses[-3:]):.4f} against the first "
+          f"{small_losses[0]:.4f} ({time.perf_counter() - t0:.1f} s)")
+    check(all(math.isfinite(x) for x in small_losses)
+          and np.mean(small_losses[-3:]) < small_losses[0],
+          "the mean of the last 3 reduced rwkv6 losses is not below the "
+          "first")
+    return params, dict(losses=losses, p50_ms=p50 * 1e3, wall_s=wall,
+                        tokens_per_s=tokens / p50, peak_gb=peak,
+                        chunk_peaks_gb=chunk_peaks, profile=prof,
+                        small_losses=small_losses)
+
+
+def ssm_serve(params, dev, card):
+    """(a)3-4 on the trained params: prefill 2 x 2,048 and decode 32
+    tokens through the entry points, timed and profiled; then a 2 x 256
+    prompt and 8 greedy tokens through prefill and decode against one
+    forward over the 264 tokens."""
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as T
+    cfg = lm_config(SSM_ARCH, SSM_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    B, Tn = SSM_PREFILL
+    max_len = Tn + SSM_DECODE_STEPS
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches, tok = LM.make_prefill_step(cfg, max_len)(params,
+                                                     {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    state_mb = sum(x.numel() * x.element_size() for c in caches
+                   for x in c.values()) / 1e6
+    decode = LM.make_decode_step(cfg)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(SSM_DECODE_STEPS):
+        caches, tok = decode(params, caches, tok, Tn + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / SSM_DECODE_STEPS
+    toks = torch.stack(out, 1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a decoded rwkv6 token is outside the vocab")
+    print(f"[ssm] prefill {cfg.name} B={B} T={Tn}: {prefill_s * 1e3:.1f} "
+          f"ms, {B * Tn / prefill_s:.0f} tokens/s; decode "
+          f"{SSM_DECODE_STEPS} tokens: {decode_s * 1e3:.2f} ms a token, "
+          f"{B / decode_s:.1f} tokens/s; decode state {state_mb:.2f} MB at "
+          f"B={B}, whatever the length ({card})")
+    prof_decode = lm_profile(
+        f"decode step {cfg.name} B={B}",
+        lambda n: [decode(params, caches, tok, max_len - 1)
+                   for _ in range(n)], 4, card, cpu=False)
+    del caches
+
+    B, Tn = SSM_CHECK
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    prof_prefill = lm_profile(
+        f"prefill {cfg.name} B={B} T={Tn}",
+        lambda n: [LM.make_prefill_step(cfg, Tn)(params, {"tokens": prompt})
+                   for _ in range(n)], 1, card, cpu=False)
+    got, fed, _, _ = lm_run(params, cfg, prompt, Tn + SSM_CHECK_TOKENS,
+                            SSM_CHECK_TOKENS)
+    with torch.no_grad():
+        hidden = T.forward(params, cfg, torch.cat([prompt, fed], 1))
+        want = T.logits_from_hidden(params, cfg,
+                                    hidden[:, Tn - 1:]).float()
+    del hidden
+    tol = lm_close(f"{cfg.name} B={B} T={Tn}: prefill + "
+                   f"{SSM_CHECK_TOKENS} decode steps vs one forward over "
+                   f"{Tn + SSM_CHECK_TOKENS}", got, want)
+    lm_greedy(f"{cfg.name} decode vs forward greedy", fed,
+              want[:, :SSM_CHECK_TOKENS], cfg.vocab_size, tol)
+    return dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3,
+                state_mb=state_mb, prefill_tokens_per_s=SSM_PREFILL[0]
+                * SSM_PREFILL[1] / prefill_s,
+                profile={"decode": prof_decode, "prefill": prof_prefill})
+
+
+def mamba_scan_fold(p, cfg, x):
+    """``mamba_scan`` over x in one call and the fold of its single-token
+    ``mamba_step`` calls, each timed: ((y, state), (y, state), scan s,
+    fold s)."""
+    from repro_torch.models import ssm as S
+    B, Tn, _ = x.shape
+    with torch.no_grad():
+        S.mamba_scan(p, x[:, :S.SSM_CHUNK], cfg)     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan = S.mamba_scan(p, x, cfg)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        state = S.init_mamba_state(cfg, B, x.dtype, x.device)
+        ys = []
+        t0 = time.perf_counter()
+        for t in range(Tn):
+            y_t, state = S.mamba_step(p, x[:, t:t + 1], cfg, state)
+            ys.append(y_t)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+    return scan, (torch.cat(ys, 1), state), scan_s, fold_s
+
+
+def mamba_full(dev, card):
+    """(b) jamba's Mamba mixer at jamba's full widths: ``mamba_scan`` over
+    2 x 1,024 in one call against the fold of 1,024 ``mamba_step`` calls,
+    on bf16 inputs as the model gives them (timed; the output held) and on
+    fp32 inputs (the output and the final SSM state held: in bf16 the
+    projections round differently over 2,048 rows and over 2)."""
+    cfg = lm_config(JAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    from repro_torch.models import ssm as S
+    p = S.init_mamba(gen, cfg)
+    n = sum(x.numel() for x in p.values())
+    B, Tn = MAMBA_SCAN
+    x = torch.randn((B, Tn, cfg.d_model), generator=gen, device=dev)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        (y, st), (y_f, st_f), scan_s, fold_s = mamba_scan_fold(
+            p, cfg, x.to(dtype))
+        out[dtype] = dict(scan_ms=scan_s * 1e3, fold_ms=fold_s * 1e3,
+                          out_rel=rel_err(y_f, y),
+                          ssm_rel=rel_err(st_f["ssm"], st["ssm"]),
+                          conv_rel=rel_err(st_f["conv"], st["conv"]))
+        r = out[dtype]
+        print(f"[ssm] mamba at {JAMBA_ARCH}'s widths (d {cfg.d_model}, "
+              f"d_inner {cfg.ssm.expand * cfg.d_model}, d_state "
+              f"{cfg.ssm.d_state}, d_conv {cfg.ssm.d_conv}: {n / 1e6:.1f} M "
+              f"params), {dtype}, B={B} T={Tn}: scan {r['scan_ms']:.1f} ms, "
+              f"fold of {Tn} steps {r['fold_ms']:.1f} ms "
+              f"({r['fold_ms'] / Tn:.3f} ms a step); output "
+              f"{r['out_rel']:.2e} of its norm off (limit {MAMBA_OUT_REL}), "
+              f"final ssm state {r['ssm_rel']:.2e}, conv state "
+              f"{r['conv_rel']:.2e} ({card})")
+        check(all(bool(torch.isfinite(t).all()) for t in (y, st["ssm"])),
+              "mamba_scan is not finite")
+        check(r["out_rel"] <= MAMBA_OUT_REL,
+              f"the mamba fold's {dtype} output disagrees")
+    f32 = out[torch.float32]
+    check(max(f32["ssm_rel"], f32["conv_rel"]) <= MAMBA_STATE_REL,
+          f"the mamba fold's fp32 states are over {MAMBA_STATE_REL}")
+    return dict(params=n, **out[torch.bfloat16],
+                fp32_ssm_rel=f32["ssm_rel"], fp32_conv_rel=f32["conv_rel"])
+
+
+def jamba_reduced(dev, card):
+    """(c) jamba-1.5-large-398b whole at reduced(): remat against none
+    (row 8 recomputed), a 2 x 512 prompt and 8 decode steps against the
+    plain path, then 4 decode steps ending at position 524,287 of a
+    524,288-slot cache (long_500k) against the plain path, row 9 itself
+    held at that depth first. Returns rows 8 and 9's launches and row 9's
+    comparison errors."""
+    from repro_torch.data.lm import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as T
+    cfg = lm_config(JAMBA_ARCH).reduced()
+    plan = T.plan_for(cfg)
+    n_attn = plan.mixers.count("attn") * (cfg.n_layers // plan.period)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    params = T.init_model(cfg, gen)
+    print(f"[ssm] {cfg.name} (jamba at reduced(): the full width does not "
+          f"fit one card): {cfg.n_layers} layers, "
+          f"{cfg.n_layers - n_attn} Mamba + {n_attn} attention, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d "
+          f"{cfg.d_model}")
+
+    B, Tn = JAMBA_TRAIN
+    batch = make_lm_batch(cfg, 0, 0, B, Tn + 1, device=dev)
+
+    def loss_fn(remat):
+        def fn(p, b):
+            hidden = T.forward(p, cfg, b["tokens"], remat=remat)
+            return LM.chunked_cross_entropy(p, cfg, hidden, b["labels"])
+        return fn
+    runs = {}
+    for remat in (True, False):
+        ops.reset_launch_counts()
+        loss, grads = LM.value_and_grad(loss_fn(remat), params, batch)
+        runs[remat] = (float(loss), grads,
+                       ops.launch_counts["flash_attention"])
+    (l1, g1, c1), (l0, g0, c0) = runs[True], runs[False]
+    grad_rel = max(((a - b).float().norm()
+                    / b.float().norm().clamp_min(1e-30)).item()
+                   for (_, a), (_, b) in zip(leaves(g1), leaves(g0)))
+    print(f"[ssm] {cfg.name} B={B} T={Tn}: loss under remat {l1:.6f} vs "
+          f"{l0:.6f}; grads at most {grad_rel:.2e} of their norm off; row "
+          f"8 launches {c1} (remat) vs {c0}")
+    check(abs(l1 - l0) <= SSM_LOSS_REL * abs(l0), "jamba's remat loss "
+                                                  "disagrees")
+    check(grad_rel <= SSM_GRAD_REL, "jamba's remat grads disagree")
+    check((c1, c0) == (2 * n_attn, n_attn), f"remat launches {c1}, {c0}")
+    del runs, g1, g0
+
+    B, Tn = JAMBA_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (B, Tn), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    lm_against_plain(f"{cfg.name} B={B} T={Tn}", params, cfg, prompt,
+                     Tn + JAMBA_DECODE, JAMBA_DECODE, card)
+    counts = dict(ops.launch_counts)
+    want = {"flash_attention": n_attn, "flash_decode": n_attn * JAMBA_DECODE}
+    check({k: counts[k] for k in want} == want,
+          f"jamba launches {counts}, want {want}")
+
+    errs = long_decode_needles(cfg, gen, dev)
+
+    # long_500k: B = 1, the cache seeded on the card (K drawn LONG_K_STD
+    # wide, so a few keys anywhere in it carry each softmax and the
+    # attention layers move the logits), the SSM states drawn
+    start = LONG_SLOTS - LONG_DECODE
+    caches = T.init_cache(cfg, 1, LONG_SLOTS, device=dev)
+    for c, mixer in zip(caches, plan.mixers):
+        if mixer == "attn":
+            c["k"].normal_(0.0, LONG_K_STD, generator=gen)
+            c["v"].normal_(generator=gen)
+            c["pos"][..., :start] = torch.arange(start, device=dev,
+                                                 dtype=torch.int32)
+        else:
+            c["conv"].normal_(0.0, 0.5, generator=gen)
+            c["ssm"].normal_(0.0, 0.1, generator=gen)
+    plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
+    # the same cache with V zeroed over its first 1/8 (c["v"] is (units, B,
+    # S, Hkv, hd)): what a decode that skipped the far chunks would read
+    far_cut = start // 8
+    cut_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
+    for c, mixer in zip(cut_caches, plan.mixers):
+        if mixer == "attn":
+            c["v"][:, :, :far_cut] = 0
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_DECODE), generator=gen,
+                         device=dev)
+
+    def run(cs):
+        logits = []
+        with torch.no_grad():
+            for i in range(LONG_DECODE):
+                hid, cs = T.forward_with_state(params, cfg, toks[:, i:i + 1],
+                                               cs, start + i)
+                logits.append(T.logits_from_hidden(params, cfg, hid)[:, 0]
+                              .float())
+        return torch.stack(logits, 1)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(caches)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) * 1e3 / LONG_DECODE
+    long_launches = ops.launch_counts["flash_decode"]
+    with plain_attention():
+        want_l = run(plain_caches)
+        cut_l = run(cut_caches)
+    cache_mb = sum(c[n].numel() * c[n].element_size() for c, m in
+                   zip(caches, plan.mixers) if m == "attn"
+                   for n in ("k", "v")) / 1e6
+    print(f"[ssm] {cfg.name} long_500k: {LONG_DECODE} decode steps at "
+          f"positions {start}..{LONG_SLOTS - 1} over {LONG_SLOTS} slots "
+          f"(K/V {cache_mb:.1f} MB): {long_ms:.2f} ms a token ({card})")
+    tol = lm_close(f"{cfg.name} long_500k decode", got, want_l)
+    # the comparison can fail: V cut over the first 1/8 of the slots moves
+    # the plain path's logits past lm_close's limits
+    cut_err = (cut_l - want_l).abs().max().item()
+    cut_rel = ((cut_l - want_l).norm() / want_l.norm()).item()
+    print(f"[ssm] {cfg.name} long_500k with V zeroed over slots "
+          f"[0, {far_cut}): the plain path's logits move {cut_err:.4e} "
+          f"(tol {tol:.4e}), {cut_rel:.3e} of their norm (limit {LM_REL})")
+    check(cut_err > tol or cut_rel > LM_REL,
+          "long_500k's logits do not depend on the cache's far chunks")
+    check(long_launches == n_attn * LONG_DECODE,
+          f"long_500k row 9 launches {long_launches}")
+    check(all(int((c["pos"] >= 0).sum(-1).min()) == LONG_SLOTS
+              for c, m in zip(caches, plan.mixers) if m == "attn"),
+          "the long_500k cache is not full after the decode")
+    del caches, plain_caches, cut_caches, params
+    torch.cuda.empty_cache()
+    # row 8: remat's forward and recompute, remat off, the prefill
+    return {"flash_attention": 4 * n_attn,
+            "flash_decode": n_attn * (JAMBA_DECODE + LONG_DECODE)}, errs
+
+
+def long_decode_needles(cfg, gen, dev):
+    """Row 9 itself at long_500k's depth, at ``cfg``'s attention heads:
+    one bf16 query against a 524,288-slot cache in which LONG_NEEDLES keys,
+    spread from the first slot to the last, score NEEDLE_SCORE each for
+    one query head of their group (the rest score ~N(0, 1)), so each
+    head's output is drawn from these keys' values. Held against the
+    plain version; dropping the first slot's needle moves the plain
+    output past the row tolerance, so a kernel that skipped a chunk would
+    fail. Comparison launches: not counted. Returns the errors."""
+    from repro_torch.kernels import attention, ref
+    Hq, Hkv, hd, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LONG_SLOTS
+    g = Hq // Hkv
+    k = torch.randn((1, S, Hkv, hd), generator=gen, device=dev)
+    v = torch.randn((1, S, Hkv, hd), generator=gen, device=dev)
+    q = torch.randn((1, Hq, hd), generator=gen, device=dev)
+    slots = torch.linspace(0, S - 1, LONG_NEEDLES).round().long().tolist()
+    for i, s in enumerate(slots):
+        for h in range(Hkv):
+            qh = q[0, h * g + i % g]
+            k[0, s, h] = qh * (NEEDLE_SCORE * math.sqrt(hd) / qh.dot(qh))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    lens = torch.full((1,), S, dtype=torch.int32, device=dev)
+    errs = {}
+    want = ref.flash_decode_ref(q, k, v, lens)
+    close_attention("flash_decode", f"long_500k S={S} Hq={Hq} Hkv={Hkv} "
+                    f"hd={hd} bf16, {LONG_NEEDLES} keys at slots {slots} "
+                    f"scoring {NEEDLE_SCORE}",
+                    attention.flash_decode(q, k, v, lens), want, errs)
+    k[0, slots[0]] = 0
+    dropped = ref.flash_decode_ref(q, k, v, lens).float()
+    moved = ((dropped - want.float()).norm(dim=-1)
+             / want.float().norm(dim=-1)).max().item()
+    print(f"[ssm] long_500k row 9 without the slot-0 key: the plain output "
+          f"moves {moved:.3e} of a row's norm (row limit "
+          f"{ATTN_ROW_TOL[torch.bfloat16]})")
+    check(moved > ATTN_ROW_TOL[torch.bfloat16],
+          "long_500k's row 9 output does not depend on its first slot")
+    return {name: max(e) for name, e in errs.items()}
+
+
+def phase_ssm(dev, card):
+    """Phase 9f: the SSM mixers (see the module doc)."""
+    t_phase = time.perf_counter()
+    params, train = ssm_train(dev, card)
+    t_train = time.perf_counter()
+    serve = ssm_serve(params, dev, card)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_serve = time.perf_counter()
+    mamba = mamba_full(dev, card)
+    t_mamba = time.perf_counter()
+    launches, errs = jamba_reduced(dev, card)
+    wall = time.perf_counter() - t_phase
+    print(f"[ssm] phase 9f's parts: (a) train {t_train - t_phase:.1f} s, "
+          f"serve {t_serve - t_train:.1f} s; (b) {t_mamba - t_serve:.1f} s; "
+          f"(c) {t_phase + wall - t_mamba:.1f} s")
+    check(torch.cuda.memory_allocated() < 1 * GB,
+          f"{torch.cuda.memory_allocated() / GB:.2f} GB still allocated "
+          f"after phase 9f")
+    print(f"[ssm] phase 9f: {wall:.1f} s; launches on its path {launches} "
+          f"({card})")
+    torch.cuda.reset_peak_memory_stats()
+    check(wall < SSM_PHASE_S, f"phase 9f took {wall:.1f} s, over "
+                              f"{SSM_PHASE_S} s")
+    return dict(train=train, serve=serve, mamba=mamba, launches=launches,
+                errs=errs, wall_s=wall)
+
+
 def leaves(tree, path=""):
     if tree is None:
         return []
@@ -5246,9 +5824,13 @@ def main() -> int:
     online, online_launches, online_errs = phase_online(dev, card, held)
     release_fabric_tables(held)
     lm = phase_lm(dev, card)
+    ssm = phase_ssm(dev, card)
+    for name, n in ssm["launches"].items():
+        lm["launches"][name] += n
     host, host_errs = phase_host_tier(dev, card)
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
-                 blocked[2], host_errs, fabric_errs, online_errs):
+                 blocked[2], host_errs, fabric_errs, online_errs,
+                 ssm["errs"]):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -5311,6 +5893,14 @@ def main() -> int:
           f"{LM_PREFILL[0]}x{LM_PREFILL[1]} {sv['prefill_ms']:.1f} ms; "
           f"decode {sv['decode_ms']:.2f} ms a token; phase 9e "
           f"{lm['wall_s']:.1f} s, peak {lm['peak_gb']:.2f} GB ({card})")
+    tr, sv, mb = ssm["train"], ssm["serve"], ssm["mamba"]
+    print(f"[ssm] {SSM_ARCH}: train step p50 {tr['p50_ms']:.1f} ms, "
+          f"{tr['tokens_per_s']:.0f} tokens/s, peak {tr['peak_gb']:.2f} GB; "
+          f"prefill {SSM_PREFILL[0]}x{SSM_PREFILL[1]} {sv['prefill_ms']:.1f}"
+          f" ms; decode {sv['decode_ms']:.2f} ms a token, state "
+          f"{sv['state_mb']:.2f} MB; mamba at {JAMBA_ARCH}'s widths scan "
+          f"{mb['scan_ms']:.1f} ms, fold {mb['fold_ms']:.1f} ms; phase 9f "
+          f"{ssm['wall_s']:.1f} s ({card})")
     for label, run in fabric.items():
         rep = run["report"]
         print(f"[fabric] {label}: {rep.n_replicas_start}->"

@@ -37,7 +37,7 @@ step, so a model bigger than the card serves and trains:
     serve = eng.serve_session(max_batch_queries=1)
 
 An LM config (``configs.get_arch``) takes plan="none" and builds the LM
-substrate's training session, AdamW over the attention families:
+substrate's training session, AdamW over any of the ten archs:
 
     eng = Engine(get_arch("internlm2-1.8b"), lr=3e-4)
     train = eng.train_session(batch=8, seq=128, schedule_steps=30)
@@ -78,9 +78,7 @@ _AXIS = ("data", "model")
 
 def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
               host_capacity_mb) -> None:
-    """The reference's refusals of DLRM-only options for an LM config, and
-    A8b's for an arch that needs a Mamba or RWKV6 mixer."""
-    from repro_torch.models.transformer import check_ported
+    """The reference's refusals of DLRM-only options for an LM config."""
     if not isinstance(cfg, ModelConfig):
         raise TypeError(f"cfg must be a DLRMConfig or a ModelConfig, got "
                         f"{type(cfg).__name__}")
@@ -95,7 +93,6 @@ def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
     if host_capacity_mb is not None:
         raise ValueError("host_capacity_mb (the host chunk tier) is "
                          "DLRM-only")
-    check_ported(cfg)
 
 
 class Engine:

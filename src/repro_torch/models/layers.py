@@ -35,9 +35,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import COMPUTE_DTYPE, dense_init
 
-A8B = ("the {} mixer is not ported yet (ROADMAP A8b: models/ssm.py, "
-       "Mamba and RWKV6)")
-
 
 # ------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5

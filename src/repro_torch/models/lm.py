@@ -1,4 +1,4 @@
-"""LM training and serving steps of the attention families.
+"""LM training and serving steps of the ten architectures.
 
 As the reference (``repro.models.lm``):
 
@@ -127,9 +127,11 @@ def _greedy(cfg: ModelConfig, params: Params,
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     """prefill(params, batch) -> (caches, next_token (B,)).
 
-    PARALLEL prefill: one forward over the whole prompt (row 8 a layer;
-    collect=True gathers each layer's post-RoPE K/V), then one bulk
-    scatter seeds the decode caches."""
+    PARALLEL prefill: one forward over the whole prompt (row 8 an
+    attention layer; collect=True gathers each attention layer's post-RoPE
+    K/V and each mamba / rwkv6 layer's final state), then one bulk scatter
+    a position seeds the attention caches; the states are the SSM
+    caches."""
     def prefill(params, batch):
         tokens = batch["tokens"]                               # (B, Tp)
         with torch.no_grad():
@@ -169,7 +171,8 @@ def prefill_into_cache(params: Params, cfg: ModelConfig,
 
 def make_decode_step(cfg: ModelConfig):
     """decode(params, caches, token (B,), pos) -> (caches, next_token (B,)):
-    one new token against the caches (row 9 a self-attention layer)."""
+    one new token against the caches (row 9 a self-attention layer; a
+    mamba / rwkv6 layer steps its state)."""
     def decode(params, caches, token, pos, memory_kv=None):
         with torch.no_grad():
             hid, caches = T.forward_with_state(

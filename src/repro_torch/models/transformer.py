@@ -1,28 +1,28 @@
-"""Model stacks of the LM architectures built from attention, dense MLPs and
-MoE MLPs.
+"""Model stacks for the ten LM architectures.
 
 As the reference (``repro.models.transformer``): one ``init_model`` /
-``forward`` pair covers every such family through the ModelConfig
-switches (GQA/SWA attention, MoE every-k, enc-dec, modality-frontend
-stubs). Layers of one kind are STACKED (params with a leading (n_units,)
-dim, per position of the repeating unit), so weights carry across from the
-reference unchanged; a Python loop over units replaces ``lax.scan``.
-
-The Mamba and RWKV6 mixers (``models/ssm.py``) are not ported yet: a
-config that needs them (rwkv6-3b, jamba-1.5-large-398b) raises
-NotImplementedError naming ROADMAP A8b.
+``forward`` pair covers every family through the ModelConfig switches
+(GQA/SWA attention, MoE every-k, Mamba/RWKV6 mixers, enc-dec,
+modality-frontend stubs). Layers of one kind are STACKED (params with a
+leading (n_units,) dim, per position of the repeating unit), so weights
+carry across from the reference unchanged; a Python loop over units
+replaces ``lax.scan``, all units of position 0 first, then position 1, and
+so on, as the reference's grouped scan runs them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.common import (COMPUTE_DTYPE, Params, dense_init,
                                        embed_init, unstack)
 
@@ -64,32 +64,29 @@ def plan_for(cfg: ModelConfig) -> LayerPlan:
     return LayerPlan(period, tuple(mixers), tuple(mlps))
 
 
-def check_ported(cfg: ModelConfig) -> LayerPlan:
-    """The config's plan; raises NotImplementedError naming ROADMAP A8b if
-    a position of its unit needs a Mamba or RWKV6 mixer."""
-    plan = plan_for(cfg)
-    for mixer in plan.mixers:
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: " + L.A8B.format(mixer))
-    return plan
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 def _init_layers(generator: torch.Generator, cfg: ModelConfig, mixer: str,
                  mlp: str, n: int) -> Dict[str, Any]:
     """``n`` layers of one kind, stacked over a leading (n,) dim."""
-    assert mixer == "attn", mixer
     dev, lead = generator.device, (n,)
     p: Dict[str, Any] = {"norm1": L.init_rms_norm(cfg.d_model, dev, lead),
-                         "norm2": L.init_rms_norm(cfg.d_model, dev, lead),
-                         "attn": L.init_attention(generator, cfg, lead)}
+                         "norm2": L.init_rms_norm(cfg.d_model, dev, lead)}
+    if mixer == "attn":
+        p["attn"] = L.init_attention(generator, cfg, lead)
+    elif mixer == "mamba":
+        p["mamba"] = S.init_mamba(generator, cfg, lead)
+    elif mixer == "rwkv6":
+        p["rwkv"] = S.init_rwkv6(generator, cfg, lead)
+    else:
+        raise ValueError(mixer)
     if mlp == "dense":
         p["mlp"] = L.init_mlp(generator, cfg, lead=lead)
     elif mlp == "moe":
         p["moe"] = L.init_moe(generator, cfg, lead)
+    elif mlp == "rwkv_cmix":
+        p["cmix"] = S.init_rwkv6_channel_mix(generator, cfg, lead)
     else:
         raise ValueError(mlp)
     return p
@@ -100,7 +97,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
     reference's names and shapes: per-kind layer params stacked over
     units, the encoder's over its layers, the cross-attention's over the
     decoder's layers."""
-    plan = check_ported(cfg)
+    plan = plan_for(cfg)
     n_units = cfg.n_layers // plan.period
     dev = generator.device
     params: Dict[str, Any] = {
@@ -130,33 +127,64 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Caches
+# Caches / recurrent state
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=COMPUTE_DTYPE, device=None) -> Params:
-    """Decode state for the whole stack, shaped like ``units`` (stacked):
-    one {"k", "v", "pos"} a position of the unit, empty slots at pos -1."""
-    plan = check_ported(cfg)
-    n_units = cfg.n_layers // plan.period
-    return [L.init_attention_cache(cfg, batch, max_len, dtype, device,
-                                   lead=(n_units,))
-            for _ in range(plan.period)]
+    """Decode state for the whole stack, shaped like ``units`` (stacked), a
+    position of the unit each: attention {"k", "v", "pos"} (empty slots at
+    pos -1), mamba {"conv", "ssm"}, rwkv6 {"wkv", "x_prev", "cmix_prev"}
+    (the channel mix's token shift beside the time mix's state)."""
+    plan = plan_for(cfg)
+    lead = (cfg.n_layers // plan.period,)
+    states = []
+    for mixer in plan.mixers:
+        if mixer == "attn":
+            states.append(L.init_attention_cache(cfg, batch, max_len, dtype,
+                                                 device, lead=lead))
+        elif mixer == "mamba":
+            states.append(S.init_mamba_state(cfg, batch, dtype, device,
+                                             lead))
+        else:
+            st = S.init_rwkv6_state(cfg, batch, dtype, device, lead)
+            st["cmix_prev"] = torch.zeros(lead + (batch, cfg.d_model),
+                                          dtype=dtype, device=device)
+            states.append(st)
+    return states
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def _unit_forward(layer_p, x, positions, cfg, mlp, state=None,
+def _unit_forward(layer_p, x, positions, cfg, mixer, mlp, state=None,
                   cache_pos=None, memory=None, xattn_p=None,
                   collect=False):
-    """One layer: pre-norm attention + pre-norm dense or MoE MLP (+ optional
-    cross-attention); the callers have checked the plan (``check_ported``).
-    Returns (x, new_state). With collect=True (full-sequence prefill),
-    new_state carries the post-RoPE K/V that seed the decode cache."""
+    """One layer: pre-norm mixer + pre-norm MLP (+ optional
+    cross-attention). Returns (x, new_state). With collect=True
+    (full-sequence prefill), new_state carries cache-seeding data: the
+    post-RoPE K/V for attention, the final recurrent state for
+    mamba / rwkv6. With a ``state`` (decode), attention writes its cache in
+    place and returns it; mamba / rwkv6 return new state tensors."""
     h = L.rms_norm(x, layer_p["norm1"], cfg.norm_eps)
-    out, new_state = L.attention_block(
-        layer_p["attn"], h, positions, cfg, cache=state,
-        cache_pos=cache_pos, collect_kv=collect)
+    new_state = state
+    if mixer == "attn":
+        out, new_state = L.attention_block(
+            layer_p["attn"], h, positions, cfg, cache=state,
+            cache_pos=cache_pos, collect_kv=collect)
+    elif mixer == "mamba":
+        if state is None:
+            out, st = S.mamba_scan(layer_p["mamba"], h, cfg)
+            new_state = st if collect else None
+        else:
+            out, new_state = S.mamba_step(layer_p["mamba"], h, cfg, state)
+    else:  # rwkv6
+        tm_state = None if state is None else {
+            "wkv": state["wkv"], "x_prev": state["x_prev"]}
+        out, tm_new = S.rwkv6_scan(layer_p["rwkv"], h, cfg, tm_state)
+        if state is not None:
+            new_state = {**state, **tm_new}
+        elif collect:
+            new_state = tm_new
     x = x + out
 
     if memory is not None and xattn_p is not None:
@@ -168,8 +196,14 @@ def _unit_forward(layer_p, x, positions, cfg, mlp, state=None,
     h = L.rms_norm(x, layer_p["norm2"], cfg.norm_eps)
     if mlp == "dense":
         x = x + L.mlp_block(layer_p["mlp"], h, cfg)
-    else:
+    elif mlp == "moe":
         x = x + L.moe_block(layer_p["moe"], h, cfg)
+    else:  # rwkv channel mix
+        prev = None if state is None else state["cmix_prev"]
+        out, cmix_prev = S.rwkv6_channel_mix(layer_p["cmix"], h, prev)
+        x = x + out
+        if new_state is not None:
+            new_state = {**new_state, "cmix_prev": cmix_prev}
     return x, new_state
 
 
@@ -221,19 +255,25 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
-            collect: bool = False):
+            collect: bool = False, remat: bool = False):
     """Full-sequence forward (train / prefill). Returns the final hidden
-    (B, T, d) in bf16; with collect=True also the per-unit post-RoPE K/V
-    stacks ({"k", "v"}: (n_units, B, T, Hkv, hd)) that seed the decode
-    caches.
+    (B, T, d) in bf16; with collect=True also the per-unit cache seeds a
+    position of the unit, stacked over units: the post-RoPE K/V ({"k",
+    "v"}: (n_units, B, T, Hkv, hd)) of attention, the final states of
+    mamba / rwkv6 (``init_cache``'s layouts).
 
     positions       : consecutive (default ``arange(T)``): RoPE reads them,
                       and row 8's masks are index masks.
     frontend_embeds : (B, n_frontend_tokens, d_model) precomputed patch /
                       frame embeddings (VLM stub), prepended to the tokens.
     encoder_embeds  : (B, S_src, d_model) for enc-dec archs.
+    remat           : rematerialize each layer in the backward (the
+                      reference's train memory policy): its body runs
+                      under ``torch.utils.checkpoint`` while autograd
+                      records, so the backward runs its forward again (row
+                      8 included).
     """
-    plan = check_ported(cfg)
+    plan = plan_for(cfg)
     n_units = cfg.n_layers // plan.period
     # cast the table BEFORE the gather, as the reference does, so the
     # table's gradient accumulates where the reference's does
@@ -249,21 +289,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     memory_kv = _memory(params, cfg, encoder_embeds)
     xattn = (unstack(params["cross_attn"], n_units) if memory_kv is not None
              else None)
+    run = _unit_forward
+    if remat and torch.is_grad_enabled():
+        run = functools.partial(checkpoint, _unit_forward,
+                                use_reentrant=False, preserve_rng_state=False)
     extras = []
     for pos in range(plan.period):
-        mlp = plan.mlps[pos]
+        mixer, mlp = plan.mixers[pos], plan.mlps[pos]
         collected = []
         for u, layer_p in enumerate(unstack(params["units"][pos], n_units)):
             mem = ((memory_kv[0][u], memory_kv[1][u])
                    if memory_kv is not None else None)
-            x, ex = _unit_forward(layer_p, x, positions, cfg, mlp,
-                                  memory=mem,
-                                  xattn_p=xattn[u] if xattn else None,
-                                  collect=collect)
+            x, ex = run(layer_p, x, positions, cfg, mixer, mlp, memory=mem,
+                        xattn_p=xattn[u] if xattn else None, collect=collect)
             collected.append(ex)
         if collect:
             extras.append({n: torch.stack([ex[n] for ex in collected])
-                           for n in ("k", "v")})
+                           for n in collected[0]})
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if collect:
         return hidden, extras
@@ -272,12 +314,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def caches_from_prefill(cfg: ModelConfig, extras, prompt_len: int,
                         max_len: int, dtype=COMPUTE_DTYPE) -> Params:
-    """``forward(collect=True)`` extras -> decode caches: the post-RoPE
-    prompt K/V scattered into (ring) cache buffers in one bulk write a
-    position of the unit (the parallel-prefill path)."""
-    plan = check_ported(cfg)
+    """``forward(collect=True)`` extras -> decode caches. Attention: the
+    post-RoPE prompt K/V scattered into (ring) cache buffers in one bulk
+    write a position of the unit (the parallel-prefill path). Mamba /
+    rwkv6: the final recurrent state IS the cache."""
+    plan = plan_for(cfg)
     caches = []
     for pos in range(plan.period):
+        if plan.mixers[pos] != "attn":
+            caches.append(extras[pos])
+            continue
         k, v = extras[pos]["k"], extras[pos]["v"]   # (U, B, T, Hkv, hd)
         U, B, T, Hkv, hd = k.shape
         S = max_len
@@ -299,9 +345,10 @@ def forward_with_state(params: Params, cfg: ModelConfig,
                        tokens: torch.Tensor, caches: Params, cache_pos,
                        memory_kv=None) -> Tuple[torch.Tensor, Params]:
     """Single-token decode step. tokens: (B, 1); ``cache_pos`` the token's
-    position (an int). Writes its K/V into ``caches`` in place and returns
-    (hidden (B, 1, d), caches)."""
-    plan = check_ported(cfg)
+    position (an int). Updates ``caches`` in place (attention writes its
+    K/V there; each mamba / rwkv6 layer's new state is copied over its
+    old) and returns (hidden (B, 1, d), caches)."""
+    plan = plan_for(cfg)
     n_units = cfg.n_layers // plan.period
     # gather, then cast: the reference's order on this path
     x = F.embedding(tokens, params["embed"]).to(COMPUTE_DTYPE)
@@ -310,14 +357,18 @@ def forward_with_state(params: Params, cfg: ModelConfig,
     xattn = (unstack(params["cross_attn"], n_units)
              if cfg.is_encoder_decoder and memory_kv is not None else None)
     for pos in range(plan.period):
-        mlp = plan.mlps[pos]
-        states = unstack(caches[pos], n_units)
+        mixer, mlp = plan.mixers[pos], plan.mlps[pos]
+        states = unstack(caches[pos], n_units)     # views of the stacks
         for u, layer_p in enumerate(unstack(params["units"][pos], n_units)):
             mem = ((memory_kv[0][u], memory_kv[1][u])
                    if xattn is not None else None)
-            x, _ = _unit_forward(layer_p, x, positions, cfg, mlp,
-                                 state=states[u], cache_pos=cp, memory=mem,
-                                 xattn_p=xattn[u] if xattn else None)
+            x, new = _unit_forward(layer_p, x, positions, cfg, mixer, mlp,
+                                   state=states[u], cache_pos=cp,
+                                   memory=mem,
+                                   xattn_p=xattn[u] if xattn else None)
+            if mixer != "attn":
+                for name, t in new.items():
+                    states[u][name].copy_(t)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 

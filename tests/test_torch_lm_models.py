@@ -1,6 +1,7 @@
 """The port's LM stacks (``repro_torch.models.transformer`` / ``lm``) against
-the JAX reference, for each of the eight attention architectures at
-``reduced()``, on the reference's params carried across through
+the JAX reference, for each of the ten architectures at ``reduced()`` (the
+eight attention ones, rwkv6's RWKV6 stack and jamba's Mamba + attention
+hybrid), on the reference's params carried across through
 ``repro_torch.convert``; the counterparts of tests/test_models.py and
 tests/test_decode_equivalence.py.
 
@@ -16,6 +17,18 @@ fp32 (``COMPUTE_DTYPE`` patched in both packages) agree to ~6e-7 of the
 norm and are held at 1e-4: what differs in bf16 is rounding. A greedy
 token must equal the reference's wherever the reference's top-2 logit
 margin exceeds the logits' tolerance. Cache slots' positions are exact.
+
+The SSM archs in bf16. rwkv6 (2 RWKV6 layers) and jamba (16 layers, 14
+Mamba, MoE on 8) are worse conditioned at ``reduced()``: the reference's
+own bf16 forward lies 14-18 bf16 ulps of the scale and 2.2-3.5% of the
+norm from its fp32 forward (rwkv6), 37-100 ulps and 8.7-16% (jamba: a
+top-2 routing near-tie flips, and each layer amplifies what differs), so
+the attention archs' 8 ulps and 2% sit below the reference's own rounding.
+The port's bf16 forward of these archs is held to the fp32 forward
+instead: no further from it than ``TRUTH_FACTOR`` times the reference's
+bf16 forward is (measured 0.92-1.32x elementwise, 0.99-1.15x in norm,
+with the Mamba gate in fp32 as XLA runs it: ``test_torch_lm_train``'s
+module doc); the algorithm is held in fp32 at 1e-4, as for every arch.
 """
 import dataclasses
 
@@ -30,7 +43,6 @@ from repro.models import lm as JLM
 from repro.models import transformer as JT
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.convert import params_from_jax_numpy
-from repro_torch.engine import Engine
 from repro_torch.models import lm as LM
 from repro_torch.models import transformer as T
 from repro_torch.models.common import count_params
@@ -38,7 +50,9 @@ from repro_torch.models.common import count_params
 ATTN_ARCHS = ["command-r-plus-104b", "deepseek-7b", "h2o-danube-3-4b",
               "internlm2-1.8b", "internvl2-26b",
               "llama4-maverick-400b-a17b", "mixtral-8x7b", "whisper-base"]
-A8B_ARCHS = ["jamba-1.5-large-398b", "rwkv6-3b"]
+SSM_ARCHS = ["jamba-1.5-large-398b", "rwkv6-3b"]
+LM_ARCHS = ATTN_ARCHS + SSM_ARCHS
+TRUTH_FACTOR = 2.0
 BF16_ULPS = 8
 BF16_REL = 2e-2
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -129,6 +143,19 @@ def greedy_agrees(got_tokens, ref_logits, vocab, tol):
     return int(sure.sum())
 
 
+def close_caches(got, want, what):
+    """Decode caches a position of the unit: slot positions exact, K/V and
+    recurrent states at the bf16 tolerance."""
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        assert set(g) == set(w), (what, set(g), set(w))
+        for n in g:
+            if n == "pos":
+                np.testing.assert_array_equal(f32(g[n]), f32(w[n]))
+            else:
+                close_bf16(g[n], w[n], f"{what} {n}")
+
+
 def tree_shapes(tree, path=""):
     """{key path: shape} in JAX's keystr form."""
     if isinstance(tree, dict):
@@ -141,7 +168,7 @@ def tree_shapes(tree, path=""):
 
 
 # ------------------------------------------------------------ params
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_param_tree_names_and_shapes_match_reference(arch):
     """``init_model``'s tree (stacked units, encoder, cross-attention,
     frontend) has the reference's key paths and shapes, fp32, and the
@@ -176,17 +203,6 @@ def test_param_counts_of_the_full_configs():
     assert registry.get_shape("decode_32k") == registry.SHAPES["decode_32k"]
 
 
-@pytest.mark.parametrize("arch", A8B_ARCHS)
-def test_ssm_archs_raise_naming_a8b(arch):
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="A8b"):
-        T.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        T.forward({}, cfg, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Engine(ARCHS[arch], device="cpu")
-
-
 # ------------------------------------------------------------ forward
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_forward_hidden_and_logits_match_reference(arch):
@@ -208,7 +224,42 @@ def test_forward_hidden_and_logits_match_reference(arch):
     close_bf16(lt, lj, "logits", ulps=2)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def as_close_to_fp32(got, want, truth, what, factor=TRUTH_FACTOR):
+    """bf16 ``got`` (the port) no further from the fp32 ``truth`` than
+    ``factor`` times the reference's bf16 ``want`` is: elementwise (max)
+    and in norm."""
+    g, w, t = f32(got), f32(want), f32(truth)
+    assert g.shape == w.shape == t.shape, what
+    assert np.abs(g - t).max() <= factor * np.abs(w - t).max(), (
+        what, np.abs(g - t).max(), np.abs(w - t).max())
+    assert (np.linalg.norm(g - t) <= factor * np.linalg.norm(w - t)), what
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_forward_in_bf16_is_as_close_to_fp32_as_the_reference(
+        arch, monkeypatch):
+    """rwkv6 and jamba in bf16: hidden and logits no further from the
+    reference's fp32 forward than twice the reference's bf16 forward is
+    (module doc); the head on the reference's hidden at the bf16
+    tolerance, as for the attention archs."""
+    jc, tc = cfgs(arch)
+    jp, _, tp = shared_params(arch)
+    toks, _, _, _ = batch_inputs(tc, 2, 16)
+    hj = JT.forward(jp, jc, jnp.asarray(toks))
+    ht = T.forward(tp, tc, torch.from_numpy(toks))
+    assert ht.shape == (2, 16, tc.d_model) and ht.dtype == torch.bfloat16
+    lj = JT.logits_from_hidden(jp, jc, hj)
+    lt = T.logits_from_hidden(tp, tc, ht)
+    monkeypatch.setattr(JT, "COMPUTE_DTYPE", jnp.float32)
+    h32 = JT.forward(jp, jc, jnp.asarray(toks))
+    as_close_to_fp32(ht, hj, h32, "hidden")
+    as_close_to_fp32(lt, lj, JT.logits_from_hidden(jp, jc, h32), "logits")
+    lt = T.logits_from_hidden(tp, tc,
+                              torch.from_numpy(f32(hj).copy()).bfloat16())
+    close_bf16(lt, lj, "logits on the reference's hidden", ulps=2)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_forward_in_fp32_matches_reference(arch, monkeypatch):
     """The same forward with the compute dtype fp32 in both packages: the
     algorithm (RoPE pairs, masks, GQA grouping, MoE routing, enc-dec
@@ -225,7 +276,7 @@ def test_forward_in_fp32_matches_reference(arch, monkeypatch):
 
 
 # ------------------------------------------------------- prefill, decode
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + ["rwkv6-3b"])
 def test_prefill_and_decode_match_reference(arch):
     """The parallel prefill's caches (pos exact, K/V at the bf16
     tolerance) and next token, then decode steps (row 9 a layer) fed the
@@ -238,11 +289,7 @@ def test_prefill_and_decode_match_reference(arch):
         jp, {"tokens": jnp.asarray(toks), **jkw})
     tcaches, tnext = LM.make_prefill_step(tc, max_len)(
         tp, {"tokens": torch.from_numpy(toks), **tkw})
-    for jcache, tcache in zip(jcaches, tcaches):
-        np.testing.assert_array_equal(tcache["pos"].numpy(),
-                                      np.asarray(jcache["pos"]))
-        for n in ("k", "v"):
-            close_bf16(tcache[n], jcache[n], f"cache {n}")
+    close_caches(tcaches, jcaches, "prefill cache")
     hj = jax.jit(JT.forward, static_argnums=(1,))(jp, jc, jnp.asarray(toks),
                                                    **jkw)
     lj = JT.logits_from_hidden(jp, jc, hj[:, -1:])
@@ -275,9 +322,45 @@ def test_prefill_and_decode_match_reference(arch):
         tok = np.asarray(jnp.argmax(lj[:, 0, :jc.vocab_size], -1))
 
 
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_prefill_and_decode_in_fp32_match_reference(arch, monkeypatch):
+    """rwkv6's and jamba's prefill (the SSM states are the caches; jamba's
+    attention K/V scattered into fp32 caches) and its last logits, then
+    decode steps fed the same tokens, with the compute dtype fp32 in both
+    packages: caches, hidden and logits at 1e-4."""
+    monkeypatch.setattr(JT, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(T, "COMPUTE_DTYPE", torch.float32)
+    jc, tc = cfgs(arch, drop=False)
+    jp, _, tp = shared_params(arch)
+    toks = batch_inputs(tc, 2, 12, seed=1)[0]
+    hj, ej = JT.forward(jp, jc, jnp.asarray(toks), collect=True)
+    ht, et = T.forward(tp, tc, torch.from_numpy(toks), collect=True)
+    jcaches = JT.caches_from_prefill(jc, ej, 12, 24, dtype=jnp.float32)
+    tcaches = T.caches_from_prefill(tc, et, 12, 24, dtype=torch.float32)
+    lj = JT.logits_from_hidden(jp, jc, hj[:, -1:])
+    np.testing.assert_allclose(
+        f32(T.logits_from_hidden(tp, tc, ht[:, -1:])), f32(lj), **F32)
+    tok = np.asarray(jnp.argmax(lj[:, 0, :jc.vocab_size], -1))
+    for i in range(4):
+        for jc_, tc_ in zip(jcaches, tcaches):
+            assert set(jc_) == set(tc_)
+            for n in tc_:
+                np.testing.assert_allclose(f32(tc_[n]), f32(jc_[n]),
+                                           err_msg=f"step {i} {n}", **F32)
+        if i == 3:
+            break
+        hj, jcaches = JT.forward_with_state(
+            jp, jc, jnp.asarray(tok)[:, None], jcaches, jnp.asarray(12 + i))
+        ht, tcaches = T.forward_with_state(
+            tp, tc, torch.from_numpy(tok.copy())[:, None], tcaches, 12 + i)
+        np.testing.assert_allclose(f32(ht), f32(hj), **F32)
+        tok = np.asarray(jnp.argmax(
+            JT.logits_from_hidden(jp, jc, hj)[:, 0, :jc.vocab_size], -1))
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b",
                                   "deepseek-7b", "mixtral-8x7b",
-                                  "whisper-base"])
+                                  "whisper-base", *SSM_ARCHS])
 def test_token_by_token_decode_matches_forward(arch):
     """decode == full forward within the port: each position's hidden from
     the cached path (row 9) against the full forward's (row 8), T = 20 past
@@ -302,7 +385,7 @@ def test_token_by_token_decode_matches_forward(arch):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", *SSM_ARCHS])
 def test_parallel_prefill_then_decode_greedy(arch):
     """Greedy continuation from the parallel prefill equals greedy from the
     full forward at every generated position (where the margin is clear);
@@ -314,9 +397,7 @@ def test_parallel_prefill_then_decode_greedy(arch):
     caches, cur = LM.make_prefill_step(tc, max_len=24)(tp, {"tokens": toks})
     hid, serial = LM.prefill_into_cache(tp, tc, toks,
                                         T.init_cache(tc, 2, 24))
-    for a, b in zip(caches, serial):
-        np.testing.assert_array_equal(a["pos"].numpy(), b["pos"].numpy())
-        close_bf16(a["k"], b["k"], "serial prefill k")
+    close_caches(caches, serial, "serial prefill")
     decode = LM.make_decode_step(tc)
     seq = toks
     sure = 0

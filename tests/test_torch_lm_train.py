@@ -1,6 +1,7 @@
 """The port's LM training path against the JAX reference: chunked
-cross-entropy, loss and grads of one train step for each attention arch,
-the optimizers and the cosine schedule, the LM batch's chain rule, the
+cross-entropy, loss and grads of one train step for each of the ten archs
+(with and without ``forward(remat=True)``), rwkv6's AdamW steps at full
+width, the optimizers and the cosine schedule, the LM batch's chain rule, the
 carried-across optimizer state, then (within the port) the session, its
 checkpoint-resume, ``Engine``'s LM errors and the launcher.
 
@@ -18,10 +19,26 @@ Tolerances, each set beforehand from the dtype:
     twice the forward's 8 ulps and 2%). A leaf whose gradient is below
     1e-7 of the global grad norm is round-off in both packages and is held
     to that floor instead: llama4's top-1 router, whose gate renormalises
-    to exactly 1.
+    to exactly 1. The SSM archs in bf16 are held to the fp32 grads instead
+    (``test_torch_lm_models``' module doc): no further from them than
+    ``TRUTH_FACTOR`` times the reference's bf16 grads are, over the whole
+    grad (every leaf flattened: its largest element and its norm) and,
+    for rwkv6, each leaf (measured 0.6-0.93x). jamba's leaves one by one
+    are chaotic at ``reduced()`` (a top-2 near-tie, 16 layers): over batch
+    seeds 5-8 its worst leaf lies 1.06-3.81x the reference's distance
+    while the whole grad lies 0.76-1.10x, so jamba holds the whole grad
+    and its median leaf (seed 5: 0.95x and 0.96x). XLA keeps fp32 where
+    it drops a round trip through bf16: with
+    ``--xla_allow_excess_precision=false`` the reference's own bf16 grads
+    lie further from fp32. The Mamba gate rounded apart (y, silu(z) and
+    their product each in bf16) left jamba's median leaf at 2.3x the
+    reference's distance, so the port computes the gate in fp32 and
+    rounds once, as XLA runs the reference's.
 Params are not compared after an AdamW step: at step 1 m^/sqrt(v^) is +-1
 per element, so the sign of a near-zero bf16 grad decides it.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +61,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import tree_leaves
 from repro_torch.optim import optimizers as O
 
-from test_torch_lm_models import (ATTN_ARCHS, batch_inputs, cfgs,
+from test_torch_lm_models import (ATTN_ARCHS, LM_ARCHS, SSM_ARCHS,
+                                  TRUTH_FACTOR, batch_inputs, cfgs,
                                   shared_params)
 
 GRAD_ULPS = 16
@@ -94,15 +112,37 @@ def test_chunked_cross_entropy_matches_reference(arch, chunk, fp32_compute):
 
 
 # ---------------------------------------------------- loss and grads
-def _grads_both(arch):
+def _remat_loss_fn(cfg, remat):
+    """``make_loss_fn``'s loss over ``forward(remat=remat)``, in the
+    package of ``T_`` / ``LM_``."""
+    def make(T_, LM_):
+        def loss_fn(params, batch):
+            hidden = T_.forward(params, cfg, batch["tokens"],
+                                encoder_embeds=batch.get("encoder_embeds"),
+                                remat=remat)
+            return LM_.chunked_cross_entropy(params, cfg, hidden,
+                                             batch["labels"])
+        return loss_fn
+    return make
+
+
+def _grads_both(arch, remat=None):
+    """(reference loss, port loss, leaf paths, reference grads, port grads,
+    the port's global grad norm); with ``remat`` set, both through
+    ``forward(remat=remat)``."""
     jc, tc = cfgs(arch)
     jp, _, tp = shared_params(arch)
     toks, labels, jkw, tkw = batch_inputs(tc, 2, 17, seed=5)
     jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels), **jkw}
     tb = {"tokens": torch.from_numpy(toks),
           "labels": torch.from_numpy(labels), **tkw}
-    lj, gj = jax.jit(jax.value_and_grad(JLM.make_loss_fn(jc)))(jp, jb)
-    lt, gt = LM.value_and_grad(LM.make_loss_fn(tc), tp, tb)
+    if remat is None:
+        jloss, tloss = JLM.make_loss_fn(jc), LM.make_loss_fn(tc)
+    else:
+        jloss = _remat_loss_fn(jc, remat)(JT, JLM)
+        tloss = _remat_loss_fn(tc, remat)(T, LM)
+    lj, gj = jax.jit(jax.value_and_grad(jloss))(jp, jb)
+    lt, gt = LM.value_and_grad(tloss, tp, tb)
     paths = [jax.tree_util.keystr(p) for p, _ in
              jax.tree_util.tree_flatten_with_path(gj)[0]]
     return (float(lj), float(lt), paths,
@@ -110,7 +150,7 @@ def _grads_both(arch):
             [x.numpy() for x in tree_leaves(gt)], float(LM.global_norm(gt)))
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_loss_and_grads_in_fp32_match_jax_value_and_grad(arch,
                                                          fp32_compute):
     lj, lt, paths, gj, gt, gnorm = _grads_both(arch)
@@ -132,6 +172,71 @@ def test_loss_and_grads_of_the_bf16_step_match_jax_value_and_grad(arch):
             path, err, np.abs(w).max())
         assert (np.linalg.norm(g - w)
                 <= GRAD_REL * np.linalg.norm(w) + floor), path
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_bf16_grads_are_as_close_to_fp32_as_the_reference(arch,
+                                                              monkeypatch,
+                                                              capsys):
+    """rwkv6 and jamba, the bf16 step as the model runs it: the loss and
+    the grads no further from the reference's fp32 ones than twice the
+    reference's bf16 ones are (module doc): the whole grad's largest
+    element and norm; then each leaf for rwkv6 (elementwise max and norm;
+    a leaf below the round-off floor of the global norm is held to the
+    floor), the median leaf's norm for jamba. The loss is held to one bf16
+    ulp of it if the reference's bf16 loss is closer."""
+    lj, lt, paths, gj, gt, gnorm = _grads_both(arch)
+    for mod, dt in ((JT, jnp.float32), (JLM, jnp.float32)):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", dt)
+    l32, _, _, g32, _, _ = _grads_both(arch)
+    # a scalar: the reference's own error, floored at one bf16 ulp of it
+    assert abs(lt - l32) <= TRUTH_FACTOR * max(abs(lj - l32),
+                                               2 ** -8 * abs(l32)), (
+        lt, lj, l32)
+
+    def flat(leaves):
+        return np.concatenate([x.ravel() for x in leaves])
+    g, w, t = flat(gt), flat(gj), flat(g32)
+    assert np.abs(g - t).max() <= TRUTH_FACTOR * np.abs(w - t).max(), (
+        np.abs(g - t).max(), np.abs(w - t).max())
+    assert np.linalg.norm(g - t) <= TRUTH_FACTOR * np.linalg.norm(w - t), (
+        np.linalg.norm(g - t), np.linalg.norm(w - t))
+    floor = ROUND_OFF * gnorm
+    ratios = [np.linalg.norm(g - t) / (np.linalg.norm(w - t) + floor)
+              for w, g, t in zip(gj, gt, g32)]
+    whole = np.linalg.norm(g - t) / np.linalg.norm(w - t)
+    largest = np.abs(g - t).max() / np.abs(w - t).max()
+    with capsys.disabled():
+        print(f"\n[{arch} bf16 grads] distance from fp32 over the "
+              f"reference's: whole grad {whole:.2f}x (largest element "
+              f"{largest:.2f}x), median leaf {np.median(ratios):.2f}x, "
+              f"worst leaf {max(ratios):.2f}x")
+    if arch == "jamba-1.5-large-398b":
+        assert np.median(ratios) <= TRUTH_FACTOR, np.median(ratios)
+        return
+    for path, w, g, t in zip(paths, gj, gt, g32):
+        assert (np.abs(g - t).max()
+                <= TRUTH_FACTOR * np.abs(w - t).max() + floor), path
+        assert (np.linalg.norm(g - t)
+                <= TRUTH_FACTOR * np.linalg.norm(w - t) + floor), path
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-base",
+                                  *SSM_ARCHS])
+def test_remat_grads_equal_plain_and_reference(arch, fp32_compute):
+    """``forward(remat=True)`` (each layer under ``torch.utils.checkpoint``;
+    whisper's cross-attention and jamba's attention recompute row 8): the
+    loss and grads equal ``remat=False``'s bitwise, and the reference's
+    ``forward(remat=True)``'s at the fp32 tolerances."""
+    lj, lt, paths, gj, gt, gnorm = _grads_both(arch, remat=True)
+    _, lt0, _, _, gt0, _ = _grads_both(arch, remat=False)
+    assert lt == lt0
+    for path, a, b in zip(paths, gt, gt0):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    np.testing.assert_allclose(lt, lj, rtol=1e-5)
+    for path, w, g in zip(paths, gj, gt):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=max(
+            1e-4 * np.abs(w).max(), ROUND_OFF * gnorm), err_msg=path)
 
 
 def test_train_step_updates_in_place_and_reports_the_grad_norm():
@@ -156,6 +261,44 @@ def test_train_step_updates_in_place_and_reports_the_grad_norm():
     assert new["params"]["units"][0]["attn"]["wq"] is wq
     assert not torch.equal(wq, before) and int(new["step"]) == 1
     assert int(new["opt"]["count"]) == 1
+
+
+def test_rwkv6_adamw_steps_at_full_width_match_reference(fp32_compute,
+                                                         capsys):
+    """rwkv6-3b at its full width (d 2,560, 40 heads of 64, ff 8,960, the
+    decay LoRA of 160), the depth cut to 1 and the vocab to 512: four
+    ``make_train_step`` AdamW steps at a constant 3e-4 on the reference's
+    params and batches, each step's loss within 1e-5 and global grad norm
+    within 1e-4 of the reference's (measured 2e-6 and 3.1e-5). At this
+    width both losses rise step after step on fresh batches (8.2026 ->
+    9.4799), as the port's full-depth loss does on the card once the
+    warmup brings the lr near 3e-4."""
+    jc = dataclasses.replace(JAX_ARCHS["rwkv6-3b"], n_layers=1,
+                             vocab_size=512)
+    tc = dataclasses.replace(ARCHS["rwkv6-3b"], n_layers=1, vocab_size=512)
+    jp = JT.init_model(jax.random.PRNGKey(0), jc)
+    tp = params_from_jax_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    jopt, topt = JO.adamw(3e-4), O.adamw(3e-4)
+    js = {"params": jp, "opt": jopt.init(jp), "step": jnp.zeros((), jnp.int32)}
+    ts = {"params": tp, "opt": topt.init(tp),
+          "step": torch.zeros((), dtype=torch.int32)}
+    jstep = jax.jit(JLM.make_train_step(jc, jopt), donate_argnums=(0,))
+    tstep = LM.make_train_step(tc, topt)
+    curve = []
+    for s in range(4):
+        jb = jax_data.make_lm_batch(jc, s, 0, 1, 17, 0.8)
+        js, jm = jstep(js, jb)
+        ts, tm = tstep(ts, {k: torch.from_numpy(np.array(v))
+                            for k, v in jb.items()})
+        want, got = float(jm["loss"]), float(tm["loss"])
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=str(s))
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4,
+                                   err_msg=str(s))
+        curve.append((want, got))
+    with capsys.disabled():
+        print(f"\n[rwkv6 full width, depth 1] losses (reference, port): "
+              f"{curve}")
 
 
 # ---------------------------------------------------------- optimizers
@@ -356,11 +499,36 @@ def test_train_launcher_lm_smoke(capsys):
     assert "first_loss=" in out and "last_loss=" in out
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_train_launcher_ssm_archs_raise_naming_a8b(arch):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        train_launcher.main(["--workload", "lm", "--arch", arch, "--smoke",
-                             "--device", "cpu", "--steps", "1"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_lm_session_trains_the_ssm_archs(arch):
+    """rwkv6 and jamba at ``reduced()`` take two AdamW steps through
+    ``Engine`` / ``LMTrainSession``: finite losses and grad norms, every
+    mixer's params moved."""
+    cfg = get_arch(arch).reduced()
+    sess = Engine(cfg, lr=3e-3, device="cpu").train_session(
+        batch=2, seq=9, schedule_steps=2)
+    assert isinstance(sess, LMTrainSession)
+    before = [x.clone() for x in tree_leaves(sess.params["units"])]
+    rep = sess.run(2)
+    assert rep.steps_run == 2 and int(sess.state["step"]) == 2
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in rep.history)
+    mixer = "mamba" if arch.startswith("jamba") else "rwkv"
+    moved = [not torch.equal(a, b) for a, b in
+             zip(tree_leaves(sess.params["units"]), before)]
+    assert all(moved), sum(moved)
+    assert mixer in sess.params["units"][0]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_train_launcher_trains_the_ssm_archs(arch, capsys):
+    rc = train_launcher.main(["--workload", "lm", "--arch", arch, "--smoke",
+                              "--device", "cpu", "--steps", "2", "--batch",
+                              "2", "--seq", "9"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert f"[train] lm {arch}-smoke: steps=2 (from 0)" in out
+    assert "first_loss=" in out and "last_loss=" in out
 
 
 def test_train_launcher_lm_cli_runs_and_needs_a_card_by_default(capsys):

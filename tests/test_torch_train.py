@@ -31,11 +31,10 @@ from repro.launch.mesh import make_host_mesh
 from repro.parallel import updates as jax_updates
 from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
-from repro_torch.configs import get_arch, get_dlrm
+from repro_torch.configs import get_dlrm
 from repro_torch.core import dlrm
 from repro_torch.core.planner import ShardingPlan, TablePlacement
 from repro_torch.engine import Engine
-from repro_torch.engine.training import LMTrainSession
 from repro_torch.launch import train as train_launcher
 from repro_torch.parallel import (PlannedTieredExchange, build_step,
                                   init_dlrm_opt_state, make_exchange,
@@ -470,10 +469,6 @@ def test_train_options_not_ported_raise():
     assert (type(ex).__name__, ex.mode) == ("RowWiseExchange", "unpooled")
     with pytest.raises(NotImplementedError, match="A6b"):
         init_dlrm_opt_state(cfg, "adagrad", n=2, device="cpu")
-    # the LM session is ported for the attention families (A8a); an arch
-    # that needs a Mamba or RWKV6 mixer still raises, naming A8b
-    with pytest.raises(NotImplementedError, match="A8"):
-        LMTrainSession(get_arch("rwkv6-3b").reduced(), device="cpu")
 
 
 # -------------------------------------------------------------- sessions
@@ -679,13 +674,10 @@ def test_train_launcher_emits_deltas(every, steps, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--workload", "lm", "--arch", "rwkv6-3b"], "A8"),
-    (["--compress-grads"], "A6b"), (["--model-axis", "2"], "A6b"),
-    (["--workload", "lm", "--arch", "jamba-1.5-large-398b", "--seq", "64"],
-     "A8")])
+    (["--compress-grads"], "A6b"), (["--model-axis", "2"], "A6b")])
 def test_train_launcher_flags_not_ported_raise(flag, item):
-    """--workload lm trains the attention families (A8a); the archs that
-    need a Mamba or RWKV6 mixer raise, naming A8b."""
+    """The distributed flags raise, naming A6b (every LM arch trains:
+    ``test_torch_lm_train``)."""
     with pytest.raises(NotImplementedError, match=item):
         train_launcher.main(["--device", "cpu", "--smoke", *flag])
 
