@@ -1,0 +1,107 @@
+"""Benchmark driver of the port: one section per paper table/figure and
+per bench ported so far (``benchmarks/run.py``'s sections, less those
+still to port).
+
+    PYTHONPATH=src python -m benchmarks_torch.run [--only NAME]
+        [--emit-json] [--device cpu] [--reduced] [--out-dir DIR]
+
+The figures are the perf model's and run anywhere. The benches run on the
+card, at full width, unless ``--device cpu`` (their plain versions on the
+host) or ``--reduced`` (the reference's sizes) say otherwise;
+``--device``, ``--reduced`` and ``--out-dir`` pass through to every bench
+section.
+"""
+import argparse
+import sys
+import time
+
+from benchmarks_torch import (bench_engine_serve, bench_pipeline,
+                              bench_tiered_embedding, fig6_membw,
+                              fig8_inference, fig9_latency, fig10_sharding,
+                              fig11_training, fig12_13_phases, kernel_bench,
+                              table16_17_upper_bounds)
+
+# (name, main, the section's own arguments, whether it is a bench that
+# takes --device / --out-dir / --reduced)
+SECTIONS = [
+    ("fig6", fig6_membw.main, (), False),
+    ("fig8", fig8_inference.main, (), False),
+    ("fig9", fig9_latency.main, (), False),
+    ("fig10", fig10_sharding.main, (), False),
+    ("fig11", fig11_training.main, (), False),
+    ("fig12_13", fig12_13_phases.main, (), False),
+    ("table16_17", table16_17_upper_bounds.main, (), False),
+    ("kernels", kernel_bench.main, (), True),
+    ("tiered_embedding", bench_tiered_embedding.main, (), True),
+    ("engine_serve", bench_engine_serve.main, ("--queries", "80"), True),
+    ("pipeline", bench_pipeline.main, ("--tiny",), True),
+]
+
+# sections that can write a BENCH_torch_<name>.json artifact
+EMITS_JSON = {"kernels", "pipeline", "tiered_embedding", "engine_serve"}
+# sections with a model config that --reduced cuts to the reference's size
+# (tiered_embedding's defaults are the reference's already)
+REDUCES = {"kernels", "engine_serve", "pipeline"}
+
+
+def section_args(name: str, emit_json: bool, device=None, reduced=False,
+                 out_dir=None, extra=()) -> list:
+    """The argv a section's ``main`` gets from the driver."""
+    own = dict((n, a) for n, _, a, _ in SECTIONS)[name]
+    args = [*own, *extra]
+    if emit_json and name in EMITS_JSON:
+        args.append("--emit-json")
+    if device is not None:
+        args += ["--device", device]
+    if reduced and name in REDUCES:
+        args.append("--reduced")
+    if out_dir is not None:
+        args += ["--out-dir", out_dir]
+    return args
+
+
+def run_section(name: str, argv: list) -> int:
+    """Run one section with ``argv`` (a figure takes none); returns its
+    code: nonzero when a headline claim failed."""
+    fn, bench = next((f, b) for n, f, _, b in SECTIONS if n == name)
+    return (fn(argv) if bench else fn()) or 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--only", default=None,
+                   choices=[n for n, _, _, _ in SECTIONS], metavar="SECTION",
+                   help="run a single section; one of: "
+                        + ", ".join(n for n, _, _, _ in SECTIONS))
+    p.add_argument("--emit-json", action="store_true",
+                   help="sections that support it write their claims + "
+                        "scalars as BENCH_torch_<section>.json")
+    p.add_argument("--device", default=None,
+                   help="the benches' device (default: the card)")
+    p.add_argument("--reduced", action="store_true",
+                   help="the benches at the reference's sizes")
+    p.add_argument("--out-dir", default=None,
+                   help="where --emit-json writes (default build/bench/)")
+    args = p.parse_args(argv)
+    failed = []
+    for name, _, _, bench in SECTIONS:
+        if args.only and name != args.only:
+            continue
+        t0 = time.time()
+        print(f"{'='*72}\n== {name}\n{'='*72}")
+        rc = run_section(name, section_args(
+            name, args.emit_json, args.device, args.reduced, args.out_dir)
+            if bench else [])
+        # sections signal a failed headline claim with a nonzero return
+        if rc:
+            failed.append(name)
+        print(f"== {name} done in {time.time()-t0:.1f}s"
+              f"{' [FAILED]' if rc else ''}\n")
+    if failed:
+        print(f"sections with failed claims: {', '.join(failed)}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -272,7 +272,25 @@ Phases; any failure exits non-zero:
      held against a compact model; at the reduced config, host-tier
      serving and SGD training bitwise equal to plan="none" (under
      deterministic algorithms); the host link measured and served
-     through ``calibration=``. Peak device memory and host RSS printed.
+     through ``calibration=``. Peak device memory and host RSS printed;
+ 11. the port's benchmarks (``benchmarks_torch``, ROADMAP A9b), last,
+     through ``benchmarks_torch.run``'s sections with small settings and
+     the launch counts zeroed just before and read just after: the seven
+     figures of the perf model; ``kernels --emit-json`` (the nine kernels
+     at the reference's serve and attention shapes and at the main path's
+     shapes, the fused-vs-composed receipt, its ``kernel_times`` read by
+     ``core.calibration``, each main-path time held between phases 5-7's
+     device and CUDA-event times within 10%); ``tiered_embedding`` at 3
+     rounds;
+     ``engine_serve`` at full width, 32 queries a point, its peak under
+     the card's 80 GB; ``pipeline --tiny`` (depths 1, 2, 4, 8 of the
+     query's batch at n=1); then the examples ``quickstart``,
+     ``serve_sla`` and ``dlrm_train_100m``. Every artifact under
+     ``build/bench/`` must be well formed and from the card, and every
+     claim that is not a speed claim must hold; a speed claim that fails
+     on this card is printed as a measurement. The phase under
+     ``BENCH_PHASE_S``. Its launches are not the main path's: the kernels
+     line gives them apart, as ``bench_launches``.
 
 Each phase prints its peak device memory. Every profile of a flush or a
 training step keeps only whole traces (each device event a whole multiple
@@ -302,6 +320,17 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+# The bounds, the library yardsticks, the input sets and row 9's timed
+# lengths are the port's kernel bench's, so its table and this script's
+# count alike.
+from benchmarks_torch._artifacts import card_line  # noqa: E402
+from benchmarks_torch.kernel_bench import (  # noqa: E402
+    aligned_ids, attention_bound, bag_bound, cached_bag_bound,
+    cached_pairs_bound, cut, decode_bound, decode_lengths, fused_bound,
+    library_bag, library_cached, library_grouped, library_pairs,
+    library_version, pairs_bound, sdpa_attention, sdpa_attention_expanded,
+    sdpa_decode)
+
 CONFIG = "dlrm-rm2-small-unsharded"
 # Kernel vs plain version: fp32 allclose at the contract of the tests.
 # Inputs are drawn at the model's init scale (tables U(+-1/sqrt(R)),
@@ -323,11 +352,6 @@ ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # held to its own scale, ||got - want|| <= ATTN_ROW_TOL * ||want||. bf16
 # rounding of the output (and of P on the tensor cores) reads ~2e-3.
 ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, fp32
-# outside the tensor cores, and dense bf16 on the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
 # mixtral-8x7b (src/repro/configs/mixtral_8x7b.py) and the LM shape cells
 # prefill_32k and decode_32k (src/repro/configs/base.py:184-185).
 MIXTRAL = dict(Hq=32, Hkv=8, hd=128, window=4096)
@@ -538,19 +562,26 @@ HOST_TRAIN_SEED = 1
 HOST_TRAIN_STEPS = 4
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
+# Phase 11, the port's benchmarks: (section, its small settings after
+# benchmarks_torch.run's own), the claims that measure speed (printed,
+# not required, on this card), and the time the phase may take.
+BENCH_SECTIONS = (
+    ("fig6", ()), ("fig8", ()), ("fig9", ()), ("fig10", ()), ("fig11", ()),
+    ("fig12_13", ()), ("table16_17", ()), ("kernels", ()),
+    ("tiered_embedding", ("--rounds", "3")),
+    ("engine_serve", ("--queries", "32")), ("pipeline", ()))
+BENCH_SPEED_CLAIMS = {"fused_faster_than_composed", "tiered_speedup",
+                      "batching_frontier", "measured_overhead"}
+BENCH_PHASE_S = 90.0
+# The bench's main-path time of a kernel against phases 5-7's at its
+# shape: at least BENCH_AGREE times the phase's device time and at most
+# 1/BENCH_AGREE times its CUDA-event time (see ``bench_against_phases``).
+BENCH_AGREE = 0.9
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"[chip_smoke] FAIL: {msg}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60
-    ).stdout.strip().splitlines()[0]
 
 
 def clocks_line() -> str:
@@ -1094,69 +1125,6 @@ def phase_row_wise_serve(none, card):
 
 
 # ---------------------------------------------------------------- phase 5
-def library_pairs(bot, pooled, li, lj):
-    """torch.bmm + the tril gather: the interaction's library yardstick,
-    timed here and never called by the port."""
-    a = torch.cat([bot[:, None, :], pooled], dim=1).float()
-    f = torch.bmm(a, a.transpose(1, 2))
-    return torch.cat([bot.float(), f[:, li, lj]], dim=1)
-
-
-def library_version(tables, ids, bot, li, lj):
-    """F.embedding_bag(mode="sum") + the interaction's yardstick."""
-    return library_pairs(bot, library_bag(tables, ids), li, lj)
-
-
-def library_bag(tables, ids):
-    """One F.embedding_bag(mode="sum") call over the flattened tables."""
-    T, R, d = tables.shape
-    B, _, L = ids.shape
-    t = torch.arange(T, device=ids.device)[None, :, None] * R
-    flat = (ids.long() + t).view(B * T, L)
-    return torch.nn.functional.embedding_bag(
-        flat, tables.view(T * R, d), mode="sum").view(B, T, d)
-
-
-def library_grouped(tf, tb, ids, bot, inv, li, lj):
-    """Per-group F.embedding_bag, cat, index_select(inv_perm), bmm and the
-    tril gather: the grouped kernel's library yardstick."""
-    n = tf.shape[0]
-    pooled = torch.cat([library_bag(tf, ids[:, :n]),
-                        library_bag(tb, ids[:, n:])], dim=1)
-    return library_pairs(bot, pooled.index_select(1, inv), li, lj)
-
-
-def distinct_rows(ids, rows_per_table):
-    T = ids.shape[1]
-    return torch.unique(
-        ids.long() + torch.arange(T, device=ids.device)[None, :, None]
-        * rows_per_table).numel()
-
-
-def least_time(nbytes, flops, peak=FP32_FLOP_PER_S):
-    """(ms, "bytes" | "operations", bytes, operations): the larger of bytes
-    over HBM bandwidth and operations over their type's peak (fp32 by
-    default)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
-
-
-def bound(tables, ids, bot):
-    """Least time for the fused serve work: bytes the function must move
-    (the distinct rows these ids touch, the ids, bot_out, the output) over
-    HBM bandwidth, against its fp32 operations over the fp32 peak. For the
-    grouped kernel ``tables`` is either group (same d and dtype) and the
-    row stride is the larger group's."""
-    R, d = tables.shape[1], tables.shape[2]
-    B, T, L = ids.shape
-    pairs = (T + 1) * T // 2
-    nbytes = (distinct_rows(ids, R) * d * tables.element_size()
-              + ids.numel() * 4 + bot.numel() * 4 + B * (d + pairs) * 4)
-    flops = B * T * L * d + B * pairs * 2 * d
-    return least_time(nbytes, flops)
-
-
 def time_ms(fn, n_sets, iters=40):
     for k in range(n_sets):
         fn(k)
@@ -1274,7 +1242,7 @@ def phase_timing(none, auto, dev):
                 tables, *sets[k]), len(sets), iters=16),
             time_ms(lambda k: library_version(tables, *sets[k], li, lj),
                     len(sets), iters=16),
-            [bound(tables, *s) for s in sets])
+            [fused_bound(tables, *s) for s in sets])
         rows["fused_grouped_bag_interactions"][B] = report_time(
             "fused_grouped_bag_interactions",
             f"B={B} Tf={tf.shape[0]} Tb={tb.shape[0]} L={L} d={d} R={R} "
@@ -1285,7 +1253,7 @@ def phase_timing(none, auto, dev):
                 tf, tb, *gsets[k], groups.inv_perm), len(gsets), iters=16),
             time_ms(lambda k: library_grouped(tf, tb, *gsets[k], inv, li,
                                               lj), len(gsets), iters=16),
-            [bound(tf, *s) for s in gsets])
+            [fused_bound(tf, *s) for s in gsets])
     peak_line("phase 5 (serve kernel timing)")
     return rows
 
@@ -1582,18 +1550,6 @@ def phase_packed(store, cfg, dev):
     return launches, times, {k: max(v) for k, v in errs.items()}
 
 
-def library_cached(fast, bulk, fast_idx, bulk_idx):
-    """Two F.embedding_bag(mode="sum") calls, one a tier (the shared tier
-    read at its positions directly), added: the cached bag's yardstick."""
-    if bulk.dim() == 3:
-        cold = library_bag(bulk, bulk_idx)
-    else:
-        B, T, L = bulk_idx.shape
-        cold = torch.nn.functional.embedding_bag(
-            bulk_idx.view(B * T, L), bulk, mode="sum").view(B, T, -1)
-    return library_bag(fast, fast_idx) + cold
-
-
 def time_b6(store, sets):
     """Row 6 on ``store.fast`` and ``store.bulk`` (a (T, R+1, d) tier, or
     the (R+1, d) tier every table shares) beside its bound: the distinct
@@ -1609,14 +1565,7 @@ def time_b6(store, sets):
                          rtol=RTOL, atol=ATOL),
           "cached-bag library yardstick disagrees with the plain version")
     del want
-    bounds = []
-    for fi, bi in sets:
-        cold = (distinct_rows(bi, bulk.shape[1]) if bulk.dim() == 3
-                else torch.unique(bi).numel())
-        rows = distinct_rows(fi, fast.shape[1]) + cold
-        nbytes = (rows * d * fast.element_size() + 2 * fi.numel() * 4
-                  + B * T * d * 4)
-        bounds.append(least_time(nbytes, 2 * B * T * L * d))
+    bounds = [cached_bag_bound(fast, bulk, *s) for s in sets]
     bulk_shape = (f"R+1={bulk.shape[1]}" if bulk.dim() == 3 else
                   f"one shared tier of {bulk.shape[0]} rows")
     return report_time(
@@ -1640,11 +1589,7 @@ def time_b4(packed, sets):
                          ref.embedding_bag_ref(packed, sets[0]), rtol=RTOL,
                          atol=ATOL),
           "embedding-bag library yardstick disagrees with the plain version")
-    bounds = []
-    for ids in sets:
-        nbytes = (distinct_rows(ids, packed.shape[1]) * d
-                  * packed.element_size() + ids.numel() * 4 + B * T * d * 4)
-        bounds.append(least_time(nbytes, B * T * L * d))
+    bounds = [bag_bound(packed, ids) for ids in sets]
     return report_time(
         "embedding_bag",
         f"B={B} T={T} L={L} d={d} rows={packed.shape[1]} (packed store) "
@@ -1665,36 +1610,6 @@ def serve_batches(cfg, first, n):
     from repro_torch.data.recsys import make_recsys_batch
     return [make_recsys_batch(cfg, first + s, 0, TIERED_ALPHA)["indices"]
             for s in range(n)]
-
-
-def cut(batches, B, k):
-    """Input set k of batch size B: a slice of batch k, or four batches."""
-    if B <= batches[0].shape[0]:
-        return batches[k % len(batches)][:B]
-    n = B // batches[0].shape[0]
-    return torch.cat([batches[(n * k + j) % len(batches)] for j in range(n)])
-
-
-def pairs_bound(bot, pooled):
-    """Least time of the interaction: bot_out and pooled read once, the
-    output written once, against its fp32 operations."""
-    B, T, d = pooled.shape
-    pairs = (T + 1) * T // 2
-    nbytes = (bot.numel() * bot.element_size()
-              + pooled.numel() * pooled.element_size() + B * (d + pairs) * 4)
-    return least_time(nbytes, B * pairs * 2 * d)
-
-
-def cached_pairs_bound(fast, bulk, fi, bi, bot):
-    """Least time of the two-tier fused op: the distinct rows of each tier
-    that the ids touch, both id tensors, bot_out and the output."""
-    B, T, L = fi.shape
-    d = fast.shape[2]
-    pairs = (T + 1) * T // 2
-    rows = distinct_rows(fi, fast.shape[1]) + distinct_rows(bi, bulk.shape[1])
-    nbytes = (rows * d * fast.element_size() + 2 * fi.numel() * 4
-              + bot.numel() * 4 + B * (d + pairs) * 4)
-    return least_time(nbytes, 2 * B * T * L * d + B * pairs * 2 * d)
 
 
 def draw_store(T, S, R, d, dtype, gen, dev):
@@ -1979,42 +1894,6 @@ def time_api_serve(tables, store, cfg, dev):
     return rows
 
 
-def attention_pairs(T, S, causal, window):
-    """The (query, key) pairs the attention function weighs: those its
-    masks keep, and all S keys for a row whose every key is masked."""
-    t = np.arange(T)
-    lo = np.maximum(0, t - window + 1) if window is not None else 0 * t
-    hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1)
-    return int(np.where(lo > hi, S, hi - lo + 1).sum())
-
-
-def attention_bound(q, k, causal, window):
-    """Least time of flash attention: q, k, v read and the output written
-    once, against 4 hd operations a weighed pair and head (q.k and p.v) at
-    the peak of the inputs' type (bf16 on the tensor cores)."""
-    B, T, Hq, hd = q.shape
-    S = k.shape[1]
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    flops = 4 * B * Hq * hd * attention_pairs(T, S, causal, window)
-    return least_time(nbytes, flops, BF16_FLOP_PER_S
-                      if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
-
-
-def decode_bound(q, k_cache, lengths):
-    """Least time of flash decode: the valid prefix of both caches (all S
-    rows where the length is 0), q, lengths and the output, against 4 hd
-    operations a row and query head."""
-    _, Hq, hd = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    n = lengths.clamp(max=S)
-    rows = int(torch.where(n <= 0, S, n).sum())
-    nbytes = (2 * rows * Hkv * hd * k_cache.element_size()
-              + 2 * q.numel() * q.element_size()
-              + lengths.numel() * lengths.element_size())
-    return least_time(nbytes, 4 * Hq * hd * rows, BF16_FLOP_PER_S
-                      if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
-
-
 def close_attention(kernel, name, got, want, errs):
     """Hold an attention output against its plain version: same shape and
     dtype, finite, allclose at the tests' tolerance for the dtype, and each
@@ -2045,54 +1924,6 @@ def attention_inputs(B, T, S, Hq, Hkv, hd, dtype, gen, dev):
     return (torch.randn((B, T, Hq, hd), device=dev, generator=gen).to(dtype),
             torch.randn((B, S, Hkv, hd), device=dev, generator=gen).to(dtype),
             torch.randn((B, S, Hkv, hd), device=dev, generator=gen).to(dtype))
-
-
-def sdpa_attention(q, k, v, causal, window):
-    """F.scaled_dot_product_attention with enable_gqa and a boolean mask:
-    the library yardstick, timed here and never called by the port."""
-    T, S = q.shape[1], k.shape[1]
-    t = torch.arange(T, device=q.device)[:, None]
-    s = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= s <= t
-    if window is not None:
-        ok &= t - s < window
-    return torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=ok, enable_gqa=True).transpose(1, 2)
-
-
-def sdpa_attention_expanded(q, k, v, causal, window):
-    """The library yardstick where ``sdpa_attention`` does not fit (T = S
-    = 32,768: enable_gqa with a mask takes the math path, whose Hq x T x S
-    fp32 scores are 137 GB): K and V repeated to the query heads, then one
-    F.scaled_dot_product_attention with the boolean mask on the
-    memory-efficient backend. Timed here, never called by the port."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    T, S = q.shape[1], k.shape[1]
-    G = q.shape[2] // k.shape[2]
-    t = torch.arange(T, device=q.device)[:, None]
-    s = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= s <= t
-    if window is not None:
-        ok &= t - s < window
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.repeat_interleave(G, 2).transpose(1, 2),
-            v.repeat_interleave(G, 2).transpose(1, 2),
-            attn_mask=ok).transpose(1, 2)
-
-
-def sdpa_decode(q, k_cache, v_cache, lengths):
-    """The decode yardstick: one query token, the lengths as a mask."""
-    S = k_cache.shape[1]
-    ok = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-    return torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-        attn_mask=ok[:, None, None], enable_gqa=True)[:, :, 0]
 
 
 def rows_by_hand(q, k, v, rows, window):
@@ -2301,7 +2132,7 @@ def phase_api_attention(dev):
     kc, vc = (torch.randn((B, S, Hkv, hd), device=dev, generator=gen)
               .bfloat16() for _ in range(2))
     dq = torch.randn((B, Hq, hd), device=dev, generator=gen).bfloat16()
-    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lens = decode_lengths(B, S, dev)      # the kernel bench's, to compare
     want = ref.flash_decode_ref(dq, kc, vc, lens)
     close_attention("flash_decode", f"B={B} S={S} mixtral bf16", decode_kernel(
         dq, kc, vc, lens), want, errs)
@@ -2322,15 +2153,6 @@ def phase_api_attention(dev):
 
 
 # ------------------------------------------------------------- phase 7c
-def aligned_ids(B, T, L, R, lblk, gen, dev):
-    """A stream the blocked bag reads block by block: every L-block of
-    lblk lookups is the rows [k*lblk, (k+1)*lblk) of a random block k."""
-    blk = torch.randint(0, R // lblk, (B, T, L // lblk), generator=gen,
-                        device=dev)
-    return (blk[..., None] * lblk + torch.arange(lblk, device=dev)).reshape(
-        B, T, L).to(torch.int32)
-
-
 def blocked_bf16_bound(tables, ids, lblk):
     """What a bf16 blocked bag may differ from its plain version by,
     element by element, and what a bag that skipped the bf16 rounding of
@@ -2488,16 +2310,6 @@ def blocked_edge_cases(dev, errs):
     odd = buf[1:].view(T, R, 32)                 # 4 bytes past alignment
     compare_blocked("d=32 lblk=8 fp32 tables 4 bytes off alignment", odd,
                     aligned_ids(B, T, L, R, 8, gen, dev), 8, True, errs)
-
-
-def bag_bound(tables, ids):
-    """Least time of a sum-pool: the distinct rows the ids touch, the ids
-    and the (B, T, d) fp32 output, against one add a looked-up element."""
-    B, T, L = ids.shape
-    d = tables.shape[2]
-    nbytes = (distinct_rows(ids, tables.shape[1]) * d * tables.element_size()
-              + ids.numel() * 4 + B * T * d * 4)
-    return least_time(nbytes, B * T * L * d)
 
 
 def phase_blocked(tables, cfg, dev):
@@ -5751,6 +5563,124 @@ def leaves(tree, path=""):
     return [(path, tree)]
 
 
+# -------------------------------------------------------------- phase 11
+def bench_artifact(name, out_dir):
+    """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
+    keys and the device block, taken on this card."""
+    path = os.path.join(out_dir, f"BENCH_torch_{name}.json")
+    check(os.path.exists(path), f"phase 11: {name} wrote no artifact")
+    with open(path) as f:
+        art = json.load(f)
+    check({"bench", "git_rev", "ok", "claims", "scalars", "device"}
+          <= set(art), f"phase 11: {path} lacks keys: {sorted(art)}")
+    dev = art["device"]
+    check(dev.get("platform") == "gpu" and dev.get("count", 0) >= 1
+          and dev.get("name") == torch.cuda.get_device_name(0),
+          f"phase 11: {path} was not taken on this card: {dev}")
+    check(art["claims"] and all({"name", "ok", "detail"} <= set(c)
+                                for c in art["claims"]),
+          f"phase 11: {path} has malformed claims")
+    for c in art["claims"]:
+        check(c["ok"] or c["name"] in BENCH_SPEED_CLAIMS,
+              f"phase 11: {name}: {c['name']} failed: {c['detail']}")
+    return art
+
+
+def bench_against_phases(rows, phase_rows):
+    """Hold each kernel's main-path time in the bench against phases 5-7's
+    at the same shape (``phase_rows``: kernel -> that phase's rows, at the
+    batch sizes the bench times). The bench times launches queued behind a
+    sleep, so the device's work and the gaps between its launches; the
+    phase's CUDA events also time the host's launch rate, its profiler
+    neither. So the bench's time must lie between the two, within 10%:
+    where the kernel outlasts its launch, the two agree within 10%."""
+    for name, ref_rows in phase_rows.items():
+        mains = [r for r in rows if r["kernel"] == name
+                 and r["section"] == "main"]
+        held = 0
+        for ref_row in ref_rows:
+            B = ref_row["shape"].split()[0]
+            pick = [r for r in mains if r["shape"].split()[0] == B]
+            if not pick:
+                continue
+            ms, lo = pick[0]["ms"], ref_row["device_ms"] or 0.0
+            hi = ref_row["ms"]
+            print(f"[bench] kernels vs phases 5-7: {name} {B}: bench "
+                  f"{ms:.4f} ms, phase {hi:.4f} ms (device "
+                  f"{lo:.4f}), ratio {ms / hi:.3f} ({pick[0]['shape']} | "
+                  f"{ref_row['shape']})")
+            check(BENCH_AGREE * lo <= ms <= hi / BENCH_AGREE,
+                  f"phase 11: the bench times {name} {B} at {ms:.4f} ms, "
+                  f"outside phases 5-7's {lo:.4f}-{hi:.4f} ms by over 10%")
+            held += 1
+        check(held > 0, f"phase 11: the bench timed {name} at none of "
+              f"phases 5-7's shapes")
+
+
+def phase_benchmarks(card, phase_rows):
+    """Phase 11: the port's benchmarks and examples on the card;
+    ``phase_rows`` are phases 5-7's kernel times to hold the bench's
+    beside (``bench_against_phases``)."""
+    import shutil
+    import tempfile
+    from benchmarks_torch import run as bench_run
+    from examples_torch import dlrm_train_100m, quickstart, serve_sla
+    from repro_torch.core.calibration import kernel_times_from
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(BUILD_DIR, "bench")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    codes = {}
+    for name, extra in BENCH_SECTIONS:
+        t1 = time.perf_counter()
+        print(f"[bench] section {name}")
+        codes[name] = bench_run.run_section(name, bench_run.section_args(
+            name, True, out_dir=out_dir, extra=extra))
+        print(f"[bench] section {name}: code {codes[name]} in "
+              f"{time.perf_counter() - t1:.1f} s")
+    ckpt = tempfile.mkdtemp(prefix="dlrm100m_", dir=out_dir)
+    for label, main, argv in (("quickstart", quickstart.main, []),
+                              ("serve_sla", serve_sla.main, []),
+                              ("dlrm_train_100m", dlrm_train_100m.main,
+                               ["--ckpt-dir", ckpt])):
+        t1 = time.perf_counter()
+        print(f"[bench] example {label}")
+        main(argv)
+        print(f"[bench] example {label} in {time.perf_counter() - t1:.1f} s")
+    shutil.rmtree(ckpt)
+    launches = dict(ops.launch_counts)
+    arts = {name: bench_artifact(name, out_dir)
+            for name in bench_run.EMITS_JSON}
+    serve = arts["engine_serve"]["scalars"]
+    check(serve["peak_gb"] is not None and serve["peak_gb"] < 80.0,
+          f"phase 11: engine_serve peaked at {serve['peak_gb']} GB")
+    check(serve["config"] == CONFIG,
+          f"phase 11: engine_serve served {serve['config']}")
+    depths = {r["depth"] for r in arts["pipeline"]["scalars"]["measured_rows"]
+              if r["config"] == CONFIG}
+    check(depths == {1, 2, 4, 8},
+          f"phase 11: pipeline timed depths {sorted(depths)} of {CONFIG}")
+    times = kernel_times_from(arts["kernels"]["scalars"])
+    check(set(times) == set(KERNELS),
+          f"phase 11: kernel_times has {sorted(times)}")
+    bench_against_phases(arts["kernels"]["scalars"]["rows"], phase_rows)
+    failed = [c["name"] for a in arts.values() for c in a["claims"]
+              if not c["ok"]]
+    wall = time.perf_counter() - t0
+    print(f"[bench] phase 11: {sum(len(a['claims']) for a in arts.values())}"
+          f" claims, speed claims not met on this card: {failed or 'none'};"
+          f" section codes {codes}; launches {launches}; {wall:.1f} s "
+          f"({card})")
+    peak_line("phase 11 (the port's benchmarks)")
+    check(wall <= BENCH_PHASE_S,
+          f"phase 11 took {wall:.1f} s, over {BENCH_PHASE_S} s")
+    return launches
+
+
 def build_all():
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import (_build, attention, embedding_bags,
@@ -5828,6 +5758,7 @@ def main() -> int:
     for name, n in ssm["launches"].items():
         lm["launches"][name] += n
     host, host_errs = phase_host_tier(dev, card)
+    torch.cuda.empty_cache()
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
                  blocked[2], host_errs, fabric_errs, online_errs,
                  ssm["errs"]):
@@ -5858,6 +5789,10 @@ def main() -> int:
         TIME_DECODE_B]
     measured["embedding_bag_blocked"] = blocked[1]["embedding_bag_blocked"][
         BLOCKED_BATCHES[0]]
+    bench_launches = phase_benchmarks(card, {
+        name: [by_shape[name][B] for B in (25, 200)
+               if B in by_shape.get(name, {})] or [row]
+        for name, row in measured.items()})
     for label, row in train.items():
         print(f"[train] {label}: depth {row['depth']}, step p50 "
               f"{row['p50_ms']:.4f} ms p99 {row['p99_ms']:.4f} ms, "
@@ -5930,7 +5865,8 @@ def main() -> int:
             if name == "embedding_bag" else {}),
          **({"online_launches": online_launches[name]}
             if name in online_launches else {}),
-         "lm_launches": lm["launches"].get(name, 0)}
+         "lm_launches": lm["launches"].get(name, 0),
+         "bench_launches": bench_launches[name]}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""repro_torch and chip_smoke.py import neither JAX nor the JAX package."""
+"""repro_torch, the port's benchmarks and examples (benchmarks_torch,
+examples_torch) and chip_smoke.py import neither JAX, nor the JAX package,
+nor the reference's benchmarks or examples."""
 import ast
 import os
 import subprocess
@@ -10,7 +12,11 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+BENCH_DIRS = (REPO / "benchmarks_torch", REPO / "examples_torch")
+BENCH_SOURCES = sorted(p for d in BENCH_DIRS for p in d.glob("*.py"))
+SOURCES = (sorted(PORT.rglob("*.py")) + BENCH_SOURCES
+           + [REPO / "chip_smoke.py"])
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "examples")
 # The training slice's modules: each must exist and import alone, in a
 # fresh interpreter, without JAX or the JAX package.
 TRAINING_MODULES = (
@@ -21,8 +27,7 @@ TRAINING_MODULES = (
 
 
 def _forbidden(module: str) -> bool:
-    top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return module.split(".")[0] in FORBIDDEN
 
 
 def test_import_leaves_jax_and_repro_out():
@@ -63,6 +68,27 @@ def test_training_modules_import_without_jax_or_repro():
                    or p == PORT / rel / "__init__.py" for p in SOURCES), name
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_bench_and_example_modules_import_without_jax_or_repro():
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in sys.argv[1:]:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "repro", "benchmarks", "examples"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    names = [f"{p.parent.name}.{p.stem}" if p.stem != "__init__"
+             else p.parent.name for p in BENCH_SOURCES]
+    assert len(names) >= 16, names
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO)]))
+    proc = subprocess.run([sys.executable, "-c", code, *names],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
