@@ -82,9 +82,12 @@ def print_claims(section: str, claims: List[Claim],
 
 def write_bench_json(name: str, claims: List[Claim],
                      scalars: Dict[str, Any], device: torch.device,
-                     out_dir: Optional[str] = None) -> str:
+                     out_dir: Optional[str] = None,
+                     metrics: Optional[Dict[str, Any]] = None) -> str:
     """Write ``BENCH_torch_<name>.json`` under ``out_dir`` (default
-    ``build/bench/``) and return its path."""
+    ``build/bench/``) and return its path. ``metrics`` is a
+    ``MetricsRegistry.snapshot()`` of a representative run, kept as the
+    reference keeps it."""
     payload = {
         "bench": name,
         "git_rev": git_rev(),
@@ -94,6 +97,8 @@ def write_bench_json(name: str, claims: List[Claim],
         "scalars": scalars,
         "device": device_block(device),
     }
+    if metrics is not None:
+        payload["metrics"] = metrics
     out_dir = out_dir or DEFAULT_OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"BENCH_torch_{name}.json")

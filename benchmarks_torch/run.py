@@ -9,13 +9,19 @@ The figures are the perf model's and run anywhere. The benches run on the
 card, at full width, unless ``--device cpu`` (their plain versions on the
 host) or ``--reduced`` (the reference's sizes) say otherwise;
 ``--device``, ``--reduced`` and ``--out-dir`` pass through to every bench
-section.
+section. The fleet, host-tier and online sections (``cluster``,
+``fabric``, ``elastic``, ``hoststore``, ``online``) take the reference's
+``--tiny``. ``roofline`` and ``render_experiments`` read the dry-run's
+reports, which the port does not have yet (ROADMAP A8c): asked for one,
+``--only`` says so and exits 2.
 """
 import argparse
 import sys
 import time
 
-from benchmarks_torch import (bench_engine_serve, bench_pipeline,
+from benchmarks_torch import (bench_cluster, bench_elastic,
+                              bench_engine_serve, bench_fabric,
+                              bench_hoststore, bench_online, bench_pipeline,
                               bench_tiered_embedding, fig6_membw,
                               fig8_inference, fig9_latency, fig10_sharding,
                               fig11_training, fig12_13_phases, kernel_bench,
@@ -35,13 +41,26 @@ SECTIONS = [
     ("tiered_embedding", bench_tiered_embedding.main, (), True),
     ("engine_serve", bench_engine_serve.main, ("--queries", "80"), True),
     ("pipeline", bench_pipeline.main, ("--tiny",), True),
+    ("cluster", bench_cluster.main, ("--tiny",), True),
+    ("fabric", bench_fabric.main, ("--tiny",), True),
+    ("elastic", bench_elastic.main, ("--tiny",), True),
+    ("hoststore", bench_hoststore.main, ("--tiny",), True),
+    ("online", bench_online.main, ("--tiny",), True),
 ]
 
+# the reference's sections the port does not run yet, and why
+NOT_PORTED = {
+    "roofline": "it reads the dry-run's reports (ROADMAP A8c)",
+    "render_experiments": "it renders the dry-run's reports (ROADMAP A8c)",
+}
+
 # sections that can write a BENCH_torch_<name>.json artifact
-EMITS_JSON = {"kernels", "pipeline", "tiered_embedding", "engine_serve"}
+EMITS_JSON = {"kernels", "pipeline", "tiered_embedding", "engine_serve",
+              "cluster", "fabric", "elastic", "hoststore", "online"}
 # sections with a model config that --reduced cuts to the reference's size
 # (tiered_embedding's defaults are the reference's already)
-REDUCES = {"kernels", "engine_serve", "pipeline"}
+REDUCES = {"kernels", "engine_serve", "pipeline", "cluster", "fabric",
+           "elastic", "hoststore", "online"}
 
 
 def section_args(name: str, emit_json: bool, device=None, reduced=False,
@@ -70,7 +89,8 @@ def run_section(name: str, argv: list) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--only", default=None,
-                   choices=[n for n, _, _, _ in SECTIONS], metavar="SECTION",
+                   choices=[n for n, _, _, _ in SECTIONS] + list(NOT_PORTED),
+                   metavar="SECTION",
                    help="run a single section; one of: "
                         + ", ".join(n for n, _, _, _ in SECTIONS))
     p.add_argument("--emit-json", action="store_true",
@@ -83,6 +103,9 @@ def main(argv=None) -> int:
     p.add_argument("--out-dir", default=None,
                    help="where --emit-json writes (default build/bench/)")
     args = p.parse_args(argv)
+    if args.only in NOT_PORTED:
+        p.error(f"section {args.only} is not ported: "
+                f"{NOT_PORTED[args.only]}")
     failed = []
     for name, _, _, bench in SECTIONS:
         if args.only and name != args.only:

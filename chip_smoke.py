@@ -154,42 +154,43 @@ Phases; any failure exits non-zero:
      (host rows, the ref, the dense forward). Row 4 (``embedding_bag``)
      launches once a whole-table owner and once a split pool a flush,
      plus one untimed warm-up a new shape; peak device memory under the
-     tables + the largest board's slice + 2 GB; the phase under 120 s;
+     tables + the largest board's slice + the profile and the boards'
+     caches (kept on the card) + 2 GB; the phase under 120 s;
      9d. online updates at full width (``repro_torch.online``), on 9c's host
-     tables before they are freed; each delta channel recorded before its
-     run by an ``OnlineTrainer`` on a copy of those tables (lr 0.05, one
-     step an update, the scenario's drift salt) whose ``OnlineSource`` puts
-     5 batches inside the trace, the trainer freed before serving: (i) a
-     ``Cluster`` of 2 replicas (plan none, B = 200, capacity 4, max_wait_ms
-     2, the planner's depth, round robin) under a 400-query zipf_drift trace
-     at the launcher's default load, each batch broadcast at its update
-     barrier (every query answered once, one update a batch, rows pushed =
-     the batches' rows, every updated row of both replicas bitwise its
-     latest value, row 1's launches = the sum of resolved depths over every
-     flush, update flushes included, peak under 2 x the tables + 2 GB); (ii)
-     the sharded fleet over 9c's trace on one channel: (a) one board of
-     20,480 MiB, (b) three of 7,000 MiB (table 39 split, cache on) under
-     coherence "propagate", (c) as (b) under "invalidate"; (b) and (c)
+     tables before they are freed; one delta channel recorded before the
+     runs by an ``OnlineTrainer`` on a copy of those tables (lr 0.05, one
+     step an update, 9c's drift salt) whose ``OnlineSource`` puts 5 batches
+     inside 9c's trace, the trainer freed before serving, and both fleets
+     take that channel: (i) a ``Cluster`` of 2 replicas (plan none, B = 200,
+     capacity 4, max_wait_ms 2, the planner's depth, round robin) under a
+     400-query zipf_drift trace at the launcher's default load (longer than
+     9c's, so every batch lands inside it), each batch broadcast at its
+     update barrier (every query answered once, one update a batch, rows
+     pushed = the batches' rows, every updated row of both replicas bitwise
+     its latest value, row 1's launches = the sum of resolved depths over
+     every flush, update flushes included, peak under 2 x the tables + 2
+     GB); (ii) the sharded fleet over 9c's trace on one channel: (a) one
+     board of 20,480 MiB, (b) three of 7,000 MiB (table 39 split, cache on)
+     under coherence "propagate", (c) as (b) under "invalidate"; (b) and (c)
      bitwise equal to (a) query for query, the fleet's host rows and every
      owner's resident rows at the updated ids bitwise their latest values,
      9c's shared host tables unchanged (the fleet's first write copies
      them), (c) invalidating and (b) propagating, row 4 held and counted as
-     in 9c, peak under the tables + the largest slice + 2 GB, host RSS
-     growth over the phase's start under the tables + the fleet's cache
-     arrays + 4 GB; in (i) and (ii) three queries' probs (one before the
-     first emit, two after later versions) against a plain path that applies
-     each batch emitted at or before the query's arrival (the batches change
-     the last query's pooled rows by ~1% at lr 0.05, which may not move its
-     fp32 probs); (iii) the launchers at --smoke on the card: ``train
-     --emit-deltas`` into ``build/``, replayed by the serve launcher in both
-     fleet modes (one update a recorded batch), then ``--online-every-s``
-     with ``--record-deltas`` in both modes, each recording reloaded equal
-     to the channel its run consumed; then ``refresh_tiered`` on a two-tier
-     store of 262,144 rows a table (``measure_row_freq`` +
-     ``build_tiered_tables`` on the card), row 6 over the updated rows
-     against ``embedding_bag_ref`` on the updated bulk. Each apply, the
-     trainer's step and copy, staleness and RSS are printed; the phase under
-     120 s;
+     in 9c, peak under 9c's bound, host RSS growth over the phase's start
+     under the tables + 4 GB; in (i) and (ii) three queries' probs (one
+     before the first emit, two after later versions) against a plain path
+     that applies each batch emitted at or before the query's arrival (the
+     batches change the last query's pooled rows by ~1% at lr 0.05, which
+     may not move its fp32 probs); (iii) the launchers at --smoke on the
+     card: ``train --emit-deltas`` into ``build/``, replayed by the serve
+     launcher in both fleet modes (one update a recorded batch), then
+     ``--online-every-s`` with ``--record-deltas`` in both modes, each
+     recording reloaded equal to the channel its run consumed; then
+     ``refresh_tiered`` on a two-tier store of 262,144 rows a table
+     (``measure_row_freq`` + ``build_tiered_tables`` on the card), row 6
+     over the updated rows against ``embedding_bag_ref`` on the updated
+     bulk. Each apply, the trainer's step and copy, staleness and RSS are
+     printed; the phase under 120 s;
      9e. the LM substrate (ROADMAP A8a), after 9c's host tables are
      released: (a) internlm2-1.8b at full width and depth (24 layers, d
      2,048, 16/8 heads of 128, ff 8,192, padded vocab 94,208: 1.896 B
@@ -289,8 +290,19 @@ Phases; any failure exits non-zero:
      ``build/bench/`` must be well formed and from the card, and every
      claim that is not a speed claim must hold; a speed claim that fails
      on this card is printed as a measurement. The phase under
-     ``BENCH_PHASE_S``. Its launches are not the main path's: the kernels
-     line gives them apart, as ``bench_launches``.
+     ``BENCH_PHASE_S``. Then, under its own ``BENCH_FLEET_PHASE_S``, the
+     fleet, host-tier and online benches at full width
+     (``BENCH_FLEET_SECTIONS``: ``cluster``, ``fabric``, ``elastic``,
+     ``hoststore``, ``online`` with ``--tiny`` and fewer queries; their
+     cuts printed) and the examples ``cluster_sla``, ``fabric_sharding``
+     and ``lm_mini``: each artifact well formed with the reference's
+     claims and scalars plus ``cuts``, every correctness claim held
+     (``bit_identity``, ``zero_drift``, ``minimal_movement``,
+     ``closure``, and no one board holding the fabric bench's tables),
+     the speed and quality claims printed, each section's peak under 80
+     GB and the host RSS printed; rows 1 and 4 launched by the sections,
+     rows 8 and 9 by ``lm_mini``. Its launches are not the main path's:
+     the kernels line gives them apart, as ``bench_launches``.
 
 Each phase prints its peak device memory. Every profile of a flush or a
 training step keeps only whole traces (each device event a whole multiple
@@ -573,6 +585,27 @@ BENCH_SECTIONS = (
 BENCH_SPEED_CLAIMS = {"fused_faster_than_composed", "tiered_speedup",
                       "batching_frontier", "measured_overhead"}
 BENCH_PHASE_S = 90.0
+# Phase 11's second part: the fleet, host-tier and online benches at full
+# width (``--tiny``, query counts cut to fit ``BENCH_FLEET_PHASE_S``, never
+# their width), then the last three examples. Their speed and quality
+# claims are printed, not required; the correctness claims must hold.
+BENCH_FLEET_SECTIONS = (
+    ("cluster", ()), ("fabric", ()), ("elastic", ("--queries", "60")),
+    ("hoststore", ("--queries", "10")),
+    ("online", ("--queries", "30", "--pretrain-steps", "100",
+                "--steps-per-update", "1", "--online-batch", "64")))
+BENCH_FLEET_SPEED_CLAIMS = {
+    "scale_out", "routing", "drift", "cache", "sensitivity", "breathing",
+    "economics", "overlap", "pcie_sweep", "accuracy", "sla",
+    # its SLA half; its "one board cannot hold it" half is checked apart
+    "capacity"}
+BENCH_FLEET_PHASE_S = 240.0
+# MemAvailable the fleet benches wait up to BENCH_FLEET_WAIT_S for: the
+# online bench holds its pretrained tables, the trainer's copy and then a
+# fleet's copy on its first write (21.47 GB each), and phase 10's host
+# memory returns over seconds
+BENCH_FLEET_HOST_BYTES = 56 * 10**9
+BENCH_FLEET_WAIT_S = 30.0
 # The bench's main-path time of a kernel against phases 5-7's at its
 # shape: at least BENCH_AGREE times the phase's device time and at most
 # 1/BENCH_AGREE times its CUDA-event time (see ``bench_against_phases``).
@@ -3239,6 +3272,15 @@ def plain_fabric_probs(cfg, params, tables_host, events, dev, batches=()):
     return out
 
 
+def fleet_state_bytes(fleet, n_boards=None) -> int:
+    """Device bytes of a sharded fleet's state beside its tables: the
+    access profile and each board's remote-row cache (``n_boards`` caches
+    when it may grow past the boards it has)."""
+    per_board = max(c.nbytes for c in fleet.caches)
+    return (fleet._row_freq_dev.nbytes
+            + per_board * (n_boards or len(fleet.caches)))
+
+
 def drive_fabric(fleet, events, label, scenario, card, bound_bytes, params,
                  errs, batches=(), coherence="propagate"):
     """Serve ``events`` through ``fleet.run`` with the launch counts set to
@@ -3420,7 +3462,7 @@ def phase_fabric(dev, card):
               max_wait_ms=2.0, params=params, device=dev)
     out, errs = {}, {}
 
-    def build(label, **fkw):
+    def build(label, max_boards=None, **fkw):
         gc.collect()
         torch.cuda.empty_cache()
         check(torch.cuda.memory_allocated() < base + 0.1 * GB,
@@ -3437,7 +3479,8 @@ def phase_fabric(dev, card):
               f"{pm.board_capacity_bytes / 2**20:.0f} MiB built in "
               f"{time.perf_counter() - t0:.2f} s; resident {resident} GB; "
               f"split tables {pm.split_tables}; {rss_line('built')}")
-        return fleet, table_bytes + max(pm.board_bytes) + 2 * GB
+        return fleet, (table_bytes + max(pm.board_bytes)
+                       + fleet_state_bytes(fleet, max_boards) + 2 * GB)
 
     # (a) the reference: one board holds every table
     ref, bound = build("(a)", n_boards=1, router="jsq",
@@ -3493,7 +3536,7 @@ def phase_fabric(dev, card):
 
     # (d) elastic: 2 boards at the default capacity, a flash crowd, an
     # autoscaler to 3; against a static 2-board fleet over the same events
-    elastic, bound = build("(d)", n_boards=2, router="p2c")
+    elastic, bound = build("(d)", max_boards=3, n_boards=2, router="p2c")
     # the threshold is FLEET_SLA_FACTOR x what a query of the unloaded
     # fleet can take (the batching deadline, then a capacity batch), so
     # the base load stays under it and only the crowd crosses it
@@ -3749,13 +3792,13 @@ def check_owner_rows(fleet, ids, label, dev):
                   f"differ from the host tables")
 
 
-def online_replicated(dev, card, params):
+def online_replicated(dev, card, params, batches):
     """9d(i): ``Cluster(get_dlrm("dlrm-rm2-small-unsharded"))`` of 2
     replicas, plan none, B = 200, capacity 4, max_wait_ms 2, the
     planner's depth, round robin, serving a zipf_drift trace of
-    ONLINE_QUERIES queries at the launcher's default load while a
-    recorded channel of ONLINE_UPDATES batches is broadcast at its update
-    barriers. Returns the run's numbers."""
+    ONLINE_QUERIES queries at the launcher's default load while the
+    recorded channel ``batches`` is broadcast at its update barriers.
+    Returns the run's numbers."""
     from repro_torch.cluster import Cluster
     from repro_torch.configs import get_dlrm
     from repro_torch.online import DeltaChannel
@@ -3777,7 +3820,8 @@ def online_replicated(dev, card, params):
     scen = make_scenario("zipf_drift", alpha=FABRIC_ALPHA,
                          rotate_every_s=0.5 * ONLINE_QUERIES / qps)
     events = scen.events(ONLINE_QUERIES, qps=qps, seed=0)
-    batches, train = record_channel(cfg, params, events, scen, dev, "(i)")
+    check(events[-1].arrival_s > batches[-1].t_emit_s,
+          "(i): the trace ends before the channel's last batch")
     apply_s = []
     timed_method(cluster, "_apply_update", apply_s)
     rep, launches, depths = drive_fleet(
@@ -3809,29 +3853,27 @@ def online_replicated(dev, card, params):
           f"{launches['fused_bag_interactions']}; peak {peak / GB:.2f} GB "
           f"(bound {(2 * table_bytes + 2 * GB) / GB:.2f}) ({card})")
     out = dict(report=rep, launches=launches["fused_bag_interactions"],
-               apply_ms=[x * 1e3 for x in apply_s], peak_gb=peak / GB,
-               train=train)
+               apply_ms=[x * 1e3 for x in apply_s], peak_gb=peak / GB)
     del cluster
     free_fleet(base, "(i)")
     return out
 
 
-def online_sharded(dev, card, held, errs):
+def online_sharded(dev, card, held, batches, errs):
     """9d(ii): the sharded fleet over 9c's host tables and its zipf_drift
-    trace, on one recorded channel: (a) one board of FABRIC_REF_MB, (b)
-    three of FABRIC_BOARD_MB (table 39 split, cache on) under
-    coherence="propagate", (c) as (b) with "invalidate". Returns the
+    trace, on the recorded channel ``batches``: (a) one board of
+    FABRIC_REF_MB, (b) three of FABRIC_BOARD_MB (table 39 split, cache on)
+    under coherence="propagate", (c) as (b) with "invalidate". Returns the
     runs."""
     import gc
     from repro_torch.configs import get_dlrm
     from repro_torch.fabric import ShardedFleet
     cfg = get_dlrm(CONFIG)
-    params, events, scen = held["params"], held["events"], held["scenario"]
+    params, events = held["params"], held["events"]
     row_bytes = cfg.embed_dim * 4
     table_bytes = cfg.num_tables * cfg.rows_per_table * row_bytes
     base = torch.cuda.memory_allocated()
     rss0 = rss_bytes()[0]
-    batches, train = record_channel(cfg, params, events, scen, dev, "(ii)")
     ids = updated_rows(batches)
     orig = {t: params["tables"][t, torch.from_numpy(r)].clone()
             for t, r in ids.items()}
@@ -3853,7 +3895,8 @@ def online_sharded(dev, card, held, errs):
         pm = fleet.partition
         check(n_boards == 1 or pm.split_tables == (cfg.num_tables - 1,),
               f"{label}: split tables {pm.split_tables}")
-        bound = table_bytes + max(pm.board_bytes) + 2 * GB
+        bound = (table_bytes + max(pm.board_bytes) + fleet_state_bytes(fleet)
+                 + 2 * GB)
         apply_s = []
         timed_method(fleet, "_apply_delta", apply_s)
         rep, probs, launches, wall = drive_fabric(
@@ -3878,15 +3921,12 @@ def online_sharded(dev, card, held, errs):
                               v) for t, (r, v) in latest.items()),
               f"{label}: the fleet's host rows are not the batches' latest")
         check_owner_rows(fleet, ids, label, dev)
-        caches = sum(c._last_used.nbytes + c._counts.nbytes
-                     + c._cached.nbytes + c._remote.nbytes
-                     for c in fleet.caches)
-        last_used = sum(c._last_used.nbytes for c in fleet.caches)
+        state = fleet_state_bytes(fleet)
         rss = rss_bytes()[0]
         grown = rss - rss0
-        check(grown < table_bytes + caches + ONLINE_SLACK_BYTES,
+        check(grown < table_bytes + ONLINE_SLACK_BYTES,
               f"{label}: host RSS grew {grown / GB:.2f} GB over the "
-              f"phase's start, past the tables + the caches' arrays + "
+              f"phase's start, past the tables + "
               f"{ONLINE_SLACK_BYTES / GB:.0f} GB")
         print(o.summary())
         print(f"[online] 9d(ii) {label} ({mode}): p50 {rep.p50_ms:.4f} ms "
@@ -3900,9 +3940,9 @@ def online_sharded(dev, card, held, errs):
               f"{[round(x * 1e3, 3) for x in apply_s]} ms, the first with "
               f"the copy of the shared host tables ({fleet.host_copy_s:.3f} "
               f"s); row 4 launches {launches}; host RSS {rss / GB:.2f} GB, "
-              f"{grown / GB:.2f} GB over the phase's start (the fleet's "
-              f"cache arrays {caches / GB:.2f} GB, of which _last_used "
-              f"{last_used / GB:.2f} GB); wall {wall:.2f} s ({card})")
+              f"{grown / GB:.2f} GB over the phase's start; the profile "
+              f"and caches on the card {state / GB:.2f} GB; wall "
+              f"{wall:.2f} s ({card})")
         runs[label] = dict(report=rep, launches=launches,
                            apply_ms=[x * 1e3 for x in apply_s],
                            copy_s=fleet.host_copy_s, rss_grown_gb=grown / GB)
@@ -3915,7 +3955,7 @@ def online_sharded(dev, card, held, errs):
           "(c): invalidate mode propagated or invalidated no more than (b)")
     gc.collect()
     torch.cuda.empty_cache()
-    return runs, batches, train
+    return runs
 
 
 def online_launchers(card):
@@ -4050,26 +4090,37 @@ def online_tiered(dev, held, batches, errs):
 
 def phase_online(dev, card, held):
     """Phase 9d: online updates at full width (ROADMAP A7c), on 9c's host
-    tables: (i) the replicated fleet, (ii) the sharded fleet in both
-    coherence modes on one recorded channel, (iii) the launchers at
-    --smoke, then row 6 under ``refresh_tiered``. Returns (the runs,
-    each kernel's launches on the online path, the errors)."""
+    tables and one channel recorded over 9c's trace: (i) the replicated
+    fleet, (ii) the sharded fleet in both coherence modes, (iii) the
+    launchers at --smoke, then row 6 under ``refresh_tiered``. Returns
+    (the runs, each kernel's launches on the online path, the errors)."""
+    from repro_torch.configs import get_dlrm
     t_phase = time.perf_counter()
     print(rss_line("phase 9d start"))
-    errs = {}
-    replicated = online_replicated(dev, card, held["params"])
-    runs, batches, train = online_sharded(dev, card, held, errs)
+    errs, parts = {}, {}
+    t0 = time.perf_counter()
+    batches, train = record_channel(get_dlrm(CONFIG), held["params"],
+                                    held["events"], held["scenario"], dev,
+                                    "9d")
+    parts["channel"] = time.perf_counter() - t0
+    replicated = online_replicated(dev, card, held["params"], batches)
+    parts["(i)"] = time.perf_counter() - t0 - sum(parts.values())
+    runs = online_sharded(dev, card, held, batches, errs)
+    parts["(ii)"] = time.perf_counter() - t0 - sum(parts.values())
     launchers = online_launchers(card)
+    parts["(iii)"] = time.perf_counter() - t0 - sum(parts.values())
     row6 = online_tiered(dev, held, batches, errs)
     torch.cuda.synchronize()
+    parts["row 6"] = time.perf_counter() - t0 - sum(parts.values())
     launches = {"fused_bag_interactions": replicated["launches"],
                 "embedding_bag": sum(r["launches"] for r in runs.values()),
                 "cached_embedding_bag": row6}
     wall = time.perf_counter() - t_phase
     print(rss_line("phase 9d end"))
     peak_line(f"phase 9d (online updates; {wall:.1f} s)")
-    print(f"[online] phase 9d: {wall:.1f} s; launches on the online path "
-          f"{launches} ({card})")
+    print(f"[online] phase 9d: {wall:.1f} s "
+          f"({ {k: round(v, 1) for k, v in parts.items()} } s); launches on "
+          f"the online path {launches} ({card})")
     check(wall <= ONLINE_PHASE_S,
           f"phase 9d took {wall:.1f} s, over {ONLINE_PHASE_S} s")
     return (dict(replicated=replicated, sharded=runs, launchers=launchers,
@@ -5564,9 +5615,10 @@ def leaves(tree, path=""):
 
 
 # -------------------------------------------------------------- phase 11
-def bench_artifact(name, out_dir):
+def bench_artifact(name, out_dir, speed_claims=BENCH_SPEED_CLAIMS):
     """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
-    keys and the device block, taken on this card."""
+    keys and the device block, taken on this card; every claim not in
+    ``speed_claims`` must hold."""
     path = os.path.join(out_dir, f"BENCH_torch_{name}.json")
     check(os.path.exists(path), f"phase 11: {name} wrote no artifact")
     with open(path) as f:
@@ -5581,7 +5633,7 @@ def bench_artifact(name, out_dir):
                                 for c in art["claims"]),
           f"phase 11: {path} has malformed claims")
     for c in art["claims"]:
-        check(c["ok"] or c["name"] in BENCH_SPEED_CLAIMS,
+        check(c["ok"] or c["name"] in speed_claims,
               f"phase 11: {name}: {c['name']} failed: {c['detail']}")
     return art
 
@@ -5652,9 +5704,8 @@ def phase_benchmarks(card, phase_rows):
         main(argv)
         print(f"[bench] example {label} in {time.perf_counter() - t1:.1f} s")
     shutil.rmtree(ckpt)
-    launches = dict(ops.launch_counts)
     arts = {name: bench_artifact(name, out_dir)
-            for name in bench_run.EMITS_JSON}
+            for name, _ in BENCH_SECTIONS if name in bench_run.EMITS_JSON}
     serve = arts["engine_serve"]["scalars"]
     check(serve["peak_gb"] is not None and serve["peak_gb"] < 80.0,
           f"phase 11: engine_serve peaked at {serve['peak_gb']} GB")
@@ -5673,12 +5724,117 @@ def phase_benchmarks(card, phase_rows):
     wall = time.perf_counter() - t0
     print(f"[bench] phase 11: {sum(len(a['claims']) for a in arts.values())}"
           f" claims, speed claims not met on this card: {failed or 'none'};"
-          f" section codes {codes}; launches {launches}; {wall:.1f} s "
-          f"({card})")
+          f" section codes {codes}; launches {dict(ops.launch_counts)}; "
+          f"{wall:.1f} s ({card})")
     peak_line("phase 11 (the port's benchmarks)")
     check(wall <= BENCH_PHASE_S,
           f"phase 11 took {wall:.1f} s, over {BENCH_PHASE_S} s")
-    return launches
+    phase_fleet_benches(card, out_dir)
+    return dict(ops.launch_counts)
+
+
+def fleet_artifact(name, out_dir):
+    """A fleet bench's artifact (``bench_artifact``), its scalars the root
+    ``BENCH_<name>.json``'s (the reference's run, read only) plus the
+    ``cuts`` one card forced, each printed."""
+    art = bench_artifact(name, out_dir, BENCH_FLEET_SPEED_CLAIMS)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           f"BENCH_{name}.json")) as f:
+        ref = json.load(f)
+    check(set(art["scalars"]) == set(ref["scalars"]) | {"cuts"},
+          f"phase 11: {name}'s scalars {sorted(art['scalars'])} are not "
+          f"the reference's plus cuts")
+    check([c["name"] for c in art["claims"]]
+          == [c["name"] for c in ref["claims"]],
+          f"phase 11: {name}'s claims are not the reference's")
+    for what, (full, used, why) in art["scalars"]["cuts"].items():
+        print(f"[bench] {name}: cut {what} {full} -> {used} ({why})")
+    return art
+
+
+def phase_fleet_benches(card, out_dir):
+    """Phase 11's second part: ``BENCH_FLEET_SECTIONS`` at full width, then
+    the examples ``cluster_sla``, ``fabric_sharding`` and ``lm_mini``.
+    Fails on an exception, a malformed artifact, a failed correctness
+    claim, a board that holds the fabric bench's tables, a peak over the
+    card's 80 GB, a kernel the sections or ``lm_mini`` should launch and
+    did not, or a wall time over ``BENCH_FLEET_PHASE_S``."""
+    import numpy as np
+    from benchmarks_torch import run as bench_run
+    from benchmarks_torch._fleet import fp32_table_bytes
+    from examples_torch import cluster_sla, fabric_sharding, lm_mini
+    from repro_torch.configs import get_dlrm
+    from repro_torch.fabric import fits_one_board, partition_tables
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    while (mem_available() < BENCH_FLEET_HOST_BYTES
+           and time.perf_counter() - t0 < BENCH_FLEET_WAIT_S):
+        time.sleep(1.0)
+    print(rss_line(f"fleet benches, after {time.perf_counter() - t0:.1f} s"
+                   f" waiting for {BENCH_FLEET_HOST_BYTES / GB:.0f} GB"))
+    start = dict(ops.launch_counts)
+    peaks, codes = {}, {}
+    for name, extra in BENCH_FLEET_SECTIONS:
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"[bench] section {name}")
+        codes[name] = bench_run.run_section(name, bench_run.section_args(
+            name, True, out_dir=out_dir, extra=extra))
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / GB
+        print(f"[bench] section {name}: code {codes[name]} in "
+              f"{time.perf_counter() - t1:.1f} s, peak {peaks[name]:.2f} GB "
+              f"({card})")
+        print(rss_line(f"after bench {name}"))
+    sections = {k: ops.launch_counts[k] - start.get(k, 0)
+                for k in ops.launch_counts}
+    start = dict(ops.launch_counts)
+    for label, main in (("cluster_sla", cluster_sla.main),
+                        ("fabric_sharding", fabric_sharding.main),
+                        ("lm_mini", lm_mini.main)):
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"[bench] example {label}")
+        main([])
+        peaks[label] = torch.cuda.max_memory_allocated() / GB
+        print(f"[bench] example {label} in {time.perf_counter() - t1:.1f} s")
+    examples = {k: ops.launch_counts[k] - start.get(k, 0)
+                for k in ops.launch_counts}
+    arts = {name: fleet_artifact(name, out_dir)
+            for name, _ in BENCH_FLEET_SECTIONS}
+    # the capacity claim's structural half: at the bench's budget (1.25 x
+    # the fair share of two boards) no one board holds the fp32 tables
+    cfg = get_dlrm(CONFIG)
+    tb = fp32_table_bytes(cfg)
+    cap = int(np.ceil(1.25 * sum(tb) / 2))
+    check(not fits_one_board(cfg, cap, tb),
+          f"phase 11: one board of {cap} B holds {CONFIG}'s tables")
+    try:
+        partition_tables(cfg, np.ones(cfg.num_tables), 1, cap, tb)
+        check(False, "phase 11: the one-board partition did not raise")
+    except ValueError:
+        pass
+    check(max(peaks.values()) < 80.0,
+          f"phase 11: the fleet benches peaked at {peaks} GB")
+    for kernel in ("fused_bag_interactions", "embedding_bag"):
+        check(sections.get(kernel, 0) > 0,
+              f"phase 11: the fleet benches launched no {kernel}")
+    for kernel in ("flash_attention", "flash_decode"):
+        check(examples.get(kernel, 0) > 0,
+              f"phase 11: lm_mini launched no {kernel}")
+    failed = [f"{n}:{c['name']}" for n, a in arts.items()
+              for c in a["claims"] if not c["ok"]]
+    wall = time.perf_counter() - t0
+    print(f"[bench] phase 11 fleet benches: "
+          f"{sum(len(a['claims']) for a in arts.values())} claims, speed "
+          f"and quality claims not met on this card: {failed or 'none'}; "
+          f"section codes {codes}; peaks "
+          f"{ {k: round(v, 2) for k, v in peaks.items()} } GB; launches "
+          f"{sections} (examples {examples}); {wall:.1f} s ({card})")
+    check(wall <= BENCH_FLEET_PHASE_S,
+          f"phase 11's fleet benches took {wall:.1f} s, over "
+          f"{BENCH_FLEET_PHASE_S} s")
 
 
 def build_all():

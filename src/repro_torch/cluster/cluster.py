@@ -191,11 +191,16 @@ class Cluster:
                  autoscaler: Optional[SLAAutoscaler] = None,
                  monitor: Optional[HitRatioMonitor] = None,
                  pipeline_depth: Optional[int] = None,
+                 service_scales: Optional[Sequence[float]] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  verbose: bool = False, device: DeviceArg = None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        if service_scales is not None and len(service_scales) != n_replicas:
+            raise ValueError(
+                f"service_scales must have one entry per replica "
+                f"({n_replicas}), got {len(service_scales)}")
         self.cfg = cfg
         self.query_size = int(query_size or cfg.batch_size)
         self.verbose = verbose
@@ -228,6 +233,8 @@ class Cluster:
             pipeline_depth=pipeline_depth)
         self.replicas: List[Replica] = [
             Replica(rid, cfg, slice_devices(pool, rid, dpr),
+                    service_scale=(service_scales[rid]
+                                   if service_scales is not None else 1.0),
                     **self._replica_kw)
             for rid in range(n_replicas)]
         self._next_rid = n_replicas

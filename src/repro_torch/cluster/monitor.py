@@ -62,12 +62,17 @@ class HitRatioMonitor:
                  window: int = 24, refresh_threshold: float = 0.7,
                  cooldown_queries: int = 24, profile_batches: int = 4,
                  model_cfg: Optional[DLRMConfig] = None,
+                 enabled: bool = True,
                  service_multiplier: Optional[
                      Union[float, Callable[[float], float],
                            str, os.PathLike]] = None,
                  device: DeviceArg = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # off: the hit ratio is still tracked, but the monitor never
+        # resets its counts or refreshes (the refresh-off arm of a drift
+        # comparison)
+        self.enabled = enabled
         self.hot_per_table = max(1, int(hot_fraction * cfg.rows_per_table))
         self.refresh_threshold = float(refresh_threshold)
         self.cooldown_queries = int(cooldown_queries)
@@ -130,7 +135,7 @@ class HitRatioMonitor:
         self._seen += 1
         self._hit_by_qid[qid] = h
         self.history.append((now, h))
-        if (self._degraded_at is None
+        if (self.enabled and self._degraded_at is None
                 and len(self._window) == self._window.maxlen
                 and self.windowed_hit_ratio()
                 < self.refresh_threshold * self.baseline):
@@ -152,7 +157,8 @@ class HitRatioMonitor:
 
     # -- refresh policy -------------------------------------------------------
     def should_refresh(self) -> bool:
-        return (self._degraded_at is not None
+        return (self.enabled
+                and self._degraded_at is not None
                 and self._seen - self._degraded_at >= self.cooldown_queries)
 
     def refresh(self, now: float) -> None:

@@ -76,9 +76,13 @@ class Replica:
                  alpha: float = 0.0, seed: int = 0,
                  max_batch_queries: int = 4, max_wait_ms: float = 2.0,
                  query_size: Optional[int] = None, params=None,
-                 pipeline_depth: Optional[int] = None):
+                 pipeline_depth: Optional[int] = None,
+                 service_scale: float = 1.0):
         self.rid = rid
         self.devices = list(devices)
+        # fixed per-board slowdown (straggler/degraded board, the serving
+        # analogue of runtime/straggler.py): scales every service time
+        self.service_scale = float(service_scale)
         self.mesh = submesh(self.devices, model_axis)
         self.device = self.mesh[0]
         # the plan is resolved ONCE at cluster level and passed concrete
@@ -140,15 +144,17 @@ class Replica:
         free. Service time is a REAL device execution on this replica's
         device (``ServeSession._execute``, timed to the end of the device's
         work), scaled by ``service_scale`` (the hit-ratio monitor's
-        memory-tier retiming; 1.0 = measured time as-is).
+        memory-tier retiming; 1.0 = measured time as-is) and by the
+        board's own ``service_scale``.
         """
         futs = self.batcher.drain()
         if not futs:
             return []
         probs, service, stall = self.session._execute(
             [f.query for f in futs])
-        service *= float(service_scale)
-        stall *= float(service_scale)
+        scale = float(service_scale) * self.service_scale
+        service *= scale
+        stall *= scale
         start = max(trigger, self.free)
         done = start + service
         self.free = done

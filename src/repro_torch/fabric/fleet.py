@@ -187,12 +187,16 @@ class FabricBoard:
                  whole_tids: Sequence[int], split_ranges: RowRanges,
                  params, tables_host: torch.Tensor, *,
                  model_axis: int = 1, max_batch_queries: int = 4,
-                 max_wait_ms: float = 2.0, staging: StagingRing):
+                 max_wait_ms: float = 2.0, staging: StagingRing,
+                 service_scale: float = 1.0):
         self.rid = rid
         self.cfg = cfg
         self.devices = list(devices)
         self.mesh = submesh(self.devices, model_axis)
         self.device = self.mesh[0]
+        # fixed per-board slowdown (a straggler board): scales every
+        # measured device time
+        self.service_scale = float(service_scale)
         self.dense_params = _on({"bot_mlp": params["bot_mlp"],
                                  "top_mlp": params["top_mlp"]}, self.device)
         self.batcher = MicroBatcher(int(max_batch_queries), max_wait_ms / 1e3)
@@ -295,9 +299,9 @@ class FabricBoard:
 
     def _timed(self, key: tuple, fn: Callable[[], torch.Tensor]
                ) -> Tuple[torch.Tensor, float]:
-        """(fn(), seconds of its device work alone). The first call of a
-        (role, shape) key runs once untimed first (the reference's
-        compile-once warm-up)."""
+        """(fn(), seconds of its device work alone x ``service_scale``).
+        The first call of a (role, shape) key runs once untimed first (the
+        reference's compile-once warm-up)."""
         if key not in self.warmed:
             fn()
             self.warmed.add(key)
@@ -305,13 +309,13 @@ class FabricBoard:
         t0 = time.perf_counter()
         out = fn()
         self._sync()
-        return out, time.perf_counter() - t0
+        return out, (time.perf_counter() - t0) * self.service_scale
 
     def lookup(self, indices_local: torch.Tensor
                ) -> Tuple[torch.Tensor, float]:
         """Bag-reduce this board's whole owned tables for a batch slice
         with row 4: (B, T_own, L) ids in owned-table order -> ((B, T_own,
-        d) pooled part, measured seconds)."""
+        d) pooled part, measured seconds x service_scale)."""
         idx = indices_local.to(self.device, torch.int32).contiguous()
         return self._timed(("lookup", tuple(idx.shape)),
                            lambda: ops.embedding_bag(self.tables, idx))
@@ -349,7 +353,8 @@ class FabricBoard:
     def dense_forward(self, dense: torch.Tensor, pooled: torch.Tensor
                       ) -> Tuple[np.ndarray, float]:
         """Bottom MLP + interactions + top MLP + sigmoid on this board's
-        device, plain torch; returns (probs (B,), measured seconds)."""
+        device, plain torch; returns (probs (B,), measured seconds x
+        service_scale)."""
         dense = dense.to(self.device)
         pooled = pooled.to(self.device)
         probs, t = self._timed(
@@ -424,12 +429,17 @@ class ShardedFleet:
                  router: Union[str, Router] = "round_robin",
                  autoscaler: Optional[SLAAutoscaler] = None,
                  min_shard_rows: int = 1,
+                 service_scales: Optional[Sequence[float]] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  params: Optional[dict] = None,
                  verbose: bool = False, device: DeviceArg = None):
         if n_boards < 1:
             raise ValueError(f"n_boards must be >= 1, got {n_boards}")
+        if service_scales is not None and len(service_scales) != n_boards:
+            raise ValueError(
+                f"service_scales must have one entry per board "
+                f"({n_boards}), got {len(service_scales)}")
         self.cfg = cfg
         self.query_size = int(query_size or cfg.batch_size)
         self.verbose = verbose
@@ -475,9 +485,10 @@ class ShardedFleet:
         self.host_copy_s = 0.0       # wall seconds of that copy
 
         # -- partition: profiled access stats -> row-range ownership ---------
-        self.row_freq = te.measure_row_freq(
-            cfg, alpha, seed, n_batches=profile_batches,
-            device=self.device).cpu().numpy()
+        # the profile on the device warms each board's cache there
+        self._row_freq_dev = te.measure_row_freq(
+            cfg, alpha, seed, n_batches=profile_batches, device=self.device)
+        self.row_freq = self._row_freq_dev.cpu().numpy()
         row_bytes = cfg.embed_dim * tables.element_size()
         table_bytes = [cfg.rows_per_table * row_bytes] * cfg.num_tables
         if board_capacity_bytes is None:
@@ -500,7 +511,10 @@ class ShardedFleet:
                               max_batch_queries=max_batch_queries,
                               max_wait_ms=max_wait_ms)
         self.boards: List[FabricBoard] = [
-            self._new_board(b, *self._residency_of(self.partition, b))
+            self._new_board(b, *self._residency_of(self.partition, b),
+                            service_scale=(service_scales[b]
+                                           if service_scales is not None
+                                           else 1.0))
             for b in range(n_boards)]
 
         # -- per-board LFU caches of remote hot rows -------------------------
@@ -526,15 +540,15 @@ class ShardedFleet:
         return len(self.boards)
 
     # -- residency + cache plumbing ------------------------------------------
-    def _new_board(self, rid: int, whole: List[int],
-                   ranges: RowRanges) -> FabricBoard:
+    def _new_board(self, rid: int, whole: List[int], ranges: RowRanges,
+                   service_scale: float = 1.0) -> FabricBoard:
         devs = slice_devices(self._pool, rid, self._dpb)
         dev = resolve_device(devs[0])
         if dev not in self._staging:
             self._staging[dev] = StagingRing(dev, self._tables_host.dtype)
         return FabricBoard(rid, self.cfg, devs, whole, ranges, self._params,
                            self._tables_host, staging=self._staging[dev],
-                           **self._board_kw)
+                           service_scale=service_scale, **self._board_kw)
 
     @staticmethod
     def _residency_of(pm: ShardMap, rid: int
@@ -558,8 +572,9 @@ class ShardedFleet:
                else int(np.ceil(0.1 * int(np.count_nonzero(remote)))))
         cache = RemoteRowCache(self.cfg, remote, capacity_rows=cap,
                                enabled=self._cache_enabled_arg,
+                               device=self.boards[rid].device,
                                **self._cache_kw)
-        cache.warm(self.row_freq)
+        cache.warm(self._row_freq_dev)
         return cache
 
     # -- elastic re-partitioning ---------------------------------------------

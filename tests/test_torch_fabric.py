@@ -430,6 +430,31 @@ def test_zipf_drift_re_election_matches_the_reference(shared):
         _same_cache(pc, jc)
 
 
+def test_cache_state_lives_on_the_board_device():
+    """The (T, R) state sits on the board's device in torch tensors; the
+    numpy readers are views of it on the CPU, and ``nbytes`` counts it."""
+    _, cfg = _cfgs()
+    fleet = pf.ShardedFleet(cfg, n_boards=2, alpha=ALPHA, device="cpu")
+    T, R = cfg.num_tables, cfg.rows_per_table
+    for b, c in zip(fleet.boards, fleet.caches):
+        assert c.device == b.device
+        for t, dtype in ((c._counts_t, torch.int64),
+                         (c._cached_t, torch.bool),
+                         (c._remote_t, torch.bool),
+                         (c._last_used_t, torch.float64)):
+            assert t.device == b.device and t.dtype == dtype
+            assert tuple(t.shape) == (T, R)
+        assert c.nbytes == T * R * (8 + 1 + 1 + 8)
+        view = c._cached
+        assert isinstance(view, np.ndarray)
+        assert np.shares_memory(view, c._cached_t.numpy())
+        np.testing.assert_array_equal(c._remote,
+                                      ~fleet.partition.owned_mask(b.rid))
+    assert fleet._row_freq_dev.device == fleet.device
+    np.testing.assert_array_equal(fleet._row_freq_dev.numpy(),
+                                  fleet.row_freq)
+
+
 # ---------------------------------------------------------------------------
 # Within the port: k boards serve bit-identically to one full board
 # ---------------------------------------------------------------------------

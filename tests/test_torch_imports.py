@@ -17,6 +17,14 @@ BENCH_SOURCES = sorted(p for d in BENCH_DIRS for p in d.glob("*.py"))
 SOURCES = (sorted(PORT.rglob("*.py")) + BENCH_SOURCES
            + [REPO / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "examples")
+# the fleet, host-tier and online benches and the last three examples:
+# each must be among the sources the checks below walk
+FLEET_MODULES = (
+    "benchmarks_torch._fleet", "benchmarks_torch.bench_cluster",
+    "benchmarks_torch.bench_fabric", "benchmarks_torch.bench_elastic",
+    "benchmarks_torch.bench_hoststore", "benchmarks_torch.bench_online",
+    "examples_torch.cluster_sla", "examples_torch.fabric_sharding",
+    "examples_torch.lm_mini")
 # The training slice's modules: each must exist and import alone, in a
 # fresh interpreter, without JAX or the JAX package.
 TRAINING_MODULES = (
@@ -86,6 +94,8 @@ def test_bench_and_example_modules_import_without_jax_or_repro():
     names = [f"{p.parent.name}.{p.stem}" if p.stem != "__init__"
              else p.parent.name for p in BENCH_SOURCES]
     assert len(names) >= 16, names
+    assert set(FLEET_MODULES) <= set(names), sorted(
+        set(FLEET_MODULES) - set(names))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), str(REPO)]))
     proc = subprocess.run([sys.executable, "-c", code, *names],
