@@ -113,6 +113,28 @@ Phases; any failure exits non-zero:
      both wire modes (SGD 3 steps, AdaGrad 2, depth 1), its losses, MLPs
      and touched rows (and accumulators) equal to a table-wise session's
      from the same seed and stream, no kernel launched;
+     8d. DLRM over k ranks sharing the card (ROADMAP A6b-i): the 1-rank
+     composed session (``fused_serve="off"``, depth 8) serves 8 queries
+     of the alpha 1.05 stream and SGD (3 steps) and AdaGrad (2) sessions
+     train, their probs and touched rows kept on the host and the
+     sessions freed; then gloo ranks spawned with ``torch.multiprocessing``
+     (a FileStore under ``build/ranks/``), every rank on ``cuda:0``, each
+     drawing only its shards of the 1-rank init: k = 2 on mesh (2,) runs
+     (a) table-wise serving (row 4 is each owner's pool), (c)
+     ``dlrm-rm2-small-sharded`` serving in both wire modes, (d) SGD and
+     AdaGrad training, (f) 5 steps at ``reduced()`` with the int8
+     error-feedback all-reduce against none (atol 5e-3; its residuals
+     non-zero and its MLPs not the uncompressed ones); k = 4 on mesh
+     (2, 2) runs (b) an auto plan's tiered serving over ("data",
+     "model") and (e) SGD with ``dp_axes=("data",)``. The
+     parent holds every rank's probs (rtol 2e-5, atol 2e-6) and the
+     joined touched rows, MLPs, losses and accumulators (2e-5) against
+     the 1-rank sessions, dp replicas bitwise equal, row 4's launches on
+     every rank (depth x queries serving table-wise or tiered, steps
+     training, none row-wise), the ranks' summed peak under 80 GB and
+     the phase under ``RANKS_PHASE_S``; it prints each case's per-flush
+     service time, labelled as ranks sharing one card over gloo (not a
+     scale-out time), and the collectives by the tensors' device;
   9. checkpoint at step 4 -> resume -> 4 more steps equals an
      uninterrupted 8-step run, on the card at ``cfg.reduced()`` size;
      9b. the replicated fleet at full width (``repro_torch.cluster``):
@@ -309,7 +331,9 @@ training step keeps only whole traces (each device event a whole multiple
 of the flushes or steps; up to 5 tries, else "not measured"), as the
 kernel timings do; phase 4c's row-wise sessions are profiled too. The
 line before the last holds the per-kernel JSON (every TPU kernel of the
-JAX package, all nine ported); the last line is ``{"ok": true,
+JAX package, all nine ported; row 4's ``launches`` include phase 8d's,
+the ranks' summed over every rank and case, also given apart as
+``ranks_launches``); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package
 ``repro``.
 """
@@ -380,6 +404,25 @@ TIME_DECODE_B = 16
 ROW_WISE_CONFIG = "dlrm-rm2-small-sharded"
 ROW_WISE_MODES = ("partial_pool", "unpooled")
 ROW_WISE_TRAIN = (("sgd", 0.01, 3), ("adagrad", 1e-3, 2))   # opt, lr, steps
+# Phase 8d, k ranks sharing the card (ROADMAP A6b-i): gloo ranks spawned
+# on a FileStore under build/, each on cuda:(LOCAL_RANK % device_count);
+# the queries each case serves (one a flush) from the alpha = 1.05
+# stream, the dp_axes run's SGD steps, the compressed run's steps at
+# reduced(), the phase's wall budget and each spawn's limit. The serve
+# probs and the trained values are held at the reference's own k-device
+# tolerances (tests/test_dlrm_distributed.py): probs rtol 2e-5, atol
+# 2e-6; params rtol = atol = 2e-5; compressed losses atol 5e-3.
+RANKS_QUERIES = 8
+RANKS_DEPTH = 8          # pinned: each rank clamps it to a divisor of its
+RANKS_ALPHA = 1.05       # 200 / k samples (5 at k = 2 and 4)
+RANKS_DP_STEPS = 2
+RANKS_COMPRESS_STEPS = 5
+RANKS_COMPRESS_LR = 0.05
+RANKS_PHASE_S = 150.0
+RANKS_SPAWN_S = 120.0
+RANKS_PROBS_TOL = dict(rtol=2e-5, atol=2e-6)
+RANKS_TRAIN_TOL = dict(rtol=2e-5, atol=2e-5)
+RANKS_COMPRESS_ATOL = 5e-3
 # phase 9b, the replicated fleet: the autoscaler's p99 threshold in units
 # of a 4-query flush's service time, the flash crowd's span of virtual
 # time (seed 0's first burst is 2.33-3.03 s), plan="auto"'s query count
@@ -2823,27 +2866,12 @@ def phase_row_wise_train(card):
             check(not any(ops.launch_counts.values()),
                   f"{label}: training launched {dict(ops.launch_counts)}")
             if rows is None:            # every row the steps looked up
-                from repro_torch.data.recsys import make_recsys_batch
-                ids = torch.cat([make_recsys_batch(c, s)["indices"]
-                                 for s in range(steps)])
-                rows = [torch.unique(ids[:, t].reshape(-1))
-                        for t in range(c.num_tables)]
-            tables = sess.params["tables"]
-            got = {"loss": torch.tensor([h["loss"] for h in rep.history]),
-                   "tables": torch.cat([tables[t].index_select(0, r).cpu()
-                                        for t, r in enumerate(rows)]),
-                   **{f"{k}/{i}/{n}": v.detach().cpu()
-                      for k in ("bot_mlp", "top_mlp")
-                      for i, layer in enumerate(sess.params[k])
-                      for n, v in layer.items()}}
-            if optimizer == "adagrad":
-                acc = sess.opt_state["table_acc"]
-                got["table_acc"] = torch.cat(
-                    [acc[t].index_select(0, r).cpu()
-                     for t, r in enumerate(rows)])
-                del acc
+                rows = touched_rows(c, steps, None)
+            got = train_snapshot(sess.params, sess.opt_state, rows,
+                                 range(c.num_tables),
+                                 [h["loss"] for h in rep.history])
             seen[label] = got
-            del sess, tables
+            del sess
             torch.cuda.empty_cache()
         want = seen.pop("table-wise")
         for label, got in seen.items():
@@ -2861,6 +2889,418 @@ def phase_row_wise_train(card):
                       f"table-wise session's")
     peak_line(f"phase 8c (row-wise training; "
               f"{time.perf_counter() - t0:.1f} s)")
+
+
+def touched_rows(cfg, steps, device):
+    """Per table, the sorted ids the first ``steps`` batches of the seed-0,
+    alpha-0 training stream look up."""
+    from repro_torch.data.recsys import make_recsys_batch
+    ids = torch.cat([make_recsys_batch(cfg, s, device=device)["indices"]
+                     for s in range(steps)])
+    return [torch.unique(ids[:, t].reshape(-1)) for t in range(
+        cfg.num_tables)]
+
+
+def train_snapshot(params, opt_state, rows, table_ids, losses):
+    """What phases 8c and 8d hold of a training session, on the host: the
+    losses, the MLPs, and the rows ``rows[t]`` (and AdaGrad accumulators)
+    of the tables ``table_ids`` (the session's local tables, in order)."""
+    tables = params["tables"]
+    got = {"loss": torch.tensor(losses, dtype=torch.float64),
+           "tables": torch.cat([tables[i].index_select(
+               0, rows[t].to(tables.device)).cpu()
+               for i, t in enumerate(table_ids)]),
+           **{f"{k}/{i}/{n}": v.detach().to("cpu", copy=True)
+              for k in ("bot_mlp", "top_mlp")
+              for i, layer in enumerate(params[k])
+              for n, v in layer.items()}}
+    if opt_state is not None and "table_acc" in opt_state:
+        acc = opt_state["table_acc"]
+        got["table_acc"] = torch.cat([acc[i].index_select(
+            0, rows[t].to(acc.device)).cpu()
+            for i, t in enumerate(table_ids)])
+    return got
+
+
+def rank_serve(eng, label):
+    """One rank's serving case: RANKS_QUERIES queries, one a flush, the
+    row-4 launches counted around them."""
+    from repro_torch.kernels import ops
+    sess = eng.serve_session(max_batch_queries=1)
+    sess._ensure_warm()
+    depth = sess.depth_for_samples(sess.query_size)
+    ops.reset_launch_counts()
+    probs, service = [], []
+    for q in range(RANKS_QUERIES):
+        p, s, _ = sess._execute([sess._make_query(q)])
+        probs.append(torch.from_numpy(p))
+        service.append(s)
+    launches = ops.launch_counts["embedding_bag"]
+    other = {k: v for k, v in ops.launch_counts.items()
+             if v and k != "embedding_bag"}
+    groups = getattr(sess.exchange, "groups", None)
+    out = {"probs": torch.cat(probs), "service_s": service, "depth": depth,
+           "launches": launches, "other_launches": other,
+           "serve_kernel": sess.serve_kernel,
+           "fast_tables": len(groups.fast_ids) if groups else 0,
+           "used_bytes": card_used_bytes()}
+    del sess, groups
+    free_case()
+    return out
+
+
+def rank_train(eng, label, steps, rows):
+    """One rank's training case: ``steps`` steps, the row-4 launches
+    counted, the snapshot of this rank's tables at ``rows``."""
+    from repro_torch.kernels import ops
+    sess = eng.train_session()
+    ops.reset_launch_counts()
+    losses = [h["loss"] for h in sess.run(steps).history]
+    table_ids = sess.exchange_inst.shards()["tables"][0]
+    out = {"snap": train_snapshot(sess.params, sess.opt_state, rows,
+                                  table_ids, losses),
+           "launches": ops.launch_counts["embedding_bag"],
+           "depth": sess.pipeline_depth, "table_ids": table_ids,
+           "used_bytes": card_used_bytes()}
+    del sess
+    free_case()
+    return out
+
+
+def free_case():
+    """Return a finished case's memory to the card: the ranks share it,
+    and what one rank's allocator keeps cached the others cannot use."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_used_bytes():
+    """The card's used memory now, every process's."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def rank_compressed(cfg, mesh):
+    """(f): the reduced config over 2 ranks, RANKS_COMPRESS_STEPS steps
+    uncompressed and compressed: the losses, the MLPs and, compressed,
+    the largest error-feedback residual."""
+    from repro_torch.engine import Engine
+    out = {}
+    for label, compress in (("plain", False), ("compressed", True)):
+        sess = Engine(cfg, mesh=mesh, axis=("model",), lr=RANKS_COMPRESS_LR,
+                      compress_grads=compress).train_session()
+        rep = sess.run(RANKS_COMPRESS_STEPS)
+        out[label] = {
+            "loss": [h["loss"] for h in rep.history],
+            "mlps": [v.detach().to("cpu", copy=True)
+                     for k in ("bot_mlp", "top_mlp")
+                     for layer in sess.params[k] for v in layer.values()]}
+        if compress:
+            out[label]["ef_max"] = max(
+                float(e.abs().max()) for k in ("bot_mlp", "top_mlp")
+                for layer in sess.opt_state["ef"][k] for e in layer.values())
+        del sess
+        free_case()
+    return out
+
+
+def rank_main(rank, world, store, out_dir, job):
+    """A spawned rank of phase 8d: joins the gloo world on ``store``, runs
+    ``job`` ("k2" or "k4") and writes its results (or its traceback) under
+    ``out_dir``. It checks nothing itself: the parent holds the results."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.configs import get_dlrm
+        from repro_torch.engine import Engine
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import primitives as prim
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_dlrm(CONFIG)
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+        if job == "k2":
+            mesh = make_mesh((2,), ("model",))
+            axis = ("model",)
+            res["a"] = rank_serve(Engine(cfg, mesh=mesh, axis=axis,
+                                         fused_serve="off", alpha=RANKS_ALPHA,
+                                         pipeline_depth=RANKS_DEPTH), "a")
+            for mode in ROW_WISE_MODES:
+                res[f"c/{mode}"] = rank_serve(Engine(
+                    get_dlrm(ROW_WISE_CONFIG), mesh=mesh, axis=axis,
+                    exchange=mode, alpha=RANKS_ALPHA,
+                    pipeline_depth=RANKS_DEPTH), f"c/{mode}")
+            rows = touched_rows(cfg, max(s for _, _, s in ROW_WISE_TRAIN),
+                                None)
+            for optimizer, lr, steps in ROW_WISE_TRAIN:
+                res[f"d/{optimizer}"] = rank_train(Engine(
+                    cfg, mesh=mesh, axis=axis, optimizer=optimizer, lr=lr),
+                    f"d/{optimizer}", steps, rows)
+            res["f"] = rank_compressed(cfg.reduced(), mesh)
+        else:
+            mesh = make_mesh((2, 2), ("data", "model"))
+            res["b"] = rank_serve(Engine(cfg, mesh=mesh, plan="auto",
+                                         alpha=RANKS_ALPHA,
+                                         pipeline_depth=RANKS_DEPTH), "b")
+            rows = touched_rows(cfg, RANKS_DP_STEPS, None)
+            res["e"] = rank_train(Engine(
+                cfg, mesh=mesh, axis=("model",), dp_axes=("data",),
+                optimizer="sgd", lr=ROW_WISE_TRAIN[0][1]), "e",
+                RANKS_DP_STEPS, rows)
+        res["wall_s"] = time.perf_counter() - t0
+        res["calls"] = dict(prim.call_counts)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.save(res, os.path.join(out_dir, f"{job}-{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"{job}-{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def spawn_ranks(job, world):
+    """Spawn ``world`` ranks of ``job`` (``torch.multiprocessing``'s spawn
+    start method, gloo on a FileStore under build/), wait for every one
+    within RANKS_SPAWN_S, and return their results by rank. A rank that
+    fails, dies or hangs fails the phase (a hung one is killed first)."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(BUILD_DIR, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, f"{job}.store")
+    for name in [f"{job}.store"] + [f"{job}-{r}.{x}" for r in range(world)
+                                    for x in ("pt", "err")]:
+        if os.path.exists(os.path.join(out_dir, name)):
+            os.unlink(os.path.join(out_dir, name))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, store, out_dir, job))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANKS_SPAWN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    errs = "".join(open(os.path.join(out_dir, f"{job}-{r}.err")).read()
+                   for r in range(world)
+                   if os.path.exists(os.path.join(out_dir, f"{job}-{r}.err")))
+    if errs:
+        print(errs, file=sys.stderr)
+    check(not hung, f"phase 8d {job}: {len(hung)} of {world} ranks still "
+                    f"running after {RANKS_SPAWN_S} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 8d {job}: rank exit codes {[p.exitcode for p in procs]}")
+    print(f"[ranks] {job}: {world} ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(out_dir, f"{job}-{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def ranks_reference():
+    """The 1-rank sessions phase 8d holds the ranks against: the composed
+    (fused_serve="off") serve session's probs of the RANKS_QUERIES queries,
+    and the training sessions of ROW_WISE_TRAIN (the SGD one also after
+    RANKS_DP_STEPS steps) at their touched rows, on the host. Each
+    session is freed before the next."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine import Engine
+    cfg = get_dlrm(CONFIG)
+    sess = Engine(cfg, fused_serve="off", alpha=RANKS_ALPHA,
+                  pipeline_depth=RANKS_DEPTH).serve_session(
+                      max_batch_queries=1)
+    check(sess.serve_kernel == "composed", "phase 8d: the 1-rank "
+                                           "reference must serve composed")
+    ref = {"probs": torch.cat([torch.from_numpy(
+        sess._execute([sess._make_query(q)])[0])
+        for q in range(RANKS_QUERIES)]),
+        "depth": sess.depth_for_samples(sess.query_size)}
+    del sess
+    torch.cuda.empty_cache()
+    steps_max = max(s for _, _, s in ROW_WISE_TRAIN)
+    rows = {n: touched_rows(cfg, n, None)
+            for n in (steps_max, RANKS_DP_STEPS)}
+    all_ids = tuple(range(cfg.num_tables))
+    for optimizer, lr, steps in ROW_WISE_TRAIN:
+        sess = Engine(cfg, optimizer=optimizer, lr=lr).train_session()
+        losses = []
+        for s in range(steps):
+            losses.append(sess.run(1).history[0]["loss"])
+            if optimizer == "sgd" and s + 1 == RANKS_DP_STEPS:
+                ref["e"] = train_snapshot(sess.params, sess.opt_state,
+                                          rows[RANKS_DP_STEPS], all_ids,
+                                          list(losses))
+        ref[f"d/{optimizer}"] = train_snapshot(
+            sess.params, sess.opt_state, rows[steps_max], all_ids, losses)
+        del sess
+        torch.cuda.empty_cache()
+    return ref
+
+
+def joined_snapshot(runs, n_embed):
+    """The ranks' snapshots joined in table order: the first ``n_embed``
+    ranks hold the table shards in order; every other rank must hold its
+    replica's bitwise."""
+    snaps = [r["snap"] for r in runs]
+    for j, snap in enumerate(snaps):
+        for k, v in snap.items():
+            same = snaps[j % n_embed if k in ("tables", "table_acc")
+                         else 0][k]
+            check(torch.equal(v, same), f"rank {j}'s {k} differs from its "
+                                        f"replica's")
+    out = dict(snaps[0])
+    for k in ("tables", "table_acc"):
+        if k in out:
+            out[k] = torch.cat([s[k] for s in snaps[:n_embed]])
+    return out
+
+
+def phase_ranks(card):
+    """Phase 8d: DLRM over k ranks sharing the card (ROADMAP A6b-i). The
+    1-rank references first (their sessions freed), then two spawns of
+    gloo ranks on cuda:0: k = 2 on mesh (2,) over ("model",) runs (a)
+    table-wise serving, (c) the sharded config serving in both wire
+    modes, (d) table-wise training (SGD 3 steps, AdaGrad 2) and (f) the
+    compressed dense all-reduce at reduced(); k = 4 on mesh (2, 2)
+    runs (b) an auto plan's tiered serving over ("data", "model") and
+    (e) SGD under axis=("model",), dp_axes=("data",). Every result is
+    held here, against the 1-rank sessions at the reference's
+    tolerances; row 4's launches on every
+    rank; the summed peak memory under 80 GB; the phase under
+    RANKS_PHASE_S. Its service times are k processes sharing one card over
+    gloo, not scale-out times. Returns (row 4's launches over every rank
+    and case, the per-case report)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ref = ranks_reference()
+    t_ref = time.perf_counter() - t0
+    parent_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    k2 = spawn_ranks("k2", 2)
+    k4 = spawn_ranks("k4", 4)
+    wall = time.perf_counter() - t0
+    label = (f"{card}; k ranks sharing one card over gloo, not a "
+             f"scale-out time")
+
+    def serve_case(name, runs, want_launches):
+        errs = []
+        for r in runs:
+            run = r[name]
+            got = run["probs"]
+            check(got.shape == ref["probs"].shape, f"8d {name}: shape")
+            check(torch.isfinite(got).all(), f"8d {name}: probs not finite")
+            errs.append(float((got - ref["probs"]).abs().max()))
+            check(torch.allclose(got, ref["probs"], **RANKS_PROBS_TOL),
+                  f"8d {name}: rank {r['rank']}'s probs differ from the "
+                  f"1-rank session's by {errs[-1]:.3e}")
+            want = want_launches(run)
+            check(run["launches"] == want,
+                  f"8d {name}: rank {r['rank']} launched row 4 "
+                  f"{run['launches']} times, want {want}")
+            check(not run["other_launches"],
+                  f"8d {name}: other kernels launched {run['other_launches']}")
+        svc = sorted(x * 1e3 for x in runs[0][name]["service_s"])
+        print(f"[ranks] ({name}) {len(runs)} ranks: probs max_abs_err "
+              f"{max(errs):.3e} vs the 1-rank composed session at depth "
+              f"{ref['depth']}, depth {runs[0][name]['depth']}, row 4 "
+              f"launches "
+              f"{[r[name]['launches'] for r in runs]}, per-flush service "
+              f"p50 {svc[len(svc) // 2]:.4f} ms, max {svc[-1]:.4f} ms "
+              f"({label})")
+        return {"launches": sum(r[name]["launches"] for r in runs),
+                "p50_ms": svc[len(svc) // 2], "max_abs_err": max(errs)}
+
+    def train_case(name, runs, want, n_embed):
+        got = joined_snapshot([r[name] for r in runs], n_embed)
+        err = max(float((got[k].double() - want[k].double()).abs().max())
+                  for k in want)
+        for k in want:
+            check(torch.allclose(got[k].double(), want[k].double(),
+                                 **RANKS_TRAIN_TOL),
+                  f"8d {name}: {k} differs from the 1-rank session's")
+        for r in runs:
+            run = r[name]
+            steps = len(want["loss"])
+            check(run["launches"] == steps * run["depth"],
+                  f"8d {name}: rank {r['rank']} launched row 4 "
+                  f"{run['launches']} times in {steps} steps at depth "
+                  f"{run['depth']}")
+        print(f"[ranks] ({name}) {len(runs)} ranks: losses "
+              f"{[round(float(x), 6) for x in got['loss']]}, "
+              f"{got['tables'].shape[0]} touched rows, max_abs_err "
+              f"{err:.3e} over losses, MLPs, touched rows"
+              f"{' and accumulators' if 'table_acc' in want else ''} vs the "
+              f"1-rank session, row 4 launches "
+              f"{[r[name]['launches'] for r in runs]} ({label})")
+        return {"launches": sum(r[name]["launches"] for r in runs),
+                "max_abs_err": err}
+
+    report = {
+        "a": serve_case("a", k2, lambda run: RANKS_QUERIES * run["depth"]),
+        "b": serve_case("b", k4, lambda run: RANKS_QUERIES * run["depth"]
+                        if run["fast_tables"] else 0)}
+    check(k4[0]["b"]["fast_tables"] > 0, "8d (b): the auto plan placed no "
+                                         "fast table")
+    for mode in ROW_WISE_MODES:
+        report[f"c/{mode}"] = serve_case(f"c/{mode}", k2, lambda run: 0)
+    for optimizer, _, _ in ROW_WISE_TRAIN:
+        report[f"d/{optimizer}"] = train_case(
+            f"d/{optimizer}", k2, ref[f"d/{optimizer}"], 2)
+    report["e"] = train_case("e", k4, ref["e"], 2)
+    for r in k2:
+        f = r["f"]
+        gap = max(abs(a - b) for a, b in zip(f["compressed"]["loss"],
+                                             f["plain"]["loss"]))
+        check(gap <= RANKS_COMPRESS_ATOL,
+              f"8d (f): compressed losses off the uncompressed by {gap:.3e}")
+        # the losses alone cannot tell compression from an identity: they
+        # agree to ulps; the residuals and the MLPs must show it ran
+        mlp_gap = max(float((a - b).abs().max()) for a, b in
+                      zip(f["compressed"]["mlps"], f["plain"]["mlps"]))
+        check(f["compressed"]["ef_max"] > 0,
+              f"8d (f): rank {r['rank']}'s error-feedback residuals are "
+              f"all zero")
+        check(mlp_gap > 0, f"8d (f): rank {r['rank']}'s compressed MLPs "
+                           f"equal the uncompressed ones")
+    print(f"[ranks] (f) 2 ranks, reduced(): {RANKS_COMPRESS_STEPS} "
+          f"compressed steps within {gap:.3e} of the uncompressed losses "
+          f"(limit {RANKS_COMPRESS_ATOL}); MLPs {mlp_gap:.3e} from the "
+          f"uncompressed ones, largest residual "
+          f"{k2[0]['f']['compressed']['ef_max']:.3e}")
+    calls = {k: sum(r["calls"][k] for r in k2 + k4)
+             for k in k2[0]["calls"]}
+    ranks_peak = {job: sum(r["peak_bytes"] for r in runs)
+                  for job, runs in (("k2", k2), ("k4", k4))}
+    used = max(v["used_bytes"] for r in k2 + k4 for v in r.values()
+               if isinstance(v, dict) and "used_bytes" in v)
+    print(f"[ranks] collectives over every rank, by the tensor's device: "
+          f"{ {k: v for k, v in calls.items() if v} } (gloo takes CUDA "
+          f"tensors; none is staged through the host by hand)")
+    print(f"[ranks] memory: 1-rank references peak {parent_peak / GB:.2f} "
+          f"GB; ranks' summed peaks k2 {ranks_peak['k2'] / GB:.2f} GB, k4 "
+          f"{ranks_peak['k4'] / GB:.2f} GB; card's used memory at most "
+          f"{used / GB:.2f} GB (every process, contexts included) "
+          f"({card})")
+    for job, peak in ranks_peak.items():
+        check(peak < 80 * GB, f"8d {job}: the ranks' summed peak "
+                              f"{peak / GB:.2f} GB is over the card's 80 GB")
+    launches = sum(v["launches"] for v in report.values())
+    print(f"[ranks] phase 8d: references {t_ref:.1f} s, {wall:.1f} s in all "
+          f"(budget {RANKS_PHASE_S} s); row 4 launched {launches} times over "
+          f"every rank and case ({card})")
+    check(wall <= RANKS_PHASE_S, f"phase 8d took {wall:.1f} s, over its "
+                                 f"{RANKS_PHASE_S} s budget")
+    return launches, report
 
 
 def phase_resume(dev):
@@ -5904,6 +6344,7 @@ def main() -> int:
     train = phase_train(dev, card)
     first_bad = phase_train_diverging(dev, card)
     phase_row_wise_train(card)
+    ranks_launches, _ = phase_ranks(card)
     phase_resume(dev)
     fleet = phase_fleet(dev, card)
     fabric, fabric_errs, held = phase_fabric(dev, card)
@@ -5928,7 +6369,7 @@ def main() -> int:
                 **tiered[0], **packed[0], **api_serve[0], **api_attention[0],
                 **blocked[0]}
     fabric_launches = sum(run["launches"] for run in fabric.values())
-    launches["embedding_bag"] += fabric_launches
+    launches["embedding_bag"] += fabric_launches + ranks_launches
     for name, n in online_launches.items():
         launches[name] += n
     for name, n in lm["launches"].items():
@@ -6017,7 +6458,8 @@ def main() -> int:
              "host_tier_pooling_step": host["pooling_step"],
              "host_tier_peak_gb": host["peak_gb"]}
             if name == "cached_embedding_bag" else {}),
-         **({"fabric_launches": fabric_launches}
+         **({"fabric_launches": fabric_launches,
+             "ranks_launches": ranks_launches}
             if name == "embedding_bag" else {}),
          **({"online_launches": online_launches[name]}
             if name in online_launches else {}),

@@ -8,7 +8,7 @@ a router. Each ``Replica`` owns
     replica's Engine/ServeSession build their serve step and place their
     params there, independent of every other replica. The port gives a
     board one device; more (``model_axis > 1`` or ``devices_per_replica
-    > 1``) is ROADMAP A6b;
+    > 1``) is ROADMAP A6b-ii;
   * a ``MicroBatcher`` + a virtual-clock busy horizon (``free``): the
     cluster event loop (``repro_torch.cluster.cluster``) drives flushes
     with explicit trigger times, exactly like ``ServeSession.
@@ -38,7 +38,7 @@ from repro_torch.engine.batching import MicroBatcher, QueryFuture
 from repro_torch.engine.engine import Engine
 from repro_torch.runtime.elastic import none_specs, remesh_tree
 
-MULTI_DEVICE = "ROADMAP A6b, k ranks"
+MULTI_DEVICE = "ROADMAP A6b-ii, boards of k ranks"
 
 
 def submesh(devices: Sequence, model_axis: int = 1) -> List[torch.device]:

@@ -32,26 +32,28 @@ def _uniform(shape: Tuple[int, ...], bound: float,
         -bound, bound, generator=generator)
 
 
-def _mlp_init(dims: Tuple[int, ...], d_in: int,
-              generator: torch.Generator) -> List[Dict[str, torch.Tensor]]:
-    layers = []
-    prev = d_in
-    for w in dims:
-        # DLRM's uniform(-sqrt(1/n), sqrt(1/n)), as the reference
-        bound = math.sqrt(1.0 / prev)
-        layers.append({"w": _uniform((prev, w), bound, generator),
-                       "b": _uniform((w,), bound, generator)})
-        prev = w
-    return layers
+def mlp_shapes(cfg: DLRMConfig
+               ) -> Dict[str, List[Dict[str, Tuple[int, ...]]]]:
+    """The shapes of the bottom and top MLPs' layers, {"w": (in, out),
+    "b": (out,)} each, in ``init_mlps``'s order."""
+    def layers(dims: Tuple[int, ...], d_in: int):
+        out, prev = [], d_in
+        for w in dims:
+            out.append({"w": (prev, w), "b": (w,)})
+            prev = w
+        return out
+
+    return {"bot_mlp": layers(cfg.bot_mlp_dims, cfg.num_dense),
+            "top_mlp": layers(cfg.top_mlp, cfg.top_mlp_in)}
 
 
 def init_mlps(cfg: DLRMConfig, generator: torch.Generator) -> Params:
     """The bottom and top MLPs of ``init_dlrm``: its first draws from
     ``generator``, so the tables follow them in the stream."""
-    return {
-        "bot_mlp": _mlp_init(cfg.bot_mlp_dims, cfg.num_dense, generator),
-        "top_mlp": _mlp_init(cfg.top_mlp, cfg.top_mlp_in, generator),
-    }
+    # DLRM's uniform(-sqrt(1/n), sqrt(1/n)), as the reference
+    return {k: [{n: _uniform(s, math.sqrt(1.0 / layer["w"][0]), generator)
+                 for n, s in layer.items()} for layer in layers]
+            for k, layers in mlp_shapes(cfg).items()}
 
 
 def draw_table(out: torch.Tensor, cfg: DLRMConfig,

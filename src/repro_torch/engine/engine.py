@@ -46,10 +46,17 @@ substrate's training session, AdamW over any of the ten archs:
 (``repro_torch.fabric``): boards that together hold one partitioned table
 set, on the engine's device.
 
-The port serves and trains DLRM, and trains the LM, on one device.
-Options of the reference's ``Engine`` that it does not carry (a mesh and
-more devices: ROADMAP A6b) raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Over k ranks (``torch.distributed``, gloo; ``launch.mesh``), every rank
+builds the same Engine and runs the same session loop on its own shard,
+as each device runs the reference's ``shard_map`` body:
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    eng = Engine(cfg, mesh=mesh, axis=("model",), dp_axes=("data",))
+
+``mesh=None`` is ``make_host_mesh(model_axis)`` over the world (one rank
+without a process group). DLRM serves and trains over k ranks; the LM,
+the sharded fleet and checkpoints take one rank, and more raise
+``NotImplementedError`` naming ROADMAP A6b-ii.
 """
 from __future__ import annotations
 
@@ -66,14 +73,16 @@ from repro_torch.engine.serving import ServeSession
 from repro_torch.engine.training import (HOST_TIER_CKPT, LMTrainSession,
                                         TrainSession)
 from repro_torch.hoststore import HostTieredExchange, build_host_exchange
+from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.parallel.build import AXIS
 from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
 PlanArg = Union[None, str, ShardingPlan]
 
 # The row-wise wire modes (the reference's ``RowWiseExchange``).
 _ROW_WISE_EXCHANGES = ("partial_pool", "unpooled")
-# The reference's default mesh axes of the embedding distribution.
-_AXIS = ("data", "model")
+# What a mesh of more than one rank does not carry yet.
+MULTI_RANK = "ROADMAP A6b-ii"
 
 
 def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
@@ -96,7 +105,7 @@ def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
 
 
 class Engine:
-    """Session factory over one DLRM or LM config on one device.
+    """Session factory over one DLRM or LM config, on one rank or k.
 
     Parameters
     ----------
@@ -147,9 +156,16 @@ class Engine:
                      overrides the link's terms.
     metrics        : the MetricsRegistry the host tier's swap tallies go
                      to (None: the process-wide ``default_registry()``).
-    mesh, axis, model_axis, dp_axes, compress_grads : the reference's
-                     multi-device options (ROADMAP A6b). Only their
-                     single-device defaults are accepted.
+    mesh           : a ``launch.mesh.Mesh`` of the world's ranks; None
+                     = ``make_host_mesh(model_axis)``.
+    axis           : the embedding axis (a name or a tuple of names) the
+                     tables are distributed over.
+    model_axis     : the "model" size of the default mesh.
+    dp_axes        : pure data-parallel axes the tables are replicated
+                     over (DLRM only); with ``axis`` they must cover the
+                     mesh without overlap.
+    compress_grads : the int8 error-feedback all-reduce of the dense
+                     grads (DLRM only; one rank too).
     """
 
     def __init__(self, cfg, *, plan: PlanArg = "none",
@@ -159,7 +175,7 @@ class Engine:
                  alpha: float = 0.0, device: DeviceArg = None,
                  exchange: str = "partial_pool", optimizer: str = "sgd",
                  lr: float = 0.01, verbose: bool = False,
-                 mesh=None, axis=_AXIS, model_axis: int = 1,
+                 mesh=None, axis=AXIS, model_axis: int = 1,
                  dp_axes: Tuple[str, ...] = (),
                  compress_grads: bool = False, host_capacity_mb=None,
                  host_chunk_rows: Optional[int] = None,
@@ -172,6 +188,32 @@ class Engine:
         if not self.is_dlrm:
             _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
                       host_capacity_mb)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, "
+                            f"got {type(mesh).__name__}")
+        self.mesh = mesh if mesh is not None else make_host_mesh(model_axis)
+        self.axis = (axis,) if isinstance(axis, str) else tuple(axis)
+        self.dp_axes = tuple(dp_axes)
+        self.compress_grads = bool(compress_grads)
+        missing = [a for a in self.dp_axes + self.axis
+                   if a not in self.mesh.shape]
+        if missing:
+            raise ValueError(f"axes {missing} not in mesh "
+                             f"{dict(self.mesh.shape)}")
+        if self.dp_axes:
+            if set(self.dp_axes) & set(self.axis):
+                raise ValueError(f"dp_axes {self.dp_axes} overlap the "
+                                 f"embedding axis {self.axis}")
+            covered = self.mesh.size(self.dp_axes + self.axis)
+            if covered != self.n_devices:
+                raise ValueError(
+                    f"dp_axes + axis = {self.dp_axes + self.axis} cover "
+                    f"{covered} devices but the mesh has {self.n_devices}; "
+                    f"the batch must shard over the whole mesh")
+        if not self.is_dlrm and self.n_devices > 1:
+            raise NotImplementedError(
+                f"the LM substrate over {self.n_devices} ranks is not "
+                f"ported yet ({MULTI_RANK})")
         if host_capacity_mb is not None:
             if host_capacity_mb <= 0:
                 raise ValueError(f"host_capacity_mb must be > 0, got "
@@ -181,17 +223,15 @@ class Engine:
                     "host_capacity_mb composes the memory tiers itself "
                     "(hot slab + chunk cache + host store); it requires "
                     "plan='none'")
+            if self.dp_axes or self.n_devices != 1:
+                raise ValueError(
+                    f"the host chunk tier is single-board (1 device); mesh "
+                    f"has {self.n_devices} devices. Scale out by giving "
+                    f"each fabric board its own Engine/host tier")
             if optimizer != "sgd":
                 raise ValueError(
                     "host-tier training is SGD-only (AdaGrad accumulators "
                     "would need their own chunked host tier)")
-        axis = (axis,) if isinstance(axis, str) else tuple(axis)
-        if (mesh is not None or axis != _AXIS or model_axis != 1 or dp_axes
-                or compress_grads):
-            raise NotImplementedError(
-                "a mesh or more than one device (mesh, axis, model_axis > "
-                "1, dp_axes, compress_grads) is not ported yet (ROADMAP "
-                "A6b, k ranks)")
         if exchange not in _ROW_WISE_EXCHANGES:
             raise ValueError(f"unknown row_wise exchange mode {exchange!r}")
         if optimizer not in ("sgd", "adagrad"):
@@ -224,23 +264,40 @@ class Engine:
         self._plan_arg: PlanArg = plan
         self._reports: Dict[str, PlanReport] = {}
 
+    @property
+    def n_devices(self) -> int:
+        """The ranks of the mesh."""
+        return self.mesh.size()
+
+    @property
+    def embed_devices(self) -> int:
+        """The ranks of the embedding axis: what the planner, the table
+        groups and the sparse optimizer state are sized against. Equals
+        ``n_devices`` unless ``dp_axes`` replicate the tables."""
+        return self.mesh.size(self.axis)
+
+    def _mesh_kw(self) -> dict:
+        return dict(mesh=self.mesh, axis=self.axis, dp_axes=self.dp_axes)
+
     # -- planning stage ----------------------------------------------------
     def build_plan(self, mode: str = "inference") -> Optional[ShardingPlan]:
         """Resolve the engine's ``plan=`` argument for a serving
         ("inference") or training mode. Auto plans are profiled once per
-        mode (on the engine's device) and cached; concrete plans are
-        reconciled against the one device."""
+        mode (on the engine's device; every rank profiles the same stream)
+        and cached; concrete plans are reconciled against the embedding
+        axis."""
         if self._plan_arg in (None, "none"):
             return None
         if isinstance(self._plan_arg, ShardingPlan):
-            return reconcile_plan_with_mesh(self._plan_arg, 1)
+            return reconcile_plan_with_mesh(self._plan_arg,
+                                            self.embed_devices)
         if mode not in self._reports:
             report = build_auto_plan(
-                self.cfg, 1, alpha=self.alpha, seed=self.seed,
-                fast_mb=self.fast_mb, mode=mode,
+                self.cfg, self.embed_devices, alpha=self.alpha,
+                seed=self.seed, fast_mb=self.fast_mb, mode=mode,
                 profile_batches=self.profile_batches, device=self.device)
             self._reports[mode] = report
-            if self.verbose:
+            if self.verbose and self.mesh.rank == 0:
                 print(report.summary())
         return self._reports[mode].plan
 
@@ -295,8 +352,9 @@ class Engine:
 
         def resolve(batch_samples: int) -> int:
             best, _ = resolve_depth_for_batch(
-                self.cfg, 1, batch_samples, mode=pmode, sharding=sharding,
-                exchange=exchange, hit_ratio=hit)
+                self.cfg, self.n_devices, batch_samples, mode=pmode,
+                sharding=sharding, exchange=exchange, hit_ratio=hit,
+                compress_grads=self.compress_grads)
             return best
 
         return resolve
@@ -306,7 +364,8 @@ class Engine:
         """The depth a session executes: the explicit engine setting, or
         the planner's choice (``PlanReport.pipeline_depth``) under an auto
         plan (else 1), clamped to the largest depth that splits the
-        batch into whole micro-batches."""
+        per-rank batch (``local_batch_samples``) into whole
+        micro-batches."""
         depth = self.pipeline_depth
         if depth is None:
             report = self._reports.get(mode)
@@ -342,11 +401,11 @@ class Engine:
         else:
             # a pinned depth, clamped to a divisor of the capacity batch
             qs = int(query_size or self.cfg.batch_size)
-            depth = self.resolve_pipeline_depth("inference",
-                                                max_batch_queries * qs)
+            depth = self.resolve_pipeline_depth(
+                "inference", (max_batch_queries * qs) // self.n_devices)
             resolver = None
         sess = ServeSession(
-            self.cfg, device=self.device, plan=plan,
+            self.cfg, device=self.device, plan=plan, **self._mesh_kw(),
             max_batch_queries=max_batch_queries, max_wait_ms=max_wait_ms,
             query_size=query_size, params=params, seed=self.seed,
             alpha=self.alpha, warmup=warmup,
@@ -370,6 +429,10 @@ class Engine:
         ``cache_rows``, ``router``, ...) forwards to ``ShardedFleet``."""
         if not isinstance(self.cfg, DLRMConfig):
             raise ValueError("sharded_fleet is DLRM-only")
+        if self.n_devices > 1:
+            raise NotImplementedError(
+                f"a sharded fleet over {self.n_devices} ranks is not ported "
+                f"yet ({MULTI_RANK})")
         from repro_torch.fabric import ShardedFleet
         return ShardedFleet(
             self.cfg, alpha=self.alpha, seed=self.seed,
@@ -398,9 +461,11 @@ class Engine:
         if ckpt_dir and self.host_capacity_mb is not None:
             raise NotImplementedError(HOST_TIER_CKPT)
         plan = self.build_plan("training")
-        depth = self.resolve_pipeline_depth("training", self.cfg.batch_size)
+        depth = self.resolve_pipeline_depth(
+            "training", self.cfg.batch_size // self.n_devices)
         return TrainSession(
-            self.cfg, device=self.device, plan=plan,
+            self.cfg, device=self.device, plan=plan, **self._mesh_kw(),
+            compress_grads=self.compress_grads,
             optimizer=self.optimizer, lr=self.lr, seed=self.seed,
             alpha=self.alpha, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
             ckpt_keep=ckpt_keep, pipeline_depth=depth,

@@ -33,7 +33,9 @@ from repro_torch.obs.attribution import AttributionLog, BlameReport
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.obs.trace import Tracer
-from repro_torch.parallel.build import build_step, shard_dlrm_params
+from repro_torch.parallel import primitives as prim
+from repro_torch.parallel.build import (AXIS, build_step, init_local_dlrm,
+                                        shard_dlrm_params)
 from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import plan_table_groups
 
@@ -96,7 +98,8 @@ def _report(lat_ms: Sequence[float], batch_sizes: Sequence[int], mode: str,
 
 
 class ServeSession:
-    """One served model instance on one device: params + step + batcher.
+    """One served model instance: params + step + batcher, on one rank or
+    on every rank of ``mesh``.
 
     Built by ``Engine.serve_session()``. Queries are fixed-size
     (``query_size`` samples each, the paper's "query of size B", Sec.
@@ -122,6 +125,13 @@ class ServeSession:
     the step, and its modeled swap stall is added to the measured service
     time. An exchange that holds the tables itself takes only the MLPs of
     ``params`` (a fresh init draws no tables).
+
+    ``mesh`` (``launch.mesh.Mesh``; None: one device), ``axis`` and
+    ``dp_axes``: every rank of the mesh builds the same session and runs
+    the same loop over the same queries; the step serves each rank's
+    slice of a flush and gathers the probs. A rank draws only its shards
+    of the init (``init_local_dlrm``) and takes its shards of given
+    stacked params. A flush's service time is the slowest rank's.
     """
 
     def __init__(self, cfg: DLRMConfig, *, device: DeviceArg = None,
@@ -135,7 +145,8 @@ class ServeSession:
                  depth_resolver: Optional[Callable[[int], int]] = None,
                  fused: bool = True,
                  exchange: Optional[EmbeddingExchange] = None,
-                 row_wise_exchange: str = "partial_pool"):
+                 row_wise_exchange: str = "partial_pool",
+                 mesh=None, axis=AXIS, dp_axes: Tuple[str, ...] = ()):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = plan
@@ -151,16 +162,26 @@ class ServeSession:
                              f"{pipeline_depth}")
         if self.max_batch_queries < 1:
             raise ValueError("max_batch_queries must be >= 1")
+        self.mesh = mesh
+        self._axis, self.dp_axes = axis, tuple(dp_axes)
+        full = self.dp_axes + ((axis,) if isinstance(axis, str)
+                               else tuple(axis))
+        self._n = 1 if mesh is None else mesh.size(full)
+        n_embed = 1 if mesh is None else mesh.size(axis)
+        self._world_group = None if mesh is None else mesh.group(
+            mesh.axis_names)
         fixed = self.pipeline_depth or 1
-        if (self.max_batch_queries * self.query_size) % fixed:
+        if (self.max_batch_queries * self.query_size) % (self._n * fixed):
             raise ValueError(
                 f"capacity batch {self.max_batch_queries}x{self.query_size} "
-                f"samples must divide into pipeline_depth={fixed} "
-                f"micro-batches")
+                f"samples must divide into {self._n} ranks x "
+                f"pipeline_depth={fixed} micro-batches")
         self._exch = (exchange if exchange is not None else
-                      make_exchange(cfg, plan=plan,
+                      make_exchange(cfg, n_embed, plan=plan,
                                     row_wise_exchange=row_wise_exchange,
-                                    device=self.device))
+                                    device=self.device,
+                                    group=None if mesh is None
+                                    else mesh.group(axis)))
         self._fused = bool(fused)
         self.serve_kernel = ("fused" if self._fused
                              and self._exch.supports_fused_forward()
@@ -170,12 +191,12 @@ class ServeSession:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = (dlrm_lib.init_mlps(cfg, gen) if self._exch.holds_tables
-                      else dlrm_lib.init_dlrm(cfg, gen))
+                      else init_local_dlrm(cfg, gen, self._exch))
         elif not self._exch.holds_tables:
             self._check_params(params)
         prepared = self._exch.init_session_params(params)
         self.params = (prepared if prepared is not None
-                       else shard_dlrm_params(params, plan))
+                       else shard_dlrm_params(params, plan, self._exch))
         self.batcher = MicroBatcher(self.max_batch_queries, max_wait_ms / 1e3)
         self._qid = 0
         self._warm = False
@@ -197,7 +218,7 @@ class ServeSession:
             if params[k].device != self.device:
                 raise ValueError(f"params lie on {params[k].device}, the "
                                  f"session on {self.device}")
-        if "tables" in params:
+        if "tables" in params or self._exch.n > 1:
             return
         # plan-split params: only accepted when the split matches THIS
         # session's plan groups, otherwise tables would land in the wrong
@@ -218,14 +239,15 @@ class ServeSession:
     # -- shapes ------------------------------------------------------------
     def _padded_count(self, n_queries: int) -> int:
         """Smallest query count >= n_queries whose sample total divides
-        into a pinned pipeline depth (exists because the capacity batch
-        does). A planner-resolved depth is clamped to the batch instead."""
+        into the ranks x a pinned pipeline depth (exists because the
+        capacity batch does). A planner-resolved depth is clamped to the
+        per-rank batch instead."""
         if n_queries > self.max_batch_queries:
             raise ValueError(
                 f"{n_queries} queries exceed the micro-batch capacity "
                 f"({self.max_batch_queries})")
         k = n_queries
-        while (k * self.query_size) % (self.pipeline_depth or 1):
+        while (k * self.query_size) % (self._n * (self.pipeline_depth or 1)):
             k += 1
         return k
 
@@ -233,15 +255,17 @@ class ServeSession:
         """The pipeline depth the step for this batch shape executes: the
         fixed session depth, or (pipeline_depth=None) the per-shape planner
         choice via ``depth_resolver``, clamped to the largest feasible
-        depth dividing the batch. Cached per shape, off the hot path."""
+        depth dividing the per-rank batch. Cached per shape, off the hot
+        path."""
         if self.pipeline_depth is not None:
             return self.pipeline_depth
         b = int(batch_samples)
         if b not in self._depth_by_samples:
+            local = max(1, b // self._n)
             depth = (self._depth_resolver(b)
                      if self._depth_resolver is not None else 1)
-            depth = max(1, min(int(depth), b))
-            while depth > 1 and b % depth:
+            depth = max(1, min(int(depth), local))
+            while depth > 1 and local % depth:
                 depth -= 1
             self._depth_by_samples[b] = depth
         return self._depth_by_samples[b]
@@ -250,7 +274,8 @@ class ServeSession:
         depth = self.depth_for_samples(batch_samples)
         if depth not in self._steps:
             self._steps[depth] = build_step(
-                self.cfg, mode="serve", exchange=self._exch,
+                self.cfg, self.mesh, mode="serve", axis=self._axis,
+                dp_axes=self.dp_axes, exchange=self._exch,
                 pipeline_depth=depth, fused=self._fused)
         return self._steps[depth]
 
@@ -311,6 +336,10 @@ class ServeSession:
         probs = step(self.params, dense, idx)
         self._sync()
         service = time.perf_counter() - t0
+        if self._world_group is not None:
+            # the flush ends when its slowest rank does
+            service = float(prim.pmax(torch.tensor(
+                [service], dtype=torch.float64), self._world_group))
         # the modeled swap stall composes with the MEASURED compute time
         stall = self._exch.stall_seconds(plan, service)
         out = probs.cpu().numpy().reshape(k, self.query_size)

@@ -1,4 +1,4 @@
-"""TrainSession: the engine's DLRM training path on one device.
+"""TrainSession: the engine's DLRM training path, on one rank or k.
 
 Wraps ``runtime.TrainLoop`` (resume-from-latest, async checkpointing,
 straggler accounting) around the plan-executing train step
@@ -10,7 +10,7 @@ AdamW under a cosine schedule. Built by ``Engine.train_session()``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,7 +25,8 @@ from repro_torch.models import lm
 from repro_torch.models import transformer as T
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.optim import adamw, cosine_schedule
-from repro_torch.parallel.build import build_step, init_dlrm_opt_state
+from repro_torch.parallel.build import (AXIS, build_step,
+                                        init_dlrm_opt_state, init_local_dlrm)
 from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import (plan_table_groups,
                                        split_dlrm_params_in_place)
@@ -95,10 +96,15 @@ HOST_TIER_CKPT = (
     "the store's written-back rows and the chunk manager's residency, "
     "dirty and pos bookkeeping are not in them, so a resumed session "
     "would train on a fresh store")
+MULTI_RANK_CKPT = (
+    "checkpoints over more than one rank are not ported yet (ROADMAP "
+    "A6b-ii): each rank holds only its shards, and a checkpoint needs "
+    "them gathered at full width")
 
 
 class TrainSession(_SessionBase):
-    """DLRM training on one device: the plan-executing step + TrainLoop.
+    """DLRM training: the plan-executing step + TrainLoop, on one rank or
+    on every rank of ``mesh``.
 
     The params are a fresh init from ``seed`` on ``device`` (None: the
     card), split in place into the plan's table groups (views of the one
@@ -116,7 +122,15 @@ class TrainSession(_SessionBase):
     ``begin_batch(train=True)`` and ``end_batch`` bracket every
     step: the batch's cold chunks fault in (and are marked dirty) before
     the step. An exchange that holds the tables itself gets a fresh init
-    of the MLPs only, and takes no ``ckpt_dir``."""
+    of the MLPs only, and takes no ``ckpt_dir``.
+
+    ``mesh`` (``launch.mesh.Mesh``; None: one device), ``axis``,
+    ``dp_axes`` and ``compress_grads`` as ``build_step``'s: every rank
+    builds the same session, draws only its shards of the init
+    (``init_local_dlrm``) and runs the same loop over the same batches,
+    training on its slice of each; ``params`` and ``opt_state`` are this
+    rank's shards, and the loss is the global batch's. Over more than one
+    rank a ``ckpt_dir`` raises (ROADMAP A6b-ii)."""
 
     workload = "dlrm"
 
@@ -127,32 +141,40 @@ class TrainSession(_SessionBase):
                  ckpt_every: int = 50, ckpt_keep: int = 3,
                  pipeline_depth: int = 1,
                  exchange: Optional[EmbeddingExchange] = None,
-                 row_wise_exchange: str = "partial_pool"):
+                 row_wise_exchange: str = "partial_pool",
+                 mesh=None, axis=AXIS, dp_axes: Tuple[str, ...] = (),
+                 compress_grads: bool = False):
         self.device = resolve_device(device)
         self.plan = plan
         self.pipeline_depth = int(pipeline_depth)
+        n_embed = 1 if mesh is None else mesh.size(axis)
+        if ckpt_dir and mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(MULTI_RANK_CKPT)
         exch = self.exchange_inst = (
             exchange if exchange is not None
-            else make_exchange(cfg, plan=plan,
+            else make_exchange(cfg, n_embed, plan=plan,
                                row_wise_exchange=row_wise_exchange,
-                               device=self.device))
+                               device=self.device,
+                               group=None if mesh is None
+                               else mesh.group(axis)))
         if ckpt_dir and exch.holds_tables:
             raise NotImplementedError(HOST_TIER_CKPT)
         step_fn = build_step(
-            cfg, mode="train", exchange=exch,
-            pipeline_depth=self.pipeline_depth, optimizer=optimizer, lr=lr)
+            cfg, mesh, mode="train", axis=axis, dp_axes=dp_axes,
+            exchange=exch, pipeline_depth=self.pipeline_depth,
+            optimizer=optimizer, lr=lr, compress_grads=compress_grads)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = (dlrm_lib.init_mlps(cfg, gen) if exch.holds_tables
-                  else dlrm_lib.init_dlrm(cfg, gen))
+                  else init_local_dlrm(cfg, gen, exch))
         prepared = exch.init_session_params(params)
         if prepared is not None:
             params = prepared
-        elif plan is not None and plan.placements:
+        elif plan is not None and plan.placements and exch.n == 1:
             # the session owns this init: split it without a second copy
             params = split_dlrm_params_in_place(
                 params, plan_table_groups(plan, 1))
-        opt_state = init_dlrm_opt_state(cfg, optimizer, plan,
-                                        device=self.device)
+        opt_state = init_dlrm_opt_state(cfg, optimizer, plan, n_embed,
+                                        compress_grads, device=self.device)
         depth = self.pipeline_depth
 
         def loop_step(state, batch):

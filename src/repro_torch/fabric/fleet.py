@@ -181,7 +181,7 @@ class FabricBoard:
     live re-partition can move row ranges without rebuilding the board.
     Rows come from host memory through ``staging``, the pinned ring its
     device shares with the fleet's other boards there. The port's board
-    is one device; more raises naming ROADMAP A6b."""
+    is one device; more raises naming ROADMAP A6b-ii."""
 
     def __init__(self, rid: int, cfg: DLRMConfig, devices: Sequence,
                  whole_tids: Sequence[int], split_ranges: RowRanges,

@@ -62,11 +62,11 @@ class HostTieredExchange(EmbeddingExchange):
                  link: Optional["perf_model.Interconnect"] = None,
                  pool_mode: str = "paired",
                  metrics: Optional[MetricsRegistry] = None):
-        super().__init__(cfg, n)
         if n != 1:
             raise ValueError(
                 f"HostTieredExchange is single-board (n=1), got n={n}; "
                 f"scale out by sharding boards, each with its own host tier")
+        super().__init__(cfg, n)
         if pool_mode not in ("paired", "cached_bag"):
             raise ValueError(f"unknown pool_mode {pool_mode!r}")
         if mgr.T != cfg.num_tables or mgr.R != cfg.rows_per_table \

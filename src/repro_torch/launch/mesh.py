@@ -1,0 +1,176 @@
+"""The mesh of ranks: k processes, each running the same program on its
+own shard (the reference's ``src/repro/launch/mesh.py``).
+
+The reference lays its devices out as a ``jax.sharding.Mesh`` and runs
+each step's body on every device under ``shard_map``. The port runs one
+process a rank over ``torch.distributed`` (gloo), and ``Mesh`` lays the
+initialised world out the same way: a shape over named axes, rank r at
+the row-major coordinates of r. An axis name, or a tuple of them, names
+the flattened group of ranks that differ only along those axes, as the
+reference flattens ``("data", "model")``; a tuple must list its axes in
+the mesh's order, so that a rank's place in the group is its flattened
+coordinate.
+
+Without an initialised process group the world is one rank: every axis
+has size 1 and every group is None, which the collectives
+(``parallel.primitives``) take as "skip".
+
+Axis semantics, as in the reference: ``model`` carries the
+latency-bound embedding exchanges, ``data`` the data-parallel batch
+split; ``dp_axes`` replicate the tables.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import itertools
+import os
+from typing import Dict, Iterator, Optional, Tuple, Union
+
+import torch.distributed as dist
+
+Axis = Union[str, Tuple[str, ...]]
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _axes(axes: Axis) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """A named layout of the world's ranks.
+
+    ``shape`` (sizes) over ``axes`` (names); their product must be the
+    world size. Every group of every non-empty set of axes is built here
+    with ``dist.new_group``, on every rank and in the same order, once:
+    ``group(axes)`` then only looks one up."""
+
+    def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...]):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} must pair "
+                             f"up, one distinct name a dimension")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"mesh sizes must be >= 1, got {shape}")
+        total = 1
+        for s in shape:
+            total *= s
+        if total != world_size():
+            raise ValueError(f"a mesh of shape {shape} needs {total} ranks; "
+                             f"the world has {world_size()}")
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self.axis_names = axes
+        self.rank = world_rank()
+        coords, r = [], self.rank
+        for s in reversed(shape):
+            coords.append(r % s)
+            r //= s
+        self.coords: Dict[str, int] = dict(zip(axes, reversed(coords)))
+        self._groups: Dict[Tuple[str, ...], Optional[dist.ProcessGroup]] = {}
+        for k in range(1, len(axes) + 1):
+            for sub in itertools.combinations(axes, k):
+                self._groups[sub] = self._build(sub)
+
+    def _build(self, sub: Tuple[str, ...]) -> Optional[dist.ProcessGroup]:
+        """This rank's group over the axes ``sub``, built on every rank."""
+        n = self.size(sub)
+        if n == 1:
+            return None
+        if n == world_size():
+            return dist.group.WORLD
+        rest = [a for a in self.axis_names if a not in sub]
+        mine = None
+        for fixed in itertools.product(*(range(self.shape[a]) for a in rest)):
+            at = dict(zip(rest, fixed))
+            ranks = [self._rank_at({**at, **dict(zip(sub, c))})
+                     for c in itertools.product(
+                         *(range(self.shape[a]) for a in sub))]
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = group
+        return mine
+
+    def _rank_at(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def _key(self, axes: Axis) -> Tuple[str, ...]:
+        key = _axes(axes)
+        missing = [a for a in key if a not in self.shape]
+        if missing:
+            raise ValueError(f"axes {missing} not in mesh {self.shape}")
+        if list(key) != [a for a in self.axis_names if a in key] \
+                or len(set(key)) != len(key):
+            raise ValueError(f"axes {key} must be distinct and listed in "
+                             f"the mesh's order {self.axis_names}")
+        return key
+
+    def size(self, axes: Optional[Axis] = None) -> int:
+        """The number of ranks along ``axes`` (the reference's
+        ``axis_size``); None: the whole mesh."""
+        n = 1
+        for a in (self.axis_names if axes is None else self._key(axes)):
+            n *= self.shape[a]
+        return n
+
+    def group(self, axes: Axis) -> Optional[dist.ProcessGroup]:
+        """The process group of this rank along ``axes`` (None where it is
+        one rank). Its ranks run in flattened order: this rank's place in
+        it is ``rank_in(axes)``."""
+        key = self._key(axes)
+        return self._groups[key] if key else None
+
+    def rank_in(self, axes: Axis) -> int:
+        """This rank's flattened coordinate along ``axes``."""
+        r = 0
+        for a in self._key(axes):
+            r = r * self.shape[a] + self.coords[a]
+        return r
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+    """An arbitrary mesh over the initialised world."""
+    return Mesh(shape, axes)
+
+
+def make_host_mesh(model: Optional[int] = None) -> Mesh:
+    """``(world // model, model)`` over ("data", "model"): every rank of
+    the world (one without a process group)."""
+    n, model = world_size(), model or 1
+    if model < 1 or n % model:
+        raise ValueError(f"a world of {n} ranks does not split into "
+                         f"model_axis={model} columns")
+    return Mesh((n // model, model), ("data", "model"))
+
+
+def init_from_env() -> bool:
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` > 1 in the
+    environment), join its world over gloo and return True; without a
+    launcher environment, or in a world already joined, do nothing."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    dist.init_process_group("gloo", init_method="env://")
+    return True
+
+
+@contextlib.contextmanager
+def rank0_prints() -> Iterator[None]:
+    """Let rank 0's prints through and drop the other ranks' (their
+    reports are rank 0's)."""
+    if world_rank() == 0:
+        yield
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield

@@ -65,11 +65,21 @@ trained and recorded before the run, and the trainer's host copy of the
 tables is freed before serving starts. As in the reference, a single
 board serves frozen params whatever they say.
 
+Over k ranks, under ``torch.distributed.run``: every rank joins a gloo
+world from the launcher's environment, builds the host mesh
+``(k // --model-axis, --model-axis)`` over ("data", "model") and serves
+the same queries on its shards; only rank 0 prints. On one card the k
+ranks share it (``cuda:(LOCAL_RANK % device_count)``):
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --smoke --device cpu --model-axis 2
+
+The fleet paths take one rank a board: --model-axis > 1 or k ranks with
+them raise, naming ROADMAP A6b-ii.
+
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
-it: a ranking of placements, not a prediction for the card. The
-reference launcher's multi-device flag is accepted so that it fails
-loudly, naming the ROADMAP item that will bring it.
+it: a ranking of placements, not a prediction for the card.
 """
 from __future__ import annotations
 
@@ -83,10 +93,9 @@ import numpy as np
 from repro_torch.configs.registry import get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
+from repro_torch.launch.mesh import init_from_env, rank0_prints, world_size
 from repro_torch.obs import Tracer, default_registry
 
-# flag -> ROADMAP item; any value other than the flag's default raises
-_NOT_PORTED = {"model_axis": "A6b, k ranks"}
 _ONLINE_FLAGS = ("online_every_s", "online_steps", "online_lr", "coherence",
                  "record_deltas", "replay_deltas")
 
@@ -246,9 +255,10 @@ def _parser() -> argparse.ArgumentParser:
         help="consume a recorded delta-channel JSONL (e.g. from "
              "repro_torch.launch.train --emit-deltas) instead of training "
              "inline")
-    not_ported = ap.add_argument_group(
-        "not ported yet (raises, naming its ROADMAP item)")
-    not_ported.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the 'model' size of the host mesh (k // "
+                         "model_axis, model_axis) over the launcher's k "
+                         "ranks")
     return ap
 
 
@@ -262,12 +272,17 @@ def main(argv: Optional[list] = None) -> int:
         raise SystemExit(
             "--host-capacity-mb is single-board only: give each fleet "
             "board its own Engine/host tier instead")
-    for dest, item in _NOT_PORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
+    init_from_env()
+    if fleet_path and (args.model_axis > 1 or world_size() > 1):
+        raise NotImplementedError(
+            f"fleet boards of more than one rank (--model-axis "
+            f"{args.model_axis}, {world_size()} launched ranks) are not "
+            f"ported yet (ROADMAP A6b-ii)")
+    with rank0_prints():
+        return _main(args, ap, fleet_path)
 
+
+def _main(args, ap, fleet_path) -> int:
     cfg = get_dlrm(args.config)
     full_cfg = cfg
     if args.smoke:
@@ -289,7 +304,7 @@ def main(argv: Optional[list] = None) -> int:
                     fast_mb=args.fast_mb,
                     pipeline_depth=args.pipeline_depth or None,
                     fused_serve=args.fused_serve, exchange=args.exchange,
-                    device=device,
+                    device=device, model_axis=args.model_axis,
                     host_capacity_mb=args.host_capacity_mb,
                     host_chunk_rows=args.host_chunk_rows,
                     host_hot_fraction=args.host_hot_fraction,

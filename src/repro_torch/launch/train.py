@@ -39,9 +39,19 @@ of DLRM, or of an LM (``--workload lm``), on one device: the card unless
   PYTHONPATH=src python -m repro_torch.launch.train --workload lm \\
       --arch internlm2-1.8b --smoke --device cpu --steps 8
 
-The reference launcher's distributed flags are accepted so that they fail
-loudly: each names the ROADMAP item that will bring it. Under --workload
-lm the DLRM-only flags are ignored with a note, as in the reference.
+  # k ranks under torch.distributed.run: a gloo world from the
+  # launcher's environment, the host mesh (k // --model-axis,
+  # --model-axis), each rank training its shards; only rank 0 prints
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --device cpu --smoke --model-axis 2
+
+  # the int8 error-feedback all-reduce of the dense grads
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 8 --compress-grads
+
+Under --workload lm the DLRM-only flags are ignored with a note, as in
+the reference; the LM and checkpoints over more than one rank raise,
+naming ROADMAP A6b-ii.
 """
 from __future__ import annotations
 
@@ -56,12 +66,7 @@ import torch
 from repro_torch.configs.registry import get_arch, get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
-
-# flag -> ROADMAP item; any value other than the flag's default raises
-_NOT_PORTED = {
-    "compress_grads": "A6b, k ranks",
-    "model_axis": "A6b, k ranks",
-}
+from repro_torch.launch.mesh import init_from_env, rank0_prints
 
 
 def _run_with_deltas(args, session):
@@ -181,10 +186,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="LM batch (with --workload lm)")
     p.add_argument("--seq", type=int, default=128,
                    help="LM sequence length (with --workload lm)")
-    not_ported = p.add_argument_group(
-        "not ported yet (each raises, naming its ROADMAP item)")
-    not_ported.add_argument("--model-axis", type=int, default=1)
-    not_ported.add_argument("--compress-grads", action="store_true")
+    p.add_argument("--model-axis", type=int, default=1,
+                   help="the 'model' size of the host mesh (k // "
+                        "model_axis, model_axis) over the launcher's k "
+                        "ranks")
+    p.add_argument("--compress-grads", action="store_true",
+                   help="int8 block-quantized, error-feedback all-reduce "
+                        "of the dense grads")
     return p
 
 
@@ -206,16 +214,15 @@ def _lm_flags(args) -> None:
 
 
 def main(argv: Optional[list] = None) -> int:
-    ap = _parser()
-    args = ap.parse_args(argv)
+    args = _parser().parse_args(argv)
+    init_from_env()
+    with rank0_prints():
+        return _main(args)
+
+
+def _main(args) -> int:
     if args.workload == "lm":
         _lm_flags(args)
-    for dest, item in _NOT_PORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
-
     cfg = get_dlrm(args.config) if args.workload == "dlrm" else get_arch(
         args.arch)
     if args.smoke:
@@ -233,7 +240,8 @@ def main(argv: Optional[list] = None) -> int:
                     host_chunk_rows=args.host_chunk_rows,
                     host_hot_fraction=args.host_hot_fraction,
                     calibration=args.calibration, device=device,
-                    verbose=True)
+                    model_axis=args.model_axis,
+                    compress_grads=args.compress_grads, verbose=True)
     session = engine.train_session(ckpt_dir=args.ckpt_dir,
                                    ckpt_every=args.ckpt_every,
                                    batch=args.batch, seq=args.seq,

@@ -8,7 +8,8 @@ bf16, as in the reference. Init draws from an explicit
 ``jax.random``'s, so tests hand both packages the same numpy params.
 
 The reference's ``Sharder`` is the identity without a mesh; the port runs
-on one device and leaves it out until the mesh comes (ROADMAP A6b).
+on one rank and leaves it out until the LM runs over k ranks (ROADMAP
+A6b-ii).
 """
 from __future__ import annotations
 

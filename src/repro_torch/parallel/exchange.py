@@ -1,24 +1,23 @@
 """EmbeddingExchange: where the tables live, and the forward that follows.
 
 An exchange owns what depends on the tables' placement: which param keys
-hold tables, the Alg. 1 forward (indices in, pooled embeddings and a
-backward context out), the Alg. 2 backward (pooled-output grads expanded
-to flat (row id, row grad) pairs per table group, and applied by a sparse
-optimizer), and whether the serve path may run as one fused gather ->
-pool -> interaction kernel. The port carries three exchanges on one
-device: the table-wise one (the paper's "unsharded" layout), the
-row-wise one (the paper's "full sharding", in both wire modes) and the
-planner's tiered one (fast and bulk table groups, as placed by
-``plan="auto"`` or a ``ShardingPlan``; its bulk group row-wise). The host
-tier (``hoststore.HostTieredExchange``) is a fourth, built by the Engine.
+hold tables and which shard of each this rank keeps (``shards``), the
+Alg. 1 forward (indices in, pooled embeddings and a backward context out),
+the Alg. 2 backward (pooled-output grads expanded to flat (row id, row
+grad) pairs per table group, and applied by a sparse optimizer), and
+whether the serve path may run as one fused gather -> pool -> interaction
+kernel. The port carries three exchanges over n ranks: the table-wise one
+(the paper's "unsharded" layout), the row-wise one (the paper's "full
+sharding", in both wire modes) and the planner's tiered one (fast and bulk
+table groups, as placed by ``plan="auto"`` or a ``ShardingPlan``; its fast
+group table-wise over the ranks, its bulk group row-wise). The host tier
+(``hoststore.HostTieredExchange``) is a fourth, built by the Engine, on
+one rank.
 
-The row-wise functions below are the reference's
-(``src/repro/parallel/primitives.py:110-271``) at n=1: this device owns
-every row [0, R) of every table, the masks keep their meaning (ids
-outside the range pool to zero, their grads go to row 0 at zero), and the
-collectives over the ranks (the indices' and grads' all_gather, the
-pools' psum_scatter) are the identity. The exchanges over more devices
-bring them (ROADMAP A6b).
+Over n ranks an exchange runs ``parallel.primitives``' collectives on the
+process group of the embedding axis (``launch.mesh.Mesh.group``); at n=1
+it has no group, the collectives are skipped, and the forward is local:
+only then may the fused kernel serve it.
 """
 from __future__ import annotations
 
@@ -27,16 +26,21 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import DLRMConfig
-from repro_torch.core import dlrm as dlrm_lib
 from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_serve import grouped_src
+from repro_torch.parallel import primitives as prim
 from repro_torch.parallel.plan import plan_table_groups
+from repro_torch.parallel.primitives import (  # noqa: F401
+    Group, row_wise_backward_update, row_wise_expand_grads, row_wise_forward,
+    table_wise_expand_grads)
 
 Tables = Dict[str, torch.Tensor]
 # table key -> (flat_idx (T, N), flat_g (T, N, d))
 FlatGrads = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+# table key -> (the table ids of this rank's shard, its first row, its rows)
+Shards = Dict[str, Tuple[Tuple[int, ...], int, int]]
 
 
 def acc_key(table_key: str) -> str:
@@ -45,151 +49,51 @@ def acc_key(table_key: str) -> str:
     return table_key.replace("tables", "table_acc", 1)
 
 
-def _divisor_chunk(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (>= 1)."""
-    c = max(1, min(n, target))
-    while n % c:
-        c -= 1
-    return c
-
-
-def _masked_rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The rows this device owns, zeros elsewhere. tables (T, R, d) hold
-    global rows [0, R) at n=1 (the reference's r_start is 0); idx (B', T,
-    L) global ids -> (B', T, L, d) in the tables' dtype. An id outside the
-    range takes row 0 times zero (a NaN there stays NaN, as in the
-    reference)."""
-    T, R, _ = tables.shape
-    local = idx.long()
-    mine = (local >= 0) & (local < R)
-    safe = torch.where(mine, local, torch.zeros((), dtype=local.dtype,
-                                                device=local.device))
-    t = torch.arange(T, device=tables.device)[None, :, None]
-    rows = tables[t, safe]                                 # (B', T, L, d)
-    return rows.mul_(mine[..., None].to(rows.dtype))
-
-
-def _masked_partial_pool(tables: torch.Tensor,
-                         idx: torch.Tensor) -> torch.Tensor:
-    """Partial sum-pool of the rows this device owns: idx (B', T, L) ->
-    (B', T, d)."""
-    return _masked_rows(tables, idx).sum(dim=2)
-
-
-def row_wise_forward(tables: torch.Tensor, indices: torch.Tensor,
-                     mode: str = "partial_pool", lookup_chunk: int = 4096
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Alg. 1, full-sharding branch, at n=1. tables (T, R, d), every row
-    of every table; indices (B, T, L) global row ids -> (pooled (B, T, d),
-    the gathered ids (B, T, L), the backward context).
-
-    ``mode`` is the wire format: "partial_pool" pools the owned rows here
-    and reduce-scatters the partial pools; "unpooled" (the paper's)
-    reduce-scatters the unpooled (B, T, L, d) rows and pools at the home
-    device. At n=1 both wires are the identity, so both modes compute the
-    same sums. The masked lookup runs in batch chunks of at most
-    ``lookup_chunk`` samples: the (chunk, T, L, d) row block is the only
-    L-sized tensor alive."""
-    n = 1
-    # the index exchange: an all_gather over the ranks, the identity at
-    # n=1 (ROADMAP A6b brings the collectives)
-    idx_all = indices
-    B, T, L = idx_all.shape
-    if mode == "unpooled":
-        # chunked over each rank's output slots: an (n C', T, L, d) row
-        # block at a time; psum_scatter of the rows, the identity at n=1
-        Bn = B // n
-        Cp = _divisor_chunk(Bn, max(1, lookup_chunk // n))
-        if Bn == Cp:
-            return _masked_rows(tables, idx_all).sum(dim=2), idx_all
-        pooled = [_masked_rows(tables, idx_all[k * Cp:(k + 1) * Cp]).sum(
-            dim=2) for k in range(Bn // Cp)]
-        return torch.cat(pooled), idx_all
-    if mode != "partial_pool":
-        raise ValueError(f"unknown row_wise exchange mode {mode!r}")
-    if B <= lookup_chunk:
-        partial = _masked_partial_pool(tables, idx_all)
-    else:
-        chunk = _divisor_chunk(B, lookup_chunk)
-        partial = torch.cat([_masked_partial_pool(tables, c)
-                             for c in idx_all.split(chunk)])
-    # psum_scatter of the partial pools over the batch: the identity at n=1
-    return partial, idx_all
-
-
-def table_wise_expand_grads(ctx: torch.Tensor, g_pooled: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Alg. 2 for whole local tables: the (B, T, d) pooled grads copied to
-    every looked-up row. ctx (B, T, L) ids -> (flat_idx (T, B*L),
-    flat_g (T, B*L, d)) in the grads' dtype."""
+def _flat_rows(ctx: torch.Tensor) -> torch.Tensor:
+    """(B, T, L) local row ids -> (T, B*L)."""
     B, T, L = ctx.shape
-    d = g_pooled.shape[-1]
-    flat_idx = ctx.transpose(0, 1).reshape(T, B * L)
-    flat_g = g_pooled.transpose(0, 1)[:, :, None, :].expand(
-        T, B, L, d).reshape(T, B * L, d)
-    return flat_idx, flat_g
-
-
-def row_wise_expand_grads(n_rows: int, ctx: torch.Tensor,
-                          g_pooled: torch.Tensor,
-                          dtype: Optional[torch.dtype] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Alg. 2 for row-sharded tables at n=1, where this device owns every
-    row [0, n_rows): grads of ids outside that range are zeroed and sent
-    to row 0, as ``primitives.row_wise_expand_grads`` masks rows owned
-    elsewhere. ``dtype`` casts the SMALL (T, B, d) grads before the L-fold
-    expansion, as ``row_wise_backward_update`` does (the tables' dtype);
-    None keeps theirs."""
-    B, T, L = ctx.shape
-    d = g_pooled.shape[-1]
-    mine = (ctx >= 0) & (ctx < n_rows)
-    safe = torch.where(mine, ctx, torch.zeros((), dtype=ctx.dtype,
-                                              device=ctx.device))
-    g_t = g_pooled.transpose(0, 1)
-    if dtype is not None:
-        g_t = g_t.to(dtype)
-    g_rows = g_t[:, :, None, :].expand(T, B, L, d)
-    g_rows = g_rows * mine.transpose(0, 1)[..., None].to(g_rows.dtype)
-    return (safe.transpose(0, 1).reshape(T, B * L),
-            g_rows.reshape(T, B * L, d))
-
-
-def row_wise_backward_update(tables: torch.Tensor, idx_all: torch.Tensor,
-                             g_pooled: torch.Tensor, update_fn: Callable,
-                             lookup_chunk: int = 4096) -> torch.Tensor:
-    """Alg. 2, full-sharding branch, at n=1: the pooled grads (their
-    all_gather over the ranks is the identity here) expanded to the owned
-    rows and applied by ``update_fn(tables, flat_idx, flat_g)`` in batch
-    chunks of at most ``lookup_chunk`` samples, each chunk on the tables
-    the one before it left. The small (T, chunk, d) grads are cast to the
-    tables' dtype BEFORE the L-fold expansion, as the reference does."""
-    B = idx_all.shape[0]
-    chunk = B if B <= lookup_chunk else _divisor_chunk(B, lookup_chunk)
-    for s in range(0, B, chunk):
-        tables = update_fn(tables, *row_wise_expand_grads(
-            tables.shape[1], idx_all[s:s + chunk], g_pooled[s:s + chunk],
-            dtype=tables.dtype))
-    return tables
+    return ctx.transpose(0, 1).reshape(T, B * L)
 
 
 class EmbeddingExchange:
-    """Base class; constructed against a concrete (cfg, n devices)."""
+    """Base class; constructed against a concrete (cfg, n ranks, their
+    process group: None at n=1)."""
 
     table_keys: Tuple[str, ...] = ("tables",)
 
-    def __init__(self, cfg: DLRMConfig, n: int):
+    def __init__(self, cfg: DLRMConfig, n: int = 1, group: Group = None):
+        if prim.group_size(group) != n:
+            raise ValueError(
+                f"an exchange over {n} ranks needs the process group of "
+                f"those ranks (launch.mesh.Mesh.group); got a group of "
+                f"{prim.group_size(group)}")
         self.cfg = cfg
         self.n = n
+        self.group = group
+        self.rank = prim.group_rank(group)
+
+    def shards(self) -> Shards:
+        """This rank's shard of each table key: (the table ids it holds,
+        in order; the first row; the rows), the counterpart of the
+        reference's ``table_specs``. The AdaGrad accumulators shard alike
+        (``acc_specs``)."""
+        raise NotImplementedError
 
     def forward(self, tables: Tables,
                 indices: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-        """(B, T, L) indices -> ((B, T, d) pooled, backward context)."""
+        """(B/n, T, L) indices -> ((B/n, T, d) pooled, backward context)."""
         raise NotImplementedError
 
     def expand_grads(self, tables: Tables, ctx: Any,
                      g_pooled: torch.Tensor) -> FlatGrads:
-        """Route the (B, T, d) pooled-output grads to the rows they came
+        """Route the (B/n, T, d) pooled-output grads to the rows they came
         from: flat (row id, row grad) pairs per table key."""
+        raise NotImplementedError
+
+    def touched_rows(self, ctx: Any) -> Dict[str, torch.Tensor]:
+        """The rows of this rank's shards that the grads of ``ctx`` reach,
+        per table key: (T_local, N) local row ids (rows owned elsewhere
+        count as row 0, whose grads are zero there)."""
         raise NotImplementedError
 
     def sparse_apply(self, tables: Tables, ctx: Any, g_pooled: torch.Tensor,
@@ -250,60 +154,80 @@ class EmbeddingExchange:
 
 
 class TableWiseExchange(EmbeddingExchange):
-    """Paper "unsharded" on one device: every table whole and local."""
+    """Paper "unsharded": rank r holds the T/n whole tables [r T/n,
+    (r+1) T/n); pooled-row all-to-alls only. At n=1 every table is local
+    and the fused kernel serves it."""
 
-    def __init__(self, cfg: DLRMConfig, n: int = 1):
-        if n != 1:
-            raise NotImplementedError(
-                f"table-wise exchange over {n} devices is not ported yet "
-                f"(ROADMAP A6b, k ranks)")
-        super().__init__(cfg, n)
+    def __init__(self, cfg: DLRMConfig, n: int = 1, group: Group = None):
+        super().__init__(cfg, n, group)
+        if cfg.num_tables % n:
+            raise ValueError(f"table-wise placement needs T % n == 0, got "
+                             f"T={cfg.num_tables}, n={n}")
+
+    def shards(self):
+        tn = self.cfg.num_tables // self.n
+        return {"tables": (tuple(range(self.rank * tn, (self.rank + 1) * tn)),
+                           0, self.cfg.rows_per_table)}
 
     def forward(self, tables, indices):
-        return dlrm_lib.embedding_bag(tables["tables"], indices), indices
+        return prim.table_wise_forward(tables["tables"], indices, self.group)
 
     def expand_grads(self, tables, ctx, g_pooled):
-        return {"tables": table_wise_expand_grads(ctx, g_pooled)}
+        return {"tables": table_wise_expand_grads(ctx, g_pooled, self.group)}
+
+    def touched_rows(self, ctx):
+        return {"tables": _flat_rows(ctx)}
 
     def supports_fused_forward(self) -> bool:
-        return True
+        return self.n == 1
 
     def fused_forward(self, tables, bot_out, indices):
         return ops.fused_bag_interactions(tables["tables"], indices, bot_out)
 
 
 class RowWiseExchange(EmbeddingExchange):
-    """Paper "full sharding" on one device: every table's rows
-    range-sharded over the devices, which at n=1 gives this device every
-    row. ``mode`` is the wire format, "partial_pool" or "unpooled" (the
+    """Paper "full sharding": every table's rows range-sharded over the
+    ranks, rank r holding rows [r R/n, (r+1) R/n) of each (at n=1, every
+    row). ``mode`` is the wire format, "partial_pool" or "unpooled" (the
     reference's ``RowWiseExchange``, ``src/repro/parallel/exchange.py:172``);
     ``lookup_chunk`` bounds the samples a masked lookup or a sparse update
     handles at once. It has no fused serve path, as in the reference: a
     session serves it composed."""
 
     def __init__(self, cfg: DLRMConfig, n: int = 1,
-                 mode: str = "partial_pool", lookup_chunk: int = 4096):
+                 mode: str = "partial_pool", lookup_chunk: int = 4096,
+                 group: Group = None):
         if mode not in ("partial_pool", "unpooled"):
             raise ValueError(f"unknown row_wise exchange mode {mode!r}")
-        if n != 1:
-            raise NotImplementedError(
-                f"row-wise exchange over {n} devices is not ported yet "
-                f"(ROADMAP A6b, k ranks)")
-        super().__init__(cfg, n)
+        super().__init__(cfg, n, group)
+        if cfg.rows_per_table % n:
+            raise ValueError(f"row-wise placement needs R % n == 0, got "
+                             f"R={cfg.rows_per_table}, n={n}")
         self.mode = mode
         self.lookup_chunk = lookup_chunk
 
+    def shards(self):
+        rn = self.cfg.rows_per_table // self.n
+        return {"tables": (tuple(range(self.cfg.num_tables)), self.rank * rn,
+                           rn)}
+
     def forward(self, tables, indices):
         return row_wise_forward(tables["tables"], indices, self.mode,
-                                self.lookup_chunk)
+                                self.lookup_chunk, self.group)
 
     def expand_grads(self, tables, ctx, g_pooled):
-        return {"tables": row_wise_expand_grads(tables["tables"].shape[1],
-                                                ctx, g_pooled)}
+        return {"tables": row_wise_expand_grads(
+            tables["tables"].shape[1], ctx, g_pooled, group=self.group)}
+
+    def touched_rows(self, ctx):
+        rn = self.cfg.rows_per_table // self.n
+        return {"tables": _flat_rows(prim.local_row_ids(
+            ctx, self.rank * rn, rn)[0])}
 
     def sparse_apply(self, tables, ctx, g_pooled, update_fn):
         tables["tables"] = row_wise_backward_update(
-            tables["tables"], ctx, g_pooled, update_fn, self.lookup_chunk)
+            tables["tables"], ctx, g_pooled, update_fn, self.lookup_chunk,
+            self.group)
         return tables
 
 
@@ -311,33 +235,34 @@ def planned_forward(tables_fast: torch.Tensor, tables_bulk: torch.Tensor,
                     indices: torch.Tensor, perm: torch.Tensor,
                     inv: torch.Tensor, n_fast: int,
                     row_mode: str = "partial_pool",
-                    lookup_chunk: int = 4096
+                    lookup_chunk: int = 4096, group: Group = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                Optional[torch.Tensor]]:
-    """Mixed Alg. 1 executing the planner's placements at n=1: the fast
-    group table-wise, the bulk group row-wise (``row_wise_forward`` in
-    ``row_mode``), the pooled outputs restored to the original table
-    order. ``perm`` (T,) lists the fast tables' ids, then the bulk ones';
-    ``inv`` is its inverse; both long tensors on the ids' device. Returns
-    pooled (B, T, d), the fast group's ids and the bulk group's gathered
-    ids (None for an empty group)."""
+    """Mixed Alg. 1 executing the planner's placements: the fast group
+    table-wise over the ranks of ``group``, the bulk group row-wise
+    (``row_wise_forward`` in ``row_mode``), the pooled outputs restored to
+    the original table order. ``perm`` (T,) lists the fast tables' ids,
+    then the bulk ones'; ``inv`` is its inverse; both long tensors on the
+    ids' device. Returns pooled (B/n, T, d), the fast group's owner ids
+    and the bulk group's gathered ids (None for an empty group)."""
     idx = indices.index_select(1, perm)
     parts = []
     ctx_fast = ctx_bulk = None
     if n_fast:
-        ctx_fast = idx[:, :n_fast]
-        parts.append(dlrm_lib.embedding_bag(tables_fast, ctx_fast))
+        pooled_f, ctx_fast = prim.table_wise_forward(
+            tables_fast, idx[:, :n_fast], group)
+        parts.append(pooled_f)
     if n_fast < idx.shape[1]:
         pooled_b, ctx_bulk = row_wise_forward(tables_bulk, idx[:, n_fast:],
-                                              row_mode, lookup_chunk)
+                                              row_mode, lookup_chunk, group)
         parts.append(pooled_b)
     return torch.cat(parts, dim=1).index_select(1, inv), ctx_fast, ctx_bulk
 
 
 class PlannedTieredExchange(EmbeddingExchange):
-    """The planner's tier decisions executed on one device: the fast group
-    table-wise, the bulk group row-wise (``planned_forward``), under one
-    exchange.
+    """The planner's tier decisions executed: the fast group table-wise
+    over the ranks, the bulk group row-wise (``planned_forward``), under
+    one exchange.
 
     At n=1 the bulk group's row range is every row of its tables, so the
     forward has no collectives and the fused kernel serves it, on the ids
@@ -352,14 +277,14 @@ class PlannedTieredExchange(EmbeddingExchange):
 
     def __init__(self, cfg: DLRMConfig, n: int, plan: ShardingPlan,
                  device: DeviceArg = None, row_mode: str = "partial_pool",
-                 lookup_chunk: int = 4096):
-        if n != 1:
-            raise NotImplementedError(
-                f"the tiered exchange over {n} devices is not ported yet "
-                f"(ROADMAP A6b, k ranks)")
-        super().__init__(cfg, n)
+                 lookup_chunk: int = 4096, group: Group = None):
+        super().__init__(cfg, n, group)
         device = resolve_device(device)
         self.groups = plan_table_groups(plan, n)
+        if self.groups.bulk_ids and cfg.rows_per_table % n:
+            raise ValueError(f"the bulk group's row-wise placement needs "
+                             f"R % n == 0, got R={cfg.rows_per_table}, "
+                             f"n={n}")
         self.row_mode = row_mode
         self.lookup_chunk = lookup_chunk
         self.inv_perm = self.groups.inv_perm
@@ -369,13 +294,22 @@ class PlannedTieredExchange(EmbeddingExchange):
                                     device=device)
         self._src = grouped_src(self.inv_perm, device)
 
+    def shards(self):
+        g, R = self.groups, self.cfg.rows_per_table
+        tn = len(g.fast_ids) // self.n
+        rn = R // self.n if g.bulk_ids else R
+        return {"tables_fast": (g.fast_ids[self.rank * tn:
+                                           (self.rank + 1) * tn], 0, R),
+                "tables_bulk": (g.bulk_ids, self.rank * rn if g.bulk_ids
+                                else 0, rn)}
+
     def forward(self, tables, indices):
         """``planned_forward``; the backward context is (the fast group's
-        ids (B, Tf, L), the bulk group's (B, Tb, L))."""
+        owner ids (B, Tf/n, L), the bulk group's gathered ids (B, Tb, L))."""
         pooled, ctx_f, ctx_b = planned_forward(
             tables["tables_fast"], tables["tables_bulk"], indices,
             self._perm, self._inv, len(self.groups.fast_ids), self.row_mode,
-            self.lookup_chunk)
+            self.lookup_chunk, self.group)
         return pooled, (ctx_f, ctx_b)
 
     def _split_g(self, g_pooled):
@@ -384,15 +318,27 @@ class PlannedTieredExchange(EmbeddingExchange):
         return g[:, :n_fast], g[:, n_fast:]
 
     def expand_grads(self, tables, ctx, g_pooled):
-        """The fast group table-wise, the bulk group row-wise (at n=1 this
-        device owns every row), as the reference's tiered exchange."""
+        """The fast group table-wise, the bulk group row-wise, as the
+        reference's tiered exchange."""
         g_f, g_b = self._split_g(g_pooled)
         out = {}
         if self.groups.fast_ids:
-            out["tables_fast"] = table_wise_expand_grads(ctx[0], g_f)
+            out["tables_fast"] = table_wise_expand_grads(ctx[0], g_f,
+                                                         self.group)
         if self.groups.bulk_ids:
             out["tables_bulk"] = row_wise_expand_grads(
-                tables["tables_bulk"].shape[1], ctx[1], g_b)
+                tables["tables_bulk"].shape[1], ctx[1], g_b,
+                group=self.group)
+        return out
+
+    def touched_rows(self, ctx):
+        out = {}
+        if self.groups.fast_ids:
+            out["tables_fast"] = _flat_rows(ctx[0])
+        if self.groups.bulk_ids:
+            rn = self.cfg.rows_per_table // self.n
+            out["tables_bulk"] = _flat_rows(prim.local_row_ids(
+                ctx[1], self.rank * rn, rn)[0])
         return out
 
     def sparse_apply(self, tables, ctx, g_pooled, update_fn):
@@ -403,15 +349,16 @@ class PlannedTieredExchange(EmbeddingExchange):
         g_f, g_b = self._split_g(g_pooled)
         if self.groups.fast_ids:
             tables["tables_fast"] = update_fn(
-                tables["tables_fast"], *table_wise_expand_grads(ctx[0], g_f))
+                tables["tables_fast"], *table_wise_expand_grads(
+                    ctx[0], g_f, self.group))
         if self.groups.bulk_ids:
             tables["tables_bulk"] = row_wise_backward_update(
                 tables["tables_bulk"], ctx[1], g_b, update_fn,
-                self.lookup_chunk)
+                self.lookup_chunk, self.group)
         return tables
 
     def supports_fused_forward(self) -> bool:
-        return True
+        return self.n == 1
 
     def fused_forward(self, tables, bot_out, indices):
         return ops.fused_grouped_bag_interactions_unpermuted(
@@ -423,18 +370,19 @@ def make_exchange(cfg: DLRMConfig, n: int = 1, *,
                   plan: Optional[ShardingPlan] = None,
                   row_wise_exchange: str = "partial_pool",
                   lookup_chunk: int = 4096,
-                  device: DeviceArg = None) -> EmbeddingExchange:
-    """The exchange for a config on ``n`` devices, as the reference's: a
-    placed plan dictates the tiered exchange (built on ``device``, None =
-    the card); otherwise ``cfg.sharding`` picks table-wise or row-wise,
-    with ``row_wise_exchange`` as the row-wise wire mode (the tiered
-    exchange's bulk group's too) and ``lookup_chunk`` its chunk. One
-    device; more raise (ROADMAP A6b)."""
+                  device: DeviceArg = None,
+                  group: Group = None) -> EmbeddingExchange:
+    """The exchange for a config over ``n`` ranks (``group``, their
+    process group; None at n=1), as the reference's: a placed plan
+    dictates the tiered exchange (built on ``device``, None = the card);
+    otherwise ``cfg.sharding`` picks table-wise or row-wise, with
+    ``row_wise_exchange`` as the row-wise wire mode (the tiered exchange's
+    bulk group's too) and ``lookup_chunk`` its chunk."""
     if plan is not None and plan.placements:
         return PlannedTieredExchange(cfg, n, plan, device,
                                      row_mode=row_wise_exchange,
-                                     lookup_chunk=lookup_chunk)
+                                     lookup_chunk=lookup_chunk, group=group)
     if cfg.sharding == "table_wise":
-        return TableWiseExchange(cfg, n)
+        return TableWiseExchange(cfg, n, group)
     return RowWiseExchange(cfg, n, mode=row_wise_exchange,
-                           lookup_chunk=lookup_chunk)
+                           lookup_chunk=lookup_chunk, group=group)

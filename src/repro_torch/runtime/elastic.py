@@ -3,7 +3,7 @@
 The port's counterpart of ``repro.runtime.elastic``. The reference
 re-shards every leaf of a sharded pytree onto a new mesh under its
 PartitionSpec, degrading a spec that does not divide to replication. The
-port runs one device per board (multi-device meshes are ROADMAP A6b), so
+port runs one device per board (multi-rank boards are ROADMAP A6b-ii), so
 every spec fits and re-placement is device placement: each tensor leaf
 becomes a COPY that the new board owns -- the reference's report on a
 one-device sub-mesh, ``{"resharded": n_leaves, "replicated_fallback":

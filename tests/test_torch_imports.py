@@ -32,6 +32,10 @@ TRAINING_MODULES = (
     "repro_torch.runtime", "repro_torch.runtime.straggler",
     "repro_torch.runtime.trainer", "repro_torch.parallel.updates",
     "repro_torch.engine.training", "repro_torch.launch.train")
+# The k-rank slice's modules (ROADMAP A6b-i), held the same way.
+RANK_MODULES = (
+    "repro_torch.launch.mesh", "repro_torch.parallel.primitives",
+    "repro_torch.optim.compression", "repro_torch.core.sharding")
 
 
 def _forbidden(module: str) -> bool:
@@ -68,14 +72,15 @@ def test_training_modules_import_without_jax_or_repro():
         print(bad)
         sys.exit(1 if bad else 0)
     """)
-    for name in TRAINING_MODULES:
+    for name in TRAINING_MODULES + RANK_MODULES:
         rel = Path(*name.split(".")[1:])
         assert ((PORT / rel).with_suffix(".py").exists()
                 or (PORT / rel / "__init__.py").exists()), name
         assert any(p == (PORT / rel).with_suffix(".py")
                    or p == PORT / rel / "__init__.py" for p in SOURCES), name
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES],
+    proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES,
+                           *RANK_MODULES],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

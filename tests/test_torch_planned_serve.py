@@ -185,8 +185,10 @@ def test_convert_carries_plan_split_trees():
 
 @pytest.mark.parametrize("case", ["row_wise_config", "two_devices"])
 def test_row_wise_and_multi_device_plans_fail_loudly(case):
-    """More devices still raise (ROADMAP A6b); a row-wise config, which
-    raised naming A6 before, now serves a placed plan (A6a)."""
+    """A tiered exchange over more ranks needs their process group (it runs
+    over 2 and 4 gloo ranks in tests/test_torch_ranks.py); a row-wise
+    config, which raised naming A6 before, now serves a placed plan
+    (A6a)."""
     from repro_torch.parallel import PlannedTieredExchange, make_exchange
     cfg = get_dlrm(NAME).reduced()
     plan = _interleaved(ShardingPlan, TablePlacement, cfg.num_tables)
@@ -199,7 +201,7 @@ def test_row_wise_and_multi_device_plans_fail_loudly(case):
         probs, _, _ = sess._execute([sess._make_query(0)])
         assert np.isfinite(probs).all()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(ValueError, match="process group"):
         make_exchange(cfg, 2, plan=plan)
 
 

@@ -199,7 +199,12 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("kw", [{"dp_axes": ("data",)}, {"model_axis": 2}])
 def test_features_not_ported_fail_loudly(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """dp_axes and model_axis are ported (A6b-i, held over gloo ranks in
+    tests/test_torch_ranks.py); on one rank these settings fail the
+    reference's checks: dp_axes overlapping the default embedding axis
+    ("data", "model"), a model axis of 2 over a world of one rank."""
+    want = "overlap" if "dp_axes" in kw else "does not split"
+    with pytest.raises(ValueError, match=want):
         Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
 
 
@@ -316,11 +321,14 @@ def test_launcher_report_json(capsys, tmp_path):
     assert rep["mode"] == "serial" and rep["ok"] is True
 
 
-@pytest.mark.parametrize("flag,item", [(["--model-axis", "2"], "A6b")])
+@pytest.mark.parametrize("flag,item", [(["--model-axis", "2"], "A6b-ii")])
 def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
+    """--model-axis is ported (A6b-i: tests/test_torch_ranks.py runs the
+    launchers over gloo ranks); a fleet of boards of more than one rank
+    is not, and names its item."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        serve.main(["--smoke", "--device", "cpu", *flag])
+        serve.main(["--smoke", "--device", "cpu", "--replicas", "2", *flag])
 
 
 @pytest.mark.parametrize("exchange", ["partial_pool", "unpooled"])
@@ -367,10 +375,26 @@ def test_host_tier_refuses_fleet_flags():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A6b"), ({"axis": "model"}, "A6b")])
+    ({"mesh": "host"}, "A6b-i"), ({"axis": "model"}, "A6b-i")])
 def test_reference_engine_options_not_ported_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Engine(get_dlrm(NAME).reduced(), device="cpu", **kw)
+    """mesh= and axis= are ported (ROADMAP A6b-i): on a world of one rank
+    a session under either serves bitwise what the default one does, and
+    the LM over more ranks still names A6b-ii (held over gloo ranks in
+    tests/test_torch_ranks.py)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_dlrm(NAME).reduced()
+    if kw.get("mesh") == "host":
+        kw = {"mesh": make_host_mesh()}
+    eng = Engine(cfg, device="cpu", **kw)
+    assert (eng.n_devices, eng.embed_devices) == (1, 1), item
+    sess = eng.serve_session(max_batch_queries=1)
+    want = Engine(cfg, device="cpu").serve_session(max_batch_queries=1)
+    q = sess._make_query(0)
+    np.testing.assert_array_equal(
+        sess.serve_direct(q["dense"], q["indices"]),
+        want.serve_direct(q["dense"], q["indices"]))
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        Engine(cfg, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("option", ["host_chunk_rows", "host_hot_fraction",

@@ -450,13 +450,18 @@ def test_bulk_sparse_apply_casts_before_expansion_bf16():
 
 
 def test_train_options_not_ported_raise():
+    """compress_grads, dp_axes and the optimizer state over more ranks are
+    ported (ROADMAP A6b-i; tests/test_torch_ranks.py and
+    tests/test_torch_compression.py hold them against the reference): a
+    compressed step builds on one device, dp_axes without a mesh are
+    refused, an Engine with compress_grads carries the residuals, and the
+    AdaGrad state over 2 ranks is this rank's half of the tables."""
     jcfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        build_step(cfg, mode="train", compress_grads=True)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    assert callable(build_step(cfg, mode="train", compress_grads=True))
+    with pytest.raises(ValueError, match="need a mesh"):
         build_step(cfg, mode="train", dp_axes=("pod",))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        Engine(cfg, compress_grads=True, device="cpu")
+    sess = Engine(cfg, compress_grads=True, device="cpu").train_session()
+    assert set(sess.opt_state) == {"ef"}
     # the row-wise wire mode is ported (A6a): a table-wise config keeps
     # its own exchange, and the mode reaches a row-wise config's
     eng = Engine(cfg, exchange="unpooled", device="cpu")
@@ -467,8 +472,9 @@ def test_train_options_not_ported_raise():
     ex = Engine(sharded, exchange="unpooled", device="cpu").train_session(
         ).exchange_inst
     assert (type(ex).__name__, ex.mode) == ("RowWiseExchange", "unpooled")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        init_dlrm_opt_state(cfg, "adagrad", n=2, device="cpu")
+    acc = init_dlrm_opt_state(cfg, "adagrad", n=2, device="cpu")
+    assert acc["table_acc"].shape == (cfg.num_tables // 2,
+                                      cfg.rows_per_table)
 
 
 # -------------------------------------------------------------- sessions
@@ -675,11 +681,19 @@ def test_train_launcher_emits_deltas(every, steps, capsys, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--compress-grads"], "A6b"), (["--model-axis", "2"], "A6b")])
-def test_train_launcher_flags_not_ported_raise(flag, item):
-    """The distributed flags raise, naming A6b (every LM arch trains:
-    ``test_torch_lm_train``)."""
-    with pytest.raises(NotImplementedError, match=item):
-        train_launcher.main(["--device", "cpu", "--smoke", *flag])
+def test_train_launcher_flags_not_ported_raise(flag, item, capsys):
+    """The distributed flags are ported (ROADMAP A6b-i; the launcher runs
+    over 2 gloo ranks in tests/test_torch_ranks.py): --compress-grads
+    trains on one rank, and --model-axis 2 is refused by a world of one
+    rank, which does not split into 2 columns."""
+    argv = ["--device", "cpu", "--smoke", "--steps", "2", *flag]
+    if flag[0] == "--model-axis":
+        with pytest.raises(ValueError, match="does not split"):
+            train_launcher.main(argv)
+        return
+    assert train_launcher.main(argv) == 0, item
+    assert "[train] dlrm dlrm-rm2-small-unsharded-smoke: steps=2" in \
+        capsys.readouterr().out
 
 
 def test_train_launcher_lm_flags_are_ignored_under_dlrm(capsys):
