@@ -271,6 +271,23 @@ Phases; any failure exits non-zero:
      of the slots. Rows 8 and 9's launches
      counted; a train step, a prefill and a decode step of rwkv6-3b
      profiled; the phase under 120 s;
+     9g. the LM over k ranks sharing the card (ROADMAP A6b-ii, first
+     item), after 9f: the 1-rank sessions of mixtral-8x7b at full width,
+     depth cut to 1, capacity factor 8.0, and of internlm2-1.8b at depth
+     2, their first step also in fp32; then gloo ranks spawned on cuda:0
+     as in 8d, each training ``Engine(cfg, mesh=..., moe_impl=...)
+     .train_session(batch=8, seq=129)`` for 2 AdamW steps: 2 ranks on (1,
+     2) through (a) the ep body, (b) local dispatch, (e) ep at the
+     config's capacity factor 1.25; 4 ranks on (c) (1, 4), ep with 2
+     experts a rank, and (d) internlm2 on (2, 2). (a)-(d) held against
+     their 1-rank session (both losses, the grad norm) and the fp32 step
+     (the router's, expert 0's w_down's, layer 0's wq's and the batch's
+     embed rows' grads no further from it than twice the 1-rank bf16
+     grads), (a)-(c) dropping no copy; the tokens routed apart, the
+     dropped copies, ep's all-to-all bytes, step times (ranks sharing
+     one card over gloo, not scale-out), row 8's launches on every rank
+     (layers x steps), every collective on CUDA tensors, each case's
+     summed rank peaks under 80 GB; the phase under 180 s;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -333,7 +350,8 @@ kernel timings do; phase 4c's row-wise sessions are profiled too. The
 line before the last holds the per-kernel JSON (every TPU kernel of the
 JAX package, all nine ported; row 4's ``launches`` include phase 8d's,
 the ranks' summed over every rank and case, also given apart as
-``ranks_launches``); the last line is ``{"ok": true,
+``ranks_launches``, and row 8's phase 9g's, as ``lm_ranks_launches``);
+the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package
 ``repro``.
 """
@@ -541,6 +559,45 @@ LONG_K_STD = 8.0           # the seeded keys' spread (module doc)
 LONG_NEEDLES = 8
 NEEDLE_SCORE = 24.0
 SSM_PHASE_S = 120.0
+# Phase 9g, the LM over k ranks sharing the card (ROADMAP A6b-ii, first
+# item): gloo ranks spawned as phase 8d's, each on cuda:0, training
+# mixtral-8x7b at full width with its depth cut to 1 (AdamW holds ~20 B a
+# param: 1-rank 34 GB, (1, 2) ~20 GB a rank, (1, 4) ~13 GB; depth 2 at
+# (1, 2) or depth 1 at (2, 2) would pass 80 GB) and internlm2-1.8b at full
+# width, depth cut to 2. Batch 8 x 129 (128 tokens a row, which splits
+# over "model"), AdamW at the LM session's lr under its cosine of 100,
+# LM_RANKS_STEPS steps. Cases: (job, mesh (data, model), arch, moe_impl,
+# capacity factor, held against the 1-rank session?). At capacity factor
+# 8.0 = E nothing drops in the global or the local formulation, so (a)-(c)
+# must equal the 1-rank step up to bf16 rounding; (e) runs the config's
+# own 1.25 (the CPU tests hold it against the reference's drops).
+# Tolerances, set beforehand: the first step's loss, and the second's,
+# within phase 9e's LM_LOSS_TOL of the 1-rank session's; its grad norm
+# within LM_REL. The grads of the router, expert 0's w_down (internlm2:
+# layer 0's MLP w_down), layer 0's wq and the batch's embed rows are held
+# to the first step computed in fp32 on one rank (the truth): no further
+# from it than LM_RANKS_TRUTH_FACTOR times the 1-rank bf16 session's
+# grads are, in norm and elementwise, as the CPU tests hold the SSM
+# archs' bf16 grads. Phase 9e's 16 ulps and 2% against the 1-rank bf16
+# grads do not hold local dispatch: its partial outputs and partial x
+# grads are summed in bf16 over "model", another rounding than one
+# matmul's, and at reduced() on the CPU that moved layer 0's wq grad
+# 4.96% of its norm from the 1-rank bf16 one while landing nearer the
+# fp32 grad (5.88% off it) than the 1-rank bf16 grad (7.43%).
+LM_RANKS_MOE = "mixtral-8x7b"
+LM_RANKS_DENSE = "internlm2-1.8b"
+LM_RANKS_LAYERS = {LM_RANKS_MOE: 1, LM_RANKS_DENSE: 2}
+LM_RANKS_BATCH = (8, 129)
+LM_RANKS_STEPS = 2
+LM_RANKS_CASES = {
+    "a": ("k2", (1, 2), LM_RANKS_MOE, "auto", 8.0, True),
+    "b": ("k2", (1, 2), LM_RANKS_MOE, "local", 8.0, True),
+    "e": ("k2", (1, 2), LM_RANKS_MOE, "auto", None, False),
+    "c": ("k4", (1, 4), LM_RANKS_MOE, "auto", 8.0, True),
+    "d": ("k4", (2, 2), LM_RANKS_DENSE, "auto", None, True)}
+LM_RANKS_TRUTH_FACTOR = 2.0
+LM_RANKS_PHASE_S = 180.0
+LM_RANKS_SPAWN_S = 150.0
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -3065,10 +3122,12 @@ def rank_main(rank, world, store, out_dir, job):
         raise SystemExit(1)
 
 
-def spawn_ranks(job, world):
+def spawn_ranks(job, world, target=None, phase="8d",
+                limit=RANKS_SPAWN_S):
     """Spawn ``world`` ranks of ``job`` (``torch.multiprocessing``'s spawn
-    start method, gloo on a FileStore under build/), wait for every one
-    within RANKS_SPAWN_S, and return their results by rank. A rank that
+    start method, gloo on a FileStore under build/) running ``target``
+    (phase 8d's ``rank_main`` by default), wait for every one within
+    ``limit`` seconds, and return their results by rank. A rank that
     fails, dies or hangs fails the phase (a hung one is killed first)."""
     import torch.multiprocessing as mp
     out_dir = os.path.join(BUILD_DIR, "ranks")
@@ -3079,13 +3138,13 @@ def spawn_ranks(job, world):
         if os.path.exists(os.path.join(out_dir, name)):
             os.unlink(os.path.join(out_dir, name))
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=rank_main,
+    procs = [ctx.Process(target=target or rank_main,
                          args=(r, world, store, out_dir, job))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
-    deadline = time.monotonic() + RANKS_SPAWN_S
+    deadline = time.monotonic() + limit
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [p for p in procs if p.is_alive()]
@@ -3097,10 +3156,11 @@ def spawn_ranks(job, world):
                    if os.path.exists(os.path.join(out_dir, f"{job}-{r}.err")))
     if errs:
         print(errs, file=sys.stderr)
-    check(not hung, f"phase 8d {job}: {len(hung)} of {world} ranks still "
-                    f"running after {RANKS_SPAWN_S} s")
+    check(not hung, f"phase {phase} {job}: {len(hung)} of {world} ranks "
+                    f"still running after {limit} s")
     check(all(p.exitcode == 0 for p in procs),
-          f"phase 8d {job}: rank exit codes {[p.exitcode for p in procs]}")
+          f"phase {phase} {job}: rank exit codes "
+          f"{[p.exitcode for p in procs]}")
     print(f"[ranks] {job}: {world} ranks done in "
           f"{time.perf_counter() - t0:.1f} s")
     return [torch.load(os.path.join(out_dir, f"{job}-{r}.pt"),
@@ -6054,6 +6114,349 @@ def leaves(tree, path=""):
     return [(path, tree)]
 
 
+# -------------------------------------------------------------- phase 9g
+def lm_ranks_config(arch, cf):
+    """A 9g case's config: full width, LM_RANKS_LAYERS deep, the MoE at
+    capacity factor ``cf`` (None: the config's own)."""
+    cfg = lm_config(arch, LM_RANKS_LAYERS[arch])
+    if cf is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def lm_ranks_picks(grads, cfg, sharder, rows, layout):
+    """The first step's grads 9g holds, on the host: layer 0's wq, the
+    batch's embed rows, and the router and expert 0's w_down (a dense
+    arch: layer 0's MLP w_down). A replicated leaf is returned by global
+    rank 0 alone (every rank returns its digest); expert 0's w_down by
+    the ranks that hold part of it: its owner under "experts", every
+    "model" rank's d_ff shard under "ff"."""
+    u0 = grads["units"][0]
+    picks = {"wq": u0["attn"]["wq"][0], "embed_rows": grads["embed"][rows]}
+    sharded = {}
+    if "moe" in u0:
+        picks["router"] = u0["moe"]["router"][0]
+        if layout != "experts" or sharder.model_rank == 0:
+            sharded["w_down_e0"] = u0["moe"]["w_down"][0, 0]
+    else:
+        picks["mlp_w_down"] = u0["mlp"]["w_down"][0]
+    rank0 = sharder.mesh is None or sharder.mesh.rank == 0
+    digests = {k: (float(v.double().sum()), float(v.double().abs().sum()))
+               for k, v in picks.items()}
+    out = {k: v.detach().to("cpu", copy=True) for k, v in picks.items()
+           if rank0}
+    out.update({k: v.detach().to("cpu", copy=True)
+                for k, v in sharded.items()})
+    return out, digests
+
+
+def lm_ranks_case(cfg, mesh, moe_impl):
+    """One 9g case on this rank (``mesh`` None: the 1-rank session): the
+    Engine's LM session; the first batch's loss and grads (the picks, the
+    routing and the dropped copies of that forward); then LM_RANKS_STEPS
+    steps with row 8's launches counted; peaks and the card's use."""
+    from repro_torch.data.lm import make_lm_batch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe_dist
+    B, S = LM_RANKS_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = Engine(cfg, lr=LM_TRAIN_LR, mesh=mesh,
+                  moe_impl=moe_impl).train_session(batch=B, seq=S)
+    sharder = sess.sharder
+    layout = (moe_dist.weight_layout(cfg, sharder) if cfg.moe is not None
+              else None)
+    whole = make_lm_batch(cfg, 0, 0, B, S, device=sess.device)
+    rows = torch.unique(whole["tokens"])
+    L.DROPS, L.ROUTES = {}, []
+    try:
+        loss, grads = LM.loss_and_grads(LM.make_loss_fn(cfg, sharder),
+                                        sess.params,
+                                        LM.shard_batch(whole, sharder),
+                                        sharder)
+        routes = [r.to(torch.int16).cpu() for r in L.ROUTES]
+        dropped = {k: int(v) for k, v in L.DROPS.items()}
+    finally:
+        L.DROPS, L.ROUTES = None, None
+    picks, digests = lm_ranks_picks(grads, cfg, sharder, rows, layout)
+    del grads
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    hist = sess.run(LM_RANKS_STEPS).history
+    launches = dict(ops.launch_counts)
+    n_tokens = (B // sharder.batch_size) * (S - 1) // sharder.model_size
+    out = {"loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "step_ms": [h["dt"] * 1e3 for h in hist],
+           "first_loss": float(loss), "picks": picks, "digests": digests,
+           "routes": routes, "dropped": dropped, "launches": launches,
+           "layout": layout, "body": (sharder.moe_body(cfg.moe.num_experts)
+                                      if cfg.moe is not None else None),
+           "coords": (None if mesh is None else
+                      (sharder.batch_rank, sharder.model_rank)),
+           "tokens_a_rank": n_tokens, "build_s": t_build,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "used_bytes": card_used_bytes()}
+    del sess, loss
+    free_case()
+    return out
+
+
+def lm_rank_main(rank, world, store, out_dir, job):
+    """A spawned rank of phase 9g: joins the gloo world on ``store``, runs
+    its job's cases of LM_RANKS_CASES in order and writes its results (or
+    its traceback) under ``out_dir``. It checks nothing itself."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import primitives as prim
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+        for name, (j, shape, arch, impl, cf, _) in LM_RANKS_CASES.items():
+            if j == job:
+                res[name] = lm_ranks_case(
+                    lm_ranks_config(arch, cf),
+                    make_mesh(shape, ("data", "model")), impl)
+        res["wall_s"] = time.perf_counter() - t0
+        res["calls"] = dict(prim.call_counts)
+        torch.save(res, os.path.join(out_dir, f"{job}-{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"{job}-{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def lm_ranks_wire_bytes(n_tokens, cfg, M, itemsize):
+    """The ep body's all-to-all bytes a rank and layer, both ways,
+    computed from its send buffer's shape: 2 C_out |model| d itemsize
+    (the ids' int32s aside)."""
+    from repro_torch.models import moe_dist
+    C_out = moe_dist._capacity(n_tokens, cfg.moe.top_k, M,
+                               moe_dist.SEND_CAPACITY_FACTOR)
+    return 2 * C_out * M * cfg.d_model * itemsize
+
+
+def lm_ranks_routes(runs, body):
+    """The first forward's top-k ids over the whole batch, (B, T, K), from
+    the ranks' parts: ep's are each rank's rows x its slice of T; local
+    dispatch's every token of its data shard (one "model" rank's)."""
+    by = {r["coords"]: r["routes"][0] for r in runs}
+    n_data = 1 + max(c[0] for c in by)
+    n_model = 1 + max(c[1] for c in by)
+    B, S = LM_RANKS_BATCH
+    T, K = S - 1, by[(0, 0)].shape[-1]
+    if body == "ep":
+        parts = [torch.cat([by[(dr, mr)].reshape(B // n_data, T // n_model,
+                                                 K)
+                            for mr in range(n_model)], 1)
+                 for dr in range(n_data)]
+        return torch.cat(parts)
+    return torch.cat([by[(dr, 0)].reshape(-1, T, K)[:B // n_data]
+                      for dr in range(n_data)])
+
+
+def lm_ranks_truth(cfg, dev):
+    """The first step's grad picks computed in fp32 on one rank: the
+    1-rank session's init and first batch, ``COMPUTE_DTYPE`` fp32 in the
+    model modules, no optimizer state."""
+    from repro_torch.data.lm import make_lm_batch
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import NULL_SHARDER
+    B, S = LM_RANKS_BATCH
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = make_lm_batch(cfg, 0, 0, B, S, device=dev)
+    saved = T.COMPUTE_DTYPE, LM.COMPUTE_DTYPE
+    T.COMPUTE_DTYPE = LM.COMPUTE_DTYPE = torch.float32
+    try:
+        loss, grads = LM.loss_and_grads(LM.make_loss_fn(cfg), params, batch,
+                                        NULL_SHARDER)
+    finally:
+        T.COMPUTE_DTYPE, LM.COMPUTE_DTYPE = saved
+    picks, _ = lm_ranks_picks(grads, cfg, NULL_SHARDER,
+                              torch.unique(batch["tokens"]), None)
+    del params, grads
+    free_case()
+    return {"loss": float(loss), "picks": picks}
+
+
+def lm_ranks_held(name, got, one, truth):
+    """A 9g grad pick against the fp32 truth: no further from it than
+    LM_RANKS_TRUTH_FACTOR times the 1-rank bf16 pick, in norm and
+    elementwise. Returns (its distance over the 1-rank's in norm, the
+    same elementwise, its distance from the 1-rank pick over the
+    truth's norm)."""
+    g, o, t = got.double(), one.double(), truth.double()
+    check(bool(torch.isfinite(g).all()), f"9g {name}: not finite")
+    floor = 1e-7 * float(t.norm())
+    norm = (float((g - t).norm()), float((o - t).norm()))
+    top = (float((g - t).abs().max()), float((o - t).abs().max()))
+    check(norm[0] <= LM_RANKS_TRUTH_FACTOR * norm[1] + floor
+          and top[0] <= LM_RANKS_TRUTH_FACTOR * top[1] + floor,
+          f"9g {name}: {norm[0]:.3e} in norm and {top[0]:.3e} at most "
+          f"from the fp32 step, the 1-rank bf16 session {norm[1]:.3e} and "
+          f"{top[1]:.3e} (factor {LM_RANKS_TRUTH_FACTOR})")
+    return (norm[0] / max(norm[1], floor), top[0] / max(top[1], floor),
+            float((g - o).norm() / t.norm()))
+
+
+def phase_lm_ranks(dev, card):
+    """Phase 9g: the LM over k ranks sharing the card (ROADMAP A6b-ii,
+    first item). The 1-rank sessions first (mixtral-8x7b depth 1 at
+    capacity factor 8.0, internlm2-1.8b depth 2), each with its first
+    step in fp32 (``lm_ranks_truth``), each freed; then two
+    spawns of gloo ranks on cuda:0: k = 2 on (1, 2) runs (a) the ep body,
+    (b) ``moe_impl="local"``, (e) ep at the config's capacity factor;
+    k = 4 runs (c) ep over (1, 4), 2 experts a rank, and (d) internlm2
+    over (2, 2) (data-parallel over "data", replicated over "model"). Held
+    here: (a)-(d) against their 1-rank session at the tolerances above,
+    every grad pick of a replicated leaf alike on every rank (the sums of
+    its elements and of their magnitudes within 1e-5), (a)-(c)
+    dropping no copy, row 8's launches on every rank = attention layers x
+    steps, every collective on CUDA tensors, each case's summed rank peaks
+    under 80 GB, the phase within LM_RANKS_PHASE_S. Its times are k
+    processes sharing one card over gloo, not scale-out. Returns (row 8's
+    launches over every rank and case, the per-case report)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ref = {}
+    for arch in (LM_RANKS_MOE, LM_RANKS_DENSE):
+        cf = 8.0 if arch == LM_RANKS_MOE else None
+        ref[arch] = lm_ranks_case(lm_ranks_config(arch, cf), None, "auto")
+        ref[arch]["truth"] = lm_ranks_truth(lm_ranks_config(arch, cf), dev)
+    t_ref = time.perf_counter() - t0
+    parent_peak = max(r["peak_bytes"] for r in ref.values())
+    jobs = {"k2": spawn_ranks("k2", 2, lm_rank_main, "9g", LM_RANKS_SPAWN_S),
+            "k4": spawn_ranks("k4", 4, lm_rank_main, "9g", LM_RANKS_SPAWN_S)}
+    wall = time.perf_counter() - t0
+    label = f"{card}; k ranks sharing one card over gloo, not scale-out"
+    report, launches = {}, 0
+    B, S = LM_RANKS_BATCH
+    for name, (job, shape, arch, impl, cf, held) in LM_RANKS_CASES.items():
+        runs = [r[name] for r in jobs[job]]
+        cfg = lm_ranks_config(arch, cf)
+        one = ref[arch]
+        attn = cfg.n_layers                 # both archs attend every layer
+        for r, run in zip(jobs[job], runs):
+            check(all(math.isfinite(x) for x in run["loss"]),
+                  f"9g ({name}): rank {r['rank']}'s losses {run['loss']}")
+            got = run["launches"].get("flash_attention", 0)
+            check(got == attn * LM_RANKS_STEPS,
+                  f"9g ({name}): rank {r['rank']} launched row 8 {got} "
+                  f"times, want {attn} layers x {LM_RANKS_STEPS} steps")
+            check(not {k: v for k, v in run["launches"].items()
+                       if v and k != "flash_attention"},
+                  f"9g ({name}): other kernels launched {run['launches']}")
+            check(all(math.isclose(a, b, rel_tol=1e-5)
+                      for k, v in run["digests"].items()
+                      for a, b in zip(v, runs[0]["digests"][k])),
+                  f"9g ({name}): rank {r['rank']}'s replicated grads "
+                  f"differ from rank 0's")
+            check(all(math.isclose(a, b, rel_tol=1e-6)
+                      for a, b in zip(run["loss"], runs[0]["loss"])),
+                  f"9g ({name}): rank {r['rank']}'s losses differ")
+            launches += got
+        drops = [sum(run["dropped"].values()) for run in runs]
+        body, layout = runs[0]["body"], runs[0]["layout"]
+        line = (f"[lm-ranks] ({name}) {cfg.name} depth {cfg.n_layers} on "
+                f"{len(runs)} ranks {shape}, MoE body {body or 'none'}, expert "
+                f"weights {layout or 'whole'}, capacity factor "
+                f"{cfg.moe.capacity_factor if cfg.moe else '-'}: losses "
+                f"{[round(x, 5) for x in runs[0]['loss']]}, grad norms "
+                f"{[round(x, 4) for x in runs[0]['grad_norm']]}, dropped "
+                f"copies a rank {drops} ({runs[0]['dropped']})")
+        rep = {"loss": runs[0]["loss"], "grad_norm": runs[0]["grad_norm"],
+               "dropped": drops, "launches": sum(
+                   run["launches"].get("flash_attention", 0)
+                   for run in runs),
+               "step_ms": runs[0]["step_ms"],
+               "peak_gb": sum(run["peak_bytes"] for run in runs) / GB,
+               "used_gb": max(run["used_bytes"] for run in runs) / GB}
+        if held:
+            check(sum(drops) == 0 and sum(one["dropped"].values()) == 0,
+                  f"9g ({name}): copies dropped: ranks {drops}, 1-rank "
+                  f"{one['dropped']}")
+            for step in range(LM_RANKS_STEPS):
+                gap = abs(runs[0]["loss"][step] - one["loss"][step])
+                check(gap <= LM_LOSS_TOL,
+                      f"9g ({name}): step {step + 1}'s loss "
+                      f"{runs[0]['loss'][step]} vs the 1-rank "
+                      f"{one['loss'][step]}")
+            gn = abs(runs[0]["grad_norm"][0] / one["grad_norm"][0] - 1)
+            check(gn <= LM_REL, f"9g ({name}): grad norm "
+                                f"{runs[0]['grad_norm'][0]} vs the 1-rank "
+                                f"{one['grad_norm'][0]}")
+            errs = {}
+            for k, want in one["picks"].items():
+                if k == "w_down_e0":
+                    parts = [run["picks"][k] for run in runs
+                             if k in run["picks"]
+                             and run["coords"][0] == 0]
+                    got_k = parts[0] if layout == "experts" else \
+                        torch.cat(parts)
+                else:
+                    got_k = runs[0]["picks"][k]
+                errs[k] = lm_ranks_held(f"({name}) {k}", got_k, want,
+                                        one["truth"]["picks"][k])
+            rep["grad_errs"] = errs
+            line += (f"; against the 1-rank session: losses "
+                     f"{[round(x, 5) for x in one['loss']]} (fp32 step "
+                     f"{one['truth']['loss']:.5f}), grad norm "
+                     f"{one['grad_norm'][0]:.4f} ({gn:.2e} off), picks "
+                     f"(distance from the fp32 step over the 1-rank bf16 "
+                     f"one's, in norm and at most; distance from the "
+                     f"1-rank bf16 over the norm) "
+                     f"{ {k: tuple(float(f'{x:.3e}') for x in v) for k, v in errs.items()} }")
+            if cfg.moe is not None:
+                want_r = one["routes"][0].reshape(B, S - 1, -1)
+                got_r = lm_ranks_routes(runs, body)
+                differ = int((got_r.sort(-1).values
+                              != want_r.sort(-1).values).any(-1).sum())
+                rep["top2_differ"] = differ
+                line += (f"; tokens whose top-{cfg.moe.top_k} differs from "
+                         f"the 1-rank run: {differ} of {B * (S - 1)}")
+        if body == "ep":
+            M = shape[1]
+            rep["a2a_bytes"] = lm_ranks_wire_bytes(
+                runs[0]["tokens_a_rank"], cfg, M, 2)
+            line += (f"; ep all-to-all {rep['a2a_bytes'] / 1e6:.2f} MB a "
+                     f"layer and rank forward (2 C_out |model| d 2 B)")
+        line += (f"; step {[round(x, 1) for x in runs[0]['step_ms']]} ms, "
+                 f"summed rank peaks {rep['peak_gb']:.2f} GB, card used "
+                 f"{rep['used_gb']:.2f} GB ({label})")
+        print(line)
+        check(rep["peak_gb"] < 80, f"9g ({name}): the ranks' summed peak "
+                                   f"{rep['peak_gb']:.2f} GB is over 80 GB")
+        report[name] = rep
+    calls = {k: sum(r["calls"][k] for runs in jobs.values() for r in runs)
+             for k in jobs["k2"][0]["calls"]}
+    on_cpu = {k: v for k, v in calls.items() if k.endswith("_cpu") and v}
+    check(not on_cpu, f"9g: collectives on host tensors {on_cpu}")
+    print(f"[lm-ranks] collectives over every rank, by the tensor's device: "
+          f"{ {k: v for k, v in calls.items() if v} }")
+    print(f"[lm-ranks] phase 9g: 1-rank sessions {t_ref:.1f} s (peak "
+          f"{parent_peak / GB:.2f} GB), ranks "
+          f"{ {j: round(max(r['wall_s'] for r in runs), 1) for j, runs in jobs.items()} } s, "
+          f"{wall:.1f} s in all (budget {LM_RANKS_PHASE_S} s); row 8 "
+          f"launched {launches} times over every rank and case ({card})")
+    check(wall <= LM_RANKS_PHASE_S, f"phase 9g took {wall:.1f} s, over its "
+                                    f"{LM_RANKS_PHASE_S} s budget")
+    return launches, report
+
+
 # -------------------------------------------------------------- phase 11
 def bench_artifact(name, out_dir, speed_claims=BENCH_SPEED_CLAIMS):
     """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
@@ -6354,6 +6757,8 @@ def main() -> int:
     ssm = phase_ssm(dev, card)
     for name, n in ssm["launches"].items():
         lm["launches"][name] += n
+    lm_ranks_launches, _ = phase_lm_ranks(dev, card)
+    lm["launches"]["flash_attention"] += lm_ranks_launches
     host, host_errs = phase_host_tier(dev, card)
     torch.cuda.empty_cache()
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
@@ -6461,6 +6866,8 @@ def main() -> int:
          **({"fabric_launches": fabric_launches,
              "ranks_launches": ranks_launches}
             if name == "embedding_bag" else {}),
+         **({"lm_ranks_launches": lm_ranks_launches}
+            if name == "flash_attention" else {}),
          **({"online_launches": online_launches[name]}
             if name in online_launches else {}),
          "lm_launches": lm["launches"].get(name, 0),

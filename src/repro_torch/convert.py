@@ -6,6 +6,12 @@ tree and never imports JAX. The port keeps the reference's layout (an MLP
 weight is (in, out) and a layer computes ``x @ w + b``), so nothing is
 transposed. A NamedTuple (the reference's ``AdamWState``) comes across as
 the dict of its fields, the port's form of that state.
+
+Over k ranks an LM tree comes across whole and each rank keeps its part
+(``local_lm_params``): the MoE layers' expert weights are sharded over
+"model" as the body the ``Sharder`` picks reads them
+(``models.moe_dist.weight_layout``), every other leaf is whole.
+``gather_lm_params`` is the inverse, over the "model" group.
 """
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceArg, resolve_device
+from repro_torch.models import moe_dist
+from repro_torch.models.common import Sharder
+from repro_torch.parallel import primitives as P
 
 
 def params_from_jax_numpy(tree: Any, device: DeviceArg = None) -> Any:
@@ -33,3 +42,44 @@ def params_from_jax_numpy(tree: Any, device: DeviceArg = None) -> Any:
         return torch.from_numpy(np.array(x)).to(dev)
 
     return convert(tree)
+
+
+def _map_experts(params: Any, cfg, sharder: Sharder, fn) -> Any:
+    """``params`` with ``fn(leaf, dim)`` in place of each expert weight a
+    layout shards (``dim`` the split dim, past the stacked units dim);
+    every other leaf as it is."""
+    layout = (moe_dist.weight_layout(cfg, sharder)
+              if cfg.moe is not None else None)
+    if layout is None:
+        return params
+    dims = moe_dist.SHARD_DIMS[layout]
+    units = [{**u, "moe": {k: fn(v, dims[k] + 1) if k in dims else v
+                           for k, v in u["moe"].items()}}
+             if "moe" in u else u for u in params["units"]]
+    return {**params, "units": units}
+
+
+def local_lm_params(params: Any, cfg, sharder: Sharder) -> Any:
+    """A whole LM tree (the port's, or the reference's through
+    ``params_from_jax_numpy``) -> this rank's: each MoE layer's expert
+    weights sliced to this rank's 1/|model| along E (the ep body) or d_ff
+    (local dispatch), in tensors of their own; other leaves shared."""
+    M, r = sharder.model_size, sharder.model_rank
+
+    def mine(x, dim):
+        n = x.shape[dim] // M
+        return x.narrow(dim, r * n, n).clone()
+
+    return _map_experts(params, cfg, sharder, mine)
+
+
+def gather_lm_params(params: Any, cfg, sharder: Sharder) -> Any:
+    """The inverse of ``local_lm_params`` over the "model" group: each
+    sharded leaf all-gathered whole (a tree of grads, too)."""
+    group = sharder.model_group
+
+    def whole(x, dim):
+        return P.all_gather(x.movedim(dim, 0), group).movedim(0, dim) \
+            .contiguous()
+
+    return _map_experts(params, cfg, sharder, whole)

@@ -42,6 +42,11 @@ substrate's training session, AdamW over any of the ten archs:
     eng = Engine(get_arch("internlm2-1.8b"), lr=3e-4)
     train = eng.train_session(batch=8, seq=128, schedule_steps=30)
 
+over k ranks too: the batch split over "data", the MoE over "model"
+(``moe_impl`` picks its body, as the reference's ``REPRO_MOE_IMPL``):
+
+    eng = Engine(get_arch("mixtral-8x7b"), model_axis=2)   # every rank
+
 ``sharded_fleet(n_boards=...)`` builds the sharded fabric fleet
 (``repro_torch.fabric``): boards that together hold one partitioned table
 set, on the engine's device.
@@ -54,8 +59,8 @@ as each device runs the reference's ``shard_map`` body:
     eng = Engine(cfg, mesh=mesh, axis=("model",), dp_axes=("data",))
 
 ``mesh=None`` is ``make_host_mesh(model_axis)`` over the world (one rank
-without a process group). DLRM serves and trains over k ranks; the LM,
-the sharded fleet and checkpoints take one rank, and more raise
+without a process group). DLRM serves and trains over k ranks, and the LM
+trains; the sharded fleet and checkpoints take one rank, and more raise
 ``NotImplementedError`` naming ROADMAP A6b-ii.
 """
 from __future__ import annotations
@@ -74,6 +79,7 @@ from repro_torch.engine.training import (HOST_TIER_CKPT, LMTrainSession,
                                         TrainSession)
 from repro_torch.hoststore import HostTieredExchange, build_host_exchange
 from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.models.common import MOE_IMPLS
 from repro_torch.parallel.build import AXIS
 from repro_torch.parallel.plan import reconcile_plan_with_mesh
 
@@ -166,6 +172,9 @@ class Engine:
                      mesh without overlap.
     compress_grads : the int8 error-feedback all-reduce of the dense
                      grads (DLRM only; one rank too).
+    moe_impl       : the MoE body of an LM over a mesh with a "model"
+                     axis: "auto" | "global" | "local" | "ep"
+                     (``models.common.Sharder``).
     """
 
     def __init__(self, cfg, *, plan: PlanArg = "none",
@@ -180,8 +189,14 @@ class Engine:
                  compress_grads: bool = False, host_capacity_mb=None,
                  host_chunk_rows: Optional[int] = None,
                  host_hot_fraction: float = 0.5, host_link=None,
-                 calibration=None, metrics=None):
+                 calibration=None, metrics=None, moe_impl: str = "auto"):
         self.is_dlrm = isinstance(cfg, DLRMConfig)
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{moe_impl!r}")
+        if self.is_dlrm and moe_impl != "auto":
+            raise ValueError("moe_impl is LM-only")
+        self.moe_impl = moe_impl
         if isinstance(plan, str) and plan not in ("none", "auto"):
             raise ValueError(f"plan must be 'none', 'auto', or a "
                              f"ShardingPlan; got {plan!r}")
@@ -210,10 +225,6 @@ class Engine:
                     f"dp_axes + axis = {self.dp_axes + self.axis} cover "
                     f"{covered} devices but the mesh has {self.n_devices}; "
                     f"the batch must shard over the whole mesh")
-        if not self.is_dlrm and self.n_devices > 1:
-            raise NotImplementedError(
-                f"the LM substrate over {self.n_devices} ranks is not "
-                f"ported yet ({MULTI_RANK})")
         if host_capacity_mb is not None:
             if host_capacity_mb <= 0:
                 raise ValueError(f"host_capacity_mb must be > 0, got "
@@ -451,13 +462,14 @@ class Engine:
         ``serve_session(params=...)`` of the same engine. An LM config:
         ``LMTrainSession`` (``batch``, ``seq``, ``chain_prob`` and
         ``schedule_steps`` apply; a DLRM session ignores them, as in the
-        reference)."""
+        reference); over k ranks it trains on the engine's mesh."""
         if not self.is_dlrm:
             return LMTrainSession(
                 self.cfg, device=self.device, lr=self.lr, seed=self.seed,
                 batch=batch, seq=seq, chain_prob=chain_prob,
                 schedule_steps=schedule_steps, ckpt_dir=ckpt_dir,
-                ckpt_every=ckpt_every, ckpt_keep=ckpt_keep)
+                ckpt_every=ckpt_every, ckpt_keep=ckpt_keep, mesh=self.mesh,
+                moe_impl=self.moe_impl)
         if ckpt_dir and self.host_capacity_mb is not None:
             raise NotImplementedError(HOST_TIER_CKPT)
         plan = self.build_plan("training")

@@ -5,7 +5,8 @@ straggler accounting) around the plan-executing train step
 (``parallel.build_step(mode="train")``) and its plan-aware optimizer
 state, as the reference's ``repro.engine.training``; and, for the LM
 workload, around the LM train step (``models.lm.make_train_step``) with
-AdamW under a cosine schedule. Built by ``Engine.train_session()``.
+AdamW under a cosine schedule, on one rank or over k. Built by
+``Engine.train_session()``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.data.recsys import make_recsys_batch
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.models import lm
 from repro_torch.models import transformer as T
+from repro_torch.models.common import Sharder
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.parallel.build import (AXIS, build_step,
@@ -207,15 +209,23 @@ class TrainSession(_SessionBase):
 
 
 class LMTrainSession(_SessionBase):
-    """LM training on one device: ``models.lm.make_train_step`` + TrainLoop,
-    as the reference's ``LMTrainSession``.
+    """LM training: ``models.lm.make_train_step`` + TrainLoop, on one rank
+    or on every rank of ``mesh``, as the reference's ``LMTrainSession``.
 
     The params are a fresh ``init_model`` from ``seed`` on ``device``
     (None: the card); AdamW at ``lr`` under ``cosine_schedule(10,
     schedule_steps)``; batch ``s`` is ``make_lm_batch(cfg, s, seed, batch,
     seq, chain_prob)`` drawn on the device, so a resumed session sees the
     stream the uninterrupted one would. The state is ``{"params", "opt",
-    "step"}``, updated in place; checkpoints hold all of it."""
+    "step"}``, updated in place; checkpoints hold all of it.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` of more than one rank) trains under
+    ``Sharder(mesh, moe_impl=moe_impl)``: every rank draws the same init
+    and keeps its shards (``init_model(sharder=)``), draws the same
+    batches and keeps its rows (``lm.shard_batch``; a batch that does not
+    divide over the batch axes raises ValueError), and runs the same
+    loop; the history's losses and grad norms are the global batch's.
+    ``ckpt_dir`` over more than one rank raises (ROADMAP A6b-ii)."""
 
     workload = "lm"
 
@@ -224,17 +234,28 @@ class LMTrainSession(_SessionBase):
                  seq: int = 128, chain_prob: float = 0.8,
                  schedule_steps: int = 100,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-                 ckpt_keep: int = 3):
+                 ckpt_keep: int = 3, mesh=None, moe_impl: str = "auto"):
+        multi = mesh is not None and mesh.size() > 1
+        if ckpt_dir and multi:
+            raise NotImplementedError(MULTI_RANK_CKPT)
+        self.sharder = sharder = Sharder(mesh if multi else None,
+                                         moe_impl=moe_impl)
+        if batch % sharder.batch_size:
+            raise ValueError(
+                f"an LM batch of {batch} does not split over the "
+                f"{sharder.batch_size} ranks of the batch axes "
+                f"{sharder.batch_axes}")
         self.device = device = resolve_device(device)
         opt = adamw(lr, lr_schedule=cosine_schedule(10, schedule_steps))
         params = T.init_model(
-            cfg, torch.Generator(device=device).manual_seed(seed))
+            cfg, torch.Generator(device=device).manual_seed(seed), sharder)
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
         loop = TrainLoop(
-            step_fn=lm.make_train_step(cfg, opt),
-            batch_fn=lambda s: make_lm_batch(cfg, s, seed, batch, seq,
-                                             chain_prob, device=device),
+            step_fn=lm.make_train_step(cfg, opt, sharder),
+            batch_fn=lambda s: lm.shard_batch(make_lm_batch(
+                cfg, s, seed, batch, seq, chain_prob, device=device),
+                sharder),
             ckpt=(CheckpointManager(ckpt_dir, keep=ckpt_keep)
                   if ckpt_dir else None),
             ckpt_every=ckpt_every)

@@ -165,6 +165,15 @@ def init_from_env() -> bool:
     return True
 
 
+def leave_world() -> None:
+    """Leave the world ``init_from_env`` joined, every rank together: a
+    barrier, then the process group destroyed. Left to the interpreter's
+    exit, gloo's teardown can abort a rank whose peer has already closed
+    its pairs."""
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def rank0_prints() -> Iterator[None]:
     """Let rank 0's prints through and drop the other ranks' (their

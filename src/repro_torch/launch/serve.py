@@ -93,7 +93,8 @@ import numpy as np
 from repro_torch.configs.registry import get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
-from repro_torch.launch.mesh import init_from_env, rank0_prints, world_size
+from repro_torch.launch.mesh import (init_from_env, leave_world,
+                                     rank0_prints, world_size)
 from repro_torch.obs import Tracer, default_registry
 
 _ONLINE_FLAGS = ("online_every_s", "online_steps", "online_lr", "coherence",
@@ -272,14 +273,17 @@ def main(argv: Optional[list] = None) -> int:
         raise SystemExit(
             "--host-capacity-mb is single-board only: give each fleet "
             "board its own Engine/host tier instead")
-    init_from_env()
+    joined = init_from_env()
     if fleet_path and (args.model_axis > 1 or world_size() > 1):
         raise NotImplementedError(
             f"fleet boards of more than one rank (--model-axis "
             f"{args.model_axis}, {world_size()} launched ranks) are not "
             f"ported yet (ROADMAP A6b-ii)")
     with rank0_prints():
-        return _main(args, ap, fleet_path)
+        rc = _main(args, ap, fleet_path)
+    if joined:
+        leave_world()
+    return rc
 
 
 def _main(args, ap, fleet_path) -> int:

@@ -2,8 +2,8 @@
 
 Maps flags onto ``Engine(...)`` / ``TrainSession`` (plan -> train step ->
 params and optimizer state -> checkpointed TrainLoop) and runs real steps
-of DLRM, or of an LM (``--workload lm``), on one device: the card unless
-``--device cpu``.
+of DLRM, or of an LM (``--workload lm``), on one device or on each rank
+of ``torch.distributed.run``'s world: the card unless ``--device cpu``.
 
   # full width on the card, checkpoints every 50 steps
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -45,13 +45,19 @@ of DLRM, or of an LM (``--workload lm``), on one device: the card unless
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.train --device cpu --smoke --model-axis 2
 
+  # the LM over k ranks: the batch split over "data" (k // --model-axis),
+  # the MoE's experts over "model" (the expert-parallel all-to-all)
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --workload lm --arch mixtral-8x7b \
+      --smoke --device cpu --model-axis 2 --steps 4
+
   # the int8 error-feedback all-reduce of the dense grads
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 8 --compress-grads
 
 Under --workload lm the DLRM-only flags are ignored with a note, as in
-the reference; the LM and checkpoints over more than one rank raise,
-naming ROADMAP A6b-ii.
+the reference; checkpoints over more than one rank raise, naming ROADMAP
+A6b-ii.
 """
 from __future__ import annotations
 
@@ -66,7 +72,8 @@ import torch
 from repro_torch.configs.registry import get_arch, get_dlrm
 from repro_torch.device import resolve_device
 from repro_torch.engine import Engine
-from repro_torch.launch.mesh import init_from_env, rank0_prints
+from repro_torch.launch.mesh import (init_from_env, leave_world,
+                                     rank0_prints)
 
 
 def _run_with_deltas(args, session):
@@ -215,9 +222,12 @@ def _lm_flags(args) -> None:
 
 def main(argv: Optional[list] = None) -> int:
     args = _parser().parse_args(argv)
-    init_from_env()
+    joined = init_from_env()
     with rank0_prints():
-        return _main(args)
+        rc = _main(args)
+    if joined:
+        leave_world()
+    return rc
 
 
 def _main(args) -> int:

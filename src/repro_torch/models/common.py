@@ -7,14 +7,19 @@ bf16, as in the reference. Init draws from an explicit
 ``torch.Generator`` on the params' device; its numbers are not
 ``jax.random``'s, so tests hand both packages the same numpy params.
 
-The reference's ``Sharder`` is the identity without a mesh; the port runs
-on one rank and leaves it out until the LM runs over k ranks (ROADMAP
-A6b-ii).
+``Sharder`` is the reference's mesh context of the LM over k ranks
+(``torch.distributed`` ranks laid out by ``launch.mesh.Mesh``): the batch
+axes split the batch, "model" carries the MoE (``models.moe_dist``), and
+everything else is computed replicated over "model". ``NULL_SHARDER`` has
+no mesh: one rank. The reference's ``act`` and ``batch_act`` are
+placement constraints (``with_sharding_constraint``), which change where
+XLA keeps a value and not its numbers; eager torch has no counterpart,
+so they are left out.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +27,82 @@ Params = Any  # nested dict / list tree of tensors
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
+
+MOE_IMPLS = ("auto", "global", "local", "ep")
+
+
+class Sharder:
+    """The mesh a model runs over, or none (one rank).
+
+    ``mesh`` is a ``launch.mesh.Mesh``; ``batch_axes`` (the reference's
+    default ("data",)) split the batch; the tensor- and expert-parallel
+    axis is "model", as the reference's MoE bodies assume. ``moe_impl``
+    picks the MoE body, in place of the reference's ``REPRO_MOE_IMPL``
+    environment variable: "global" (the global formulation over the
+    whole batch), "local" (``moe_block_local_dispatch``), "ep"
+    (``moe_block_ep_a2a``) or "auto" (ep when E % |model| == 0 and
+    |model| > 1, else local)."""
+
+    def __init__(self, mesh=None, batch_axes: Sequence[str] = ("data",),
+                 moe_impl: str = "auto"):
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{moe_impl!r}")
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
+        self.moe_impl = moe_impl
+
+    def axis_size(self, names: Sequence[str]) -> int:
+        return 1 if self.mesh is None else self.mesh.size(tuple(names))
+
+    @property
+    def batch_size(self) -> int:
+        """Ranks along the batch axes: the batch splits into this many."""
+        return self.axis_size(self.batch_axes)
+
+    @property
+    def batch_group(self):
+        return None if self.mesh is None else self.mesh.group(
+            self.batch_axes)
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's place along the batch axes: it holds rows
+        [r B / n, (r + 1) B / n) of a global batch of B."""
+        return 0 if self.mesh is None else self.mesh.rank_in(
+            self.batch_axes)
+
+    @property
+    def has_model(self) -> bool:
+        return self.mesh is not None and "model" in self.mesh.shape
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape["model"] if self.has_model else 1
+
+    @property
+    def model_group(self):
+        return self.mesh.group("model") if self.has_model else None
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.coords["model"] if self.has_model else 0
+
+    def moe_body(self, num_experts: int) -> Optional[str]:
+        """The body a MoE layer of ``num_experts`` experts calls:
+        "ep", "local", or None for the global formulation (no mesh, no
+        "model" axis, or ``moe_impl="global"``), as the reference's
+        ``moe_block`` dispatches."""
+        if not self.has_model or self.moe_impl == "global":
+            return None
+        M = self.model_size
+        if self.moe_impl == "ep" or (self.moe_impl == "auto"
+                                     and num_experts % M == 0 and M > 1):
+            return "ep"
+        return "local"
+
+
+NULL_SHARDER = Sharder(None)
 
 
 # ----------------------------------------------------------------- param init

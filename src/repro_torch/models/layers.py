@@ -1,6 +1,6 @@
 """Core transformer layers: norms, RoPE, GQA/SWA attention (prefill and
 training through row 8, cached decode through row 9), SwiGLU MLP and
-sort-based capacity MoE.
+sort-based capacity MoE (its distributed bodies in ``models.moe_dist``).
 
 As the reference (``repro.models.layers``): plain functions over dict
 params made by the matching ``init_*`` functions, the reference's layouts
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import COMPUTE_DTYPE, dense_init
+from repro_torch.models.common import (COMPUTE_DTYPE, NULL_SHARDER,
+                                       Sharder, dense_init)
 
 
 # ------------------------------------------------------------------- norms
@@ -289,19 +290,61 @@ def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 # -------------------------------------------------------------------- MoE
+def _draw_experts(generator: torch.Generator, lead: Tuple[int, ...],
+                  E: int, d_in: int, d_out: int, scale: float,
+                  shard: Optional[Tuple[Optional[str], int, int]],
+                  ff_dim: int) -> torch.Tensor:
+    """(*lead, E, d_in, d_out) expert weights of N(0, (scale /
+    sqrt(d_in))^2), each (d_in, d_out) matrix drawn on its own, unit by
+    unit and expert by expert, so that a rank keeps its shard of each as
+    it is drawn and never holds the whole stack. ``shard`` is (layout,
+    rank, M) of ``moe_dist.weight_layout``: "experts" keeps experts
+    [rank E / M, (rank + 1) E / M), "ff" the rank's 1/M of d_ff (dim
+    ``ff_dim`` of a matrix), None all of it."""
+    layout, rank, M = shard if shard is not None else (None, 0, 1)
+    e0, e1 = (rank * E // M, (rank + 1) * E // M) if layout == "experts" \
+        else (0, E)
+    rows, cols = d_in, d_out
+    if layout == "ff":
+        rows, cols = ((d_in // M, d_out) if ff_dim == 0
+                      else (d_in, d_out // M))
+    std = scale / math.sqrt(d_in)
+    out = torch.empty(tuple(lead) + (e1 - e0, rows, cols),
+                      device=generator.device)
+    flat = out.view(-1, e1 - e0, rows, cols)
+    scratch = None
+    for u in range(flat.shape[0]):
+        for e in range(E):
+            if layout is None or (layout == "experts" and e0 <= e < e1):
+                flat[u, e - e0].normal_(0.0, std, generator=generator)
+                continue
+            if scratch is None:
+                scratch = torch.empty((d_in, d_out), device=out.device)
+            scratch.normal_(0.0, std, generator=generator)
+            if layout == "ff":
+                size = rows if ff_dim == 0 else cols
+                flat[u, e].copy_(scratch.narrow(ff_dim, rank * size, size))
+    return out
+
+
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
-             lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+             lead: Tuple[int, ...] = (),
+             shard: Optional[Tuple[Optional[str], int, int]] = None
+             ) -> Dict[str, torch.Tensor]:
+    """The router (d, E), then each expert weight stacked (E, ...) behind
+    ``lead``, drawn a matrix at a time (``_draw_experts``); with
+    ``shard``, this rank's part of them, the same numbers."""
     assert cfg.moe is not None
     E = cfg.moe.num_experts
     d, ff = cfg.d_model, cfg.d_ff
     lead = tuple(lead)
     return {
         "router": dense_init(generator, d, E, lead=lead),
-        "w_gate": dense_init(generator, d, ff, lead=lead + (E,)),
-        "w_up": dense_init(generator, d, ff, lead=lead + (E,)),
-        "w_down": dense_init(generator, ff, d,
-                             scale=1.0 / math.sqrt(2 * cfg.n_layers),
-                             lead=lead + (E,)),
+        "w_gate": _draw_experts(generator, lead, E, d, ff, 1.0, shard, 1),
+        "w_up": _draw_experts(generator, lead, E, d, ff, 1.0, shard, 1),
+        "w_down": _draw_experts(generator, lead, E, ff, d,
+                                1.0 / math.sqrt(2 * cfg.n_layers), shard,
+                                0),
     }
 
 
@@ -312,54 +355,123 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
                                 / m.num_experts / 8.0)) * 8)
 
 
-def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Sort-based capacity-dropping top-k MoE (tokens routed to expert
-    buffers), the reference's global formulation: x (B, T, d) -> (B, T, d).
+# Routing statistics of the MoE bodies, for the k-rank checks; both off
+# (None) unless a harness sets them. While ``DROPS`` is a dict, each body
+# adds the copies it dropped under its name ("global", "local",
+# "ep_send", "ep_recv"; device scalars, summed without a sync; a
+# rematerialized layer counts twice); while ``ROUTES`` is a list, each
+# routing appends its top-k expert ids (n, K).
+DROPS: Optional[Dict[str, torch.Tensor]] = None
+ROUTES: Optional[list] = None
 
-    Copies of tokens are stably sorted by expert; a copy past its expert's
-    capacity C is dropped; the gates are renormalised over the top k."""
-    assert cfg.moe is not None
-    B, T, d = x.shape
-    E, K = cfg.moe.num_experts, cfg.moe.top_k
-    N = B * T
-    dt = x.dtype
-    xt = x.reshape(N, d)
 
-    logits = xt @ p["router"].to(dt)                          # (N, E)
+def count_dropped(body: str, keep: torch.Tensor) -> None:
+    if DROPS is not None:
+        n = (~keep).sum()
+        DROPS[body] = DROPS[body] + n if body in DROPS else n
+
+
+def pack_by_segment(seg_ids: torch.Tensor, n_segments: int, capacity: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """Sort-based capacity packing. seg_ids (N,) in [0, n_segments) ->
+    (the stable sort's order, the sorted ids, each copy's slot in its
+    segment (0 where dropped), keep), all in the sorted order."""
+    order = torch.argsort(seg_ids, stable=True)
+    seg_sorted = seg_ids[order]
+    seg_start = torch.searchsorted(
+        seg_sorted, torch.arange(n_segments, device=seg_ids.device,
+                                 dtype=seg_sorted.dtype))
+    pos = torch.arange(seg_ids.shape[0], device=seg_ids.device) \
+        - seg_start[seg_sorted]
+    keep = pos < capacity
+    return order, seg_sorted, torch.where(keep, pos, torch.zeros_like(pos)), \
+        keep
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, K: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of the tokens xt (n, d): (gates (n, K) fp32,
+    renormalised over the k, expert ids (n, K))."""
+    logits = xt @ router.to(xt.dtype)                        # (n, E)
     probs = torch.softmax(logits.float(), dim=-1)
-    gate, idx = torch.topk(probs, K, dim=-1)                  # (N, K)
+    gate, idx = torch.topk(probs, K, dim=-1)                 # (n, K)
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    if ROUTES is not None:
+        ROUTES.append(idx.detach())
+    return gate, idx
 
-    flat_e = idx.reshape(-1)                                  # (N*K,)
-    order = torch.argsort(flat_e, stable=True)
-    fe_s = flat_e[order]
+
+def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The experts' SwiGLU over their buffers: (E, C, d) -> (E, C, d)."""
+    dt = buf.dtype
+    act = _act(cfg)
+    h = act(torch.einsum("ecd,edf->ecf", buf, w_gate.to(dt)))
+    h = h * torch.einsum("ecd,edf->ecf", buf, w_up.to(dt))
+    return torch.einsum("ecf,efd->ecd", h, w_down.to(dt))
+
+
+def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              cfg: ModelConfig, sharder: Sharder = NULL_SHARDER
+              ) -> torch.Tensor:
+    """Sort-based capacity-dropping top-k MoE (tokens routed to expert
+    buffers): x (B, T, d) -> (B, T, d).
+
+    The body is the reference's choice (``Sharder.moe_body``): without a
+    mesh, the global formulation (``moe_global``); over a mesh with a
+    "model" axis, ``moe_dist.moe_block_ep_a2a`` or
+    ``moe_block_local_dispatch``; under ``moe_impl="global"`` or with no
+    "model" axis, the global formulation over the whole batch
+    (``moe_dist.moe_block_global``). Over a mesh, x is this rank's rows of
+    the batch, replicated over "model", and ``p`` holds this rank's shards
+    of the expert weights (``moe_dist.weight_layout``)."""
+    assert cfg.moe is not None
+    if sharder.mesh is None:
+        return moe_global(p, x, cfg)
+    from repro_torch.models import moe_dist
+    body = sharder.moe_body(cfg.moe.num_experts)
+    if body == "ep":
+        return moe_dist.moe_block_ep_a2a(p, x, cfg, sharder)
+    if body == "local":
+        return moe_dist.moe_block_local_dispatch(p, x, cfg, sharder)
+    return moe_dist.moe_block_global(p, x, cfg, sharder)
+
+
+def moe_global(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The reference's global formulation: ``moe_tokens`` over every
+    token of x at ``moe_capacity``."""
+    B, T, d = x.shape
+    N = B * T
+    return moe_tokens(p, x.reshape(N, d), cfg, moe_capacity(cfg, N),
+                      "global").reshape(B, T, d)
+
+
+def moe_tokens(p: Dict[str, torch.Tensor], xt: torch.Tensor,
+               cfg: ModelConfig, C: int, body: str) -> torch.Tensor:
+    """The MoE on the tokens xt (n, d) at C slots an expert: copies of
+    tokens are stably sorted by expert; a copy past its expert's capacity
+    is dropped (counted under ``body``); the gates are renormalised over
+    the top k. With a d_ff shard of the experts in ``p`` the result is
+    this rank's partial sum."""
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    n, d = xt.shape
+    dt = xt.dtype
+    gate, idx = route(xt, p["router"], K)
+
+    order, fe_s, pos, keep = pack_by_segment(idx.reshape(-1), E, C)
+    count_dropped(body, keep)
     tok_s = order // K
     slot_gate = gate.reshape(-1)[order]
+    zero = torch.zeros((), dtype=dt, device=xt.device)
 
-    # position of each routed copy within its expert's group
-    seg_start = torch.searchsorted(
-        fe_s, torch.arange(E, device=x.device, dtype=fe_s.dtype))
-    pos = torch.arange(N * K, device=x.device) - seg_start[fe_s]
+    gathered = torch.where(keep[:, None], xt[tok_s], zero)
+    buf = torch.zeros((E, C, d), dtype=dt, device=xt.device).index_put(
+        (fe_s, pos), gathered, accumulate=True)
+    out_buf = expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"], cfg)
 
-    C = moe_capacity(cfg, N)
-    keep = pos < C
-    safe_pos = torch.where(keep, pos, torch.zeros_like(pos))
-
-    gathered = torch.where(keep[:, None], xt[tok_s],
-                           torch.zeros((), dtype=dt, device=x.device))
-    buf = torch.zeros((E, C, d), dtype=dt, device=x.device).index_put(
-        (fe_s, safe_pos), gathered, accumulate=True)
-
-    act = _act(cfg)
-    h = act(torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt)))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(dt))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
-
-    y_slot = out_buf[fe_s, safe_pos]                          # (N*K, d)
-    y_slot = torch.where(keep[:, None], y_slot,
-                         torch.zeros((), dtype=dt, device=x.device))
+    y_slot = torch.where(keep[:, None], out_buf[fe_s, pos], zero)
     y_slot = y_slot * slot_gate[:, None].to(dt)
-    y = torch.zeros((N, d), dtype=dt, device=x.device).index_add(
+    return torch.zeros((n, d), dtype=dt, device=xt.device).index_add(
         0, tok_s, y_slot)
-    return y.reshape(B, T, d)

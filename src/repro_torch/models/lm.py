@@ -11,6 +11,15 @@ time, so the (tokens x padded_vocab) logits tensor is never whole.
 Prefill and decode run under ``torch.no_grad``; the train step
 differentiates the forward (row 8 through ``layers.FlashAttention``) and
 updates params and optimizer state in place.
+
+Over k ranks (a ``Sharder`` with a mesh) the train step is the
+reference's under ``Sharder(mesh)``: each rank holds its rows of the
+batch (``shard_batch``), the MoE runs over "model" (``models.moe_dist``)
+and the rest replicated over it; the loss is this rank's summed
+cross-entropy over the GLOBAL count of valid labels (not a mean of the
+ranks' means), the grads are summed over the batch axes, and the grad
+norm counts each "model"-sharded leaf's shards once and each replicated
+leaf once.
 """
 from __future__ import annotations
 
@@ -19,9 +28,11 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe_dist
 from repro_torch.models import transformer as T
-from repro_torch.models.common import (COMPUTE_DTYPE, Params, tree_leaves,
-                                       tree_map)
+from repro_torch.models.common import (COMPUTE_DTYPE, NULL_SHARDER, Params,
+                                       Sharder, tree_leaves, tree_map)
+from repro_torch.parallel import primitives as P
 
 CE_CHUNK = 512  # tokens per cross-entropy chunk
 
@@ -37,6 +48,16 @@ def chunked_cross_entropy(params: Params, cfg: ModelConfig,
     hidden: (B, T, d). labels: (B, T) ints in [0, vocab). The logsumexp
     runs over the PADDED vocab; label positions >= vocab_size (padding
     ids) and < 0 are masked out."""
+    loss_sum, count = cross_entropy_sums(params, cfg, hidden, labels, chunk)
+    return loss_sum / count.clamp_min(1).float()
+
+
+def cross_entropy_sums(params: Params, cfg: ModelConfig,
+                       hidden: torch.Tensor, labels: torch.Tensor,
+                       chunk: int = CE_CHUNK
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chunked_cross_entropy``'s (summed NLL fp32, count of valid
+    labels int64), before the division."""
     B, Tlen, _ = hidden.shape
     chunk = min(chunk, Tlen)
     head = (params["embed"].t() if cfg.tie_embeddings
@@ -52,22 +73,43 @@ def chunked_cross_entropy(params: Params, cfg: ModelConfig,
         gold = torch.gather(logits, -1, ysafe[..., None])[..., 0]
         loss_sum = loss_sum + ((logz - gold) * valid.float()).sum()
         count = count + valid.sum()
-    return loss_sum / count.clamp_min(1).float()
+    return loss_sum, count
 
 
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, sharder: Sharder = NULL_SHARDER):
+    """loss_fn(params, batch): the mean CE of the batch. Under a sharder,
+    ``batch`` is this rank's rows and the loss this rank's summed NLL over
+    the global count of valid labels (psummed over the batch axes), so
+    the ranks' losses and grads sum to the global batch's."""
+    group = sharder.batch_group
+
     def loss_fn(params, batch):
         hidden = T.forward(params, cfg, batch["tokens"],
                            frontend_embeds=batch.get("frontend_embeds"),
-                           encoder_embeds=batch.get("encoder_embeds"))
+                           encoder_embeds=batch.get("encoder_embeds"),
+                           sharder=sharder)
         fe = (cfg.n_frontend_tokens
               if (cfg.frontend and not cfg.is_encoder_decoder) else 0)
-        return chunked_cross_entropy(params, cfg, hidden[:, fe:, :],
-                                     batch["labels"])
+        loss_sum, count = cross_entropy_sums(params, cfg, hidden[:, fe:, :],
+                                             batch["labels"])
+        count = P.psum(count, group)
+        return loss_sum / count.clamp_min(1).float()
     return loss_fn
+
+
+def shard_batch(batch: Dict[str, Any], sharder: Sharder) -> Dict[str, Any]:
+    """This rank's rows of a global batch of B, B divisible by the n ranks
+    of the batch axes (``LMTrainSession`` refuses another): every leading
+    dim is the batch, and the rank at place r keeps rows
+    [r B / n, (r + 1) B / n)."""
+    n, r = sharder.batch_size, sharder.batch_rank
+    if n == 1:
+        return batch
+    B = batch["tokens"].shape[0]
+    return {k: v[r * B // n:(r + 1) * B // n] for k, v in batch.items()}
 
 
 def value_and_grad(loss_fn, params: Params, batch) -> Tuple[torch.Tensor,
@@ -85,20 +127,36 @@ def value_and_grad(loss_fn, params: Params, batch) -> Tuple[torch.Tensor,
     return loss.detach(), tree_map(lambda x: by_id[id(x)], live)
 
 
-def make_train_step(cfg: ModelConfig, optimizer):
+def loss_and_grads(loss_fn, params: Params, batch, sharder: Sharder
+                   ) -> Tuple[torch.Tensor, Params]:
+    """The global batch's (loss, grads) from this rank's part: each summed
+    over the batch axes (a 1-rank group is skipped)."""
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    group = sharder.batch_group
+    if P.group_size(group) == 1:
+        return loss, grads
+    return P.psum(loss, group), tree_map(lambda g: P.psum(g, group), grads)
+
+
+def make_train_step(cfg: ModelConfig, optimizer,
+                    sharder: Sharder = NULL_SHARDER):
     """Returns step(train_state, batch) -> (train_state, metrics).
 
     ``optimizer`` follows ``repro_torch.optim``'s (init, update) protocol.
     The params and optimizer state are updated in place (``p += u``, the
     reference's ``p + u``) and the state dict is returned with the step
     advanced; metrics are the loss and the global grad norm (device
-    scalars)."""
-    loss_fn = make_loss_fn(cfg)
+    scalars). Under a sharder, ``batch`` is this rank's rows, the params
+    and optimizer state this rank's (its shards of the "model"-sharded
+    expert weights), and the metrics the global batch's."""
+    loss_fn = make_loss_fn(cfg, sharder)
 
     def step(state, batch):
         params = state["params"]
-        loss, grads = value_and_grad(loss_fn, params, batch)
-        gnorm = global_norm(grads)
+        loss, grads = loss_and_grads(loss_fn, params, batch, sharder)
+        gnorm = global_norm(grads, moe_dist.sharded_leaves(grads, cfg,
+                                                           sharder),
+                            sharder.model_group)
         updates, new_opt = optimizer.update(grads, state["opt"], params)
         del grads
         with torch.no_grad():
@@ -109,9 +167,17 @@ def make_train_step(cfg: ModelConfig, optimizer):
     return step
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree: Params, sharded=(), group=None) -> torch.Tensor:
+    """The norm of every leaf as one vector. ``sharded`` leaves are this
+    rank's shards over ``group``: their squares are summed over it, and
+    every other leaf (replicated) counts once."""
+    ids = {id(x) for x in sharded}
+    total = sum(x.float().square().sum() for x in tree_leaves(tree)
+                if id(x) not in ids)
+    if ids:
+        total = total + P.psum(sum(x.float().square().sum()
+                                   for x in sharded), group)
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------

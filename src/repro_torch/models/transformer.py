@@ -22,9 +22,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe_dist
 from repro_torch.models import ssm as S
-from repro_torch.models.common import (COMPUTE_DTYPE, Params, dense_init,
-                                       embed_init, unstack)
+from repro_torch.models.common import (COMPUTE_DTYPE, NULL_SHARDER, Params,
+                                       Sharder, dense_init, embed_init,
+                                       unstack)
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +70,9 @@ def plan_for(cfg: ModelConfig) -> LayerPlan:
 # Init
 # ---------------------------------------------------------------------------
 def _init_layers(generator: torch.Generator, cfg: ModelConfig, mixer: str,
-                 mlp: str, n: int) -> Dict[str, Any]:
-    """``n`` layers of one kind, stacked over a leading (n,) dim."""
+                 mlp: str, n: int, moe_shard=None) -> Dict[str, Any]:
+    """``n`` layers of one kind, stacked over a leading (n,) dim; a MoE's
+    expert weights are this rank's ``moe_shard`` of them."""
     dev, lead = generator.device, (n,)
     p: Dict[str, Any] = {"norm1": L.init_rms_norm(cfg.d_model, dev, lead),
                          "norm2": L.init_rms_norm(cfg.d_model, dev, lead)}
@@ -84,7 +87,7 @@ def _init_layers(generator: torch.Generator, cfg: ModelConfig, mixer: str,
     if mlp == "dense":
         p["mlp"] = L.init_mlp(generator, cfg, lead=lead)
     elif mlp == "moe":
-        p["moe"] = L.init_moe(generator, cfg, lead)
+        p["moe"] = L.init_moe(generator, cfg, lead, moe_shard)
     elif mlp == "rwkv_cmix":
         p["cmix"] = S.init_rwkv6_channel_mix(generator, cfg, lead)
     else:
@@ -92,14 +95,20 @@ def _init_layers(generator: torch.Generator, cfg: ModelConfig, mixer: str,
     return p
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               sharder: Sharder = NULL_SHARDER) -> Params:
     """Full parameter tree on ``generator.device``, fp32, with the
     reference's names and shapes: per-kind layer params stacked over
     units, the encoder's over its layers, the cross-attention's over the
-    decoder's layers."""
+    decoder's layers. Under a ``sharder`` whose MoE body reads its expert
+    weights sharded (``moe_dist.weight_layout``), each MoE layer keeps
+    this rank's shard of them, the numbers of the whole init: every rank
+    draws the same stream in the same order, a matrix at a time, and
+    never holds every layer's experts at full width."""
     plan = plan_for(cfg)
     n_units = cfg.n_layers // plan.period
     dev = generator.device
+    moe_shard = moe_dist.shard_spec(cfg, sharder)
     params: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model),
         "final_norm": L.init_rms_norm(cfg.d_model, dev),
@@ -109,7 +118,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
                                        cfg.padded_vocab)
     params["units"] = [
         _init_layers(generator, cfg, plan.mixers[pos], plan.mlps[pos],
-                     n_units) for pos in range(plan.period)]
+                     n_units, moe_shard) for pos in range(plan.period)]
     if cfg.is_encoder_decoder:
         params["encoder"] = _init_layers(generator, cfg, "attn", "dense",
                                          cfg.n_encoder_layers)
@@ -158,7 +167,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 def _unit_forward(layer_p, x, positions, cfg, mixer, mlp, state=None,
                   cache_pos=None, memory=None, xattn_p=None,
-                  collect=False):
+                  collect=False, sharder=NULL_SHARDER):
     """One layer: pre-norm mixer + pre-norm MLP (+ optional
     cross-attention). Returns (x, new_state). With collect=True
     (full-sequence prefill), new_state carries cache-seeding data: the
@@ -197,7 +206,7 @@ def _unit_forward(layer_p, x, positions, cfg, mixer, mlp, state=None,
     if mlp == "dense":
         x = x + L.mlp_block(layer_p["mlp"], h, cfg)
     elif mlp == "moe":
-        x = x + L.moe_block(layer_p["moe"], h, cfg)
+        x = x + L.moe_block(layer_p["moe"], h, cfg, sharder)
     else:  # rwkv channel mix
         prev = None if state is None else state["cmix_prev"]
         out, cmix_prev = S.rwkv6_channel_mix(layer_p["cmix"], h, prev)
@@ -255,7 +264,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
-            collect: bool = False, remat: bool = False):
+            collect: bool = False, remat: bool = False,
+            sharder: Sharder = NULL_SHARDER):
     """Full-sequence forward (train / prefill). Returns the final hidden
     (B, T, d) in bf16; with collect=True also the per-unit cache seeds a
     position of the unit, stacked over units: the post-RoPE K/V ({"k",
@@ -272,6 +282,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       under ``torch.utils.checkpoint`` while autograd
                       records, so the backward runs its forward again (row
                       8 included).
+    sharder         : the mesh of the LM over k ranks: ``tokens`` are this
+                      rank's rows of the batch, and each MoE layer runs
+                      the body the sharder picks (``layers.moe_block``);
+                      everything else is computed replicated over "model".
+                      Prefill and decode take none (the reference serves
+                      the LM on one device).
     """
     plan = plan_for(cfg)
     n_units = cfg.n_layers // plan.period
@@ -301,7 +317,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             mem = ((memory_kv[0][u], memory_kv[1][u])
                    if memory_kv is not None else None)
             x, ex = run(layer_p, x, positions, cfg, mixer, mlp, memory=mem,
-                        xattn_p=xattn[u] if xattn else None, collect=collect)
+                        xattn_p=xattn[u] if xattn else None, collect=collect,
+                        sharder=sharder)
             collected.append(ex)
         if collect:
             extras.append({n: torch.stack([ex[n] for ex in collected])

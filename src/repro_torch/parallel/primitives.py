@@ -29,6 +29,19 @@ tensors for all five (measured on PyTorch 2.11's gloo, which copies them
 through host memory itself), so no wrapper stages a tensor through the
 host. ``call_counts`` counts every collective a wrapper ran, by the
 tensor's device. No wrapper catches an error of a collective.
+
+The LM over k ranks (``models.moe_dist``) differentiates through its
+collectives: ``ad_all_gather``, ``ad_psum_scatter`` and ``ad_all_to_all``
+are the wrappers under autograd along any dim, each backward the
+forward's transpose (``psum_scatter``, ``all_gather``, the inverse
+all-to-all), and ``shard_in``, ``replicate_in`` and ``gather_out`` are
+the boundaries of the reference's ``shard_map``. The convention: a value
+replicated over an axis has its whole cotangent on every rank of that
+axis, so the grads of params replicated over "model" are never summed
+over "model" (``replicate_in`` sums what a body computed from this
+rank's part alone), while data shards are disjoint, so every grad is
+summed over the batch axes (``models.lm.make_train_step``). The backward
+passes go through the same counted wrappers.
 """
 from __future__ import annotations
 
@@ -131,6 +144,137 @@ def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
 def pmax(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``jax.lax.pmax(x, axis)``, into a new tensor."""
     return _all_reduce("pmax", x, group, dist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd
+# ---------------------------------------------------------------------------
+def _along(fn: Callable, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` (a dim-0 collective) applied along ``dim``."""
+    if dim == 0:
+        return fn(x)
+    return fn(x.movedim(dim, 0)).movedim(0, dim)
+
+
+def _rank_slice(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """This rank's 1/n of ``x`` along ``dim``, in a tensor of its own."""
+    n = x.shape[dim] // group_size(group)
+    return x.narrow(dim, group_rank(group) * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _along(lambda t: all_gather(t, group), x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_along(lambda t: psum_scatter(t, ctx.group), g, ctx.dim),
+                None, None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _along(lambda t: psum_scatter(t, group), x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_along(lambda t: all_gather(t, ctx.group), g, ctx.dim),
+                None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, c = ctx.axes
+        return all_to_all(g.contiguous(), c, s, ctx.group), None, None, None
+
+
+class _ShardIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _rank_slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_along(lambda t: all_gather(t, ctx.group), g, ctx.dim),
+                None, None)
+
+
+class _ReplicateIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _along(lambda t: all_gather(t, group), x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_slice(g, ctx.dim, ctx.group), None, None
+
+
+def ad_all_gather(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)`` under
+    autograd; its backward is ``psum_scatter`` along ``dim``."""
+    return x if group_size(group) == 1 else _AllGather.apply(x, dim, group)
+
+
+def ad_psum_scatter(x: torch.Tensor, dim: int, group: Group
+                    ) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``
+    under autograd; its backward is ``all_gather`` along ``dim``."""
+    return x if group_size(group) == 1 else _PsumScatter.apply(x, dim,
+                                                               group)
+
+
+def ad_all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+                  group: Group) -> torch.Tensor:
+    """``all_to_all`` under autograd; its backward is the inverse
+    all-to-all (split and concat axes swapped)."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+def shard_in(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """A value replicated over ``group`` entering a ``shard_map`` split
+    along ``dim``: forward, this rank's slice; backward, the slices'
+    cotangents all-gathered (the whole cotangent on every rank)."""
+    return x if group_size(group) == 1 else _ShardIn.apply(x, dim, group)
+
+
+def replicate_in(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """A ``P()`` input of a ``shard_map`` (the router): forward, the
+    identity; backward, the cotangents psummed over ``group``, since each
+    rank's body saw only its part of the tokens or of d_ff."""
+    return x if group_size(group) == 1 else _ReplicateIn.apply(x, group)
+
+
+def gather_out(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """A ``shard_map`` output split along ``dim`` leaving replicated over
+    ``group``: forward, the slices all-gathered; backward, this rank's
+    slice of the (replicated) cotangent."""
+    return x if group_size(group) == 1 else _GatherOut.apply(x, dim, group)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,8 @@ TRAINING_MODULES = (
 RANK_MODULES = (
     "repro_torch.launch.mesh", "repro_torch.parallel.primitives",
     "repro_torch.optim.compression", "repro_torch.core.sharding")
+# The LM over k ranks (ROADMAP A6b-ii, first item), held the same way.
+LM_RANK_MODULES = ("repro_torch.models.moe_dist",)
 
 
 def _forbidden(module: str) -> bool:
@@ -72,7 +74,7 @@ def test_training_modules_import_without_jax_or_repro():
         print(bad)
         sys.exit(1 if bad else 0)
     """)
-    for name in TRAINING_MODULES + RANK_MODULES:
+    for name in TRAINING_MODULES + RANK_MODULES + LM_RANK_MODULES:
         rel = Path(*name.split(".")[1:])
         assert ((PORT / rel).with_suffix(".py").exists()
                 or (PORT / rel / "__init__.py").exists()), name
@@ -80,7 +82,7 @@ def test_training_modules_import_without_jax_or_repro():
                    or p == PORT / rel / "__init__.py" for p in SOURCES), name
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES,
-                           *RANK_MODULES],
+                           *RANK_MODULES, *LM_RANK_MODULES],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -16,7 +16,8 @@ case: each primitive of ``parallel.primitives`` at k = 2 and 4, the serve
 step under plan none, the sharded config in both wire modes and an auto
 plan, the five train cases of ``tests/test_dlrm_distributed.py``, depth 2
 against depth 1, ``dp_axes`` on (2, 2), the Engine's validation and what
-still raises (ROADMAP A6b-ii), and Engine sessions at k = 2 against the
+still raises (ROADMAP A6b-ii; the LM trains over k ranks, its
+checkpoints raise), and Engine sessions at k = 2 against the
 port's own 1-rank sessions. One ``torch.distributed.run`` of the train
 launcher over 2 ranks prints the losses of an Engine session at k = 2.
 """
@@ -340,7 +341,8 @@ def _engine_errors():
         "host_tier": lambda: Engine(cfg, device="cpu", mesh=mesh,
                                     host_capacity_mb=1.0),
         "lm": lambda: Engine(get_arch("internlm2-1.8b").reduced(),
-                             device="cpu", mesh=mesh),
+                             device="cpu", mesh=mesh).train_session(
+                                 ckpt_dir="unused"),
         "fleet": lambda: Engine(cfg, device="cpu").sharded_fleet(
             n_boards=1),
         "ckpt": lambda: Engine(cfg, device="cpu").train_session(
