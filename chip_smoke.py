@@ -288,6 +288,21 @@ Phases; any failure exits non-zero:
      one card over gloo, not scale-out), row 8's launches on every rank
      (layers x steps), every collective on CUDA tensors, each case's
      summed rank peaks under 80 GB; the phase under 180 s;
+     9h. boards of k ranks and checkpoints over k ranks (ROADMAP A6b-ii),
+     after 9g: the 1-rank ``serve_direct`` of 40 queries at full width,
+     then gloo ranks spawned on cuda:0 as in 8d. 4 ranks: (a) ``Cluster``
+     of RM2-small at full width, boards of 2 ranks autoscaled 1 -> 3
+     under an impossible SLA (the reference's autoscaler test; board 1
+     re-placed across ranks, board 2 copied onto ranks 0-1), every
+     query's probs against the 1-rank ``serve_direct``, the scale events
+     and remesh reports, every rank's queries alike, the card's used
+     memory under 75 GB; 2 ranks: (b) ``ShardedFleet`` at full width, one
+     board of 2 ranks holding every table, then 3 of 7,000 MiB, bitwise,
+     rank 0 alone holding the host tables; both: (c) DLRM and LM
+     checkpoints at reduced() resumed against uninterrupted runs, and a
+     2-rank checkpoint restored on 4 ranks against a 1-rank restore. The
+     phase under 180 s, then it waits for the host to take the ranks'
+     pages back;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -350,7 +365,9 @@ kernel timings do; phase 4c's row-wise sessions are profiled too. The
 line before the last holds the per-kernel JSON (every TPU kernel of the
 JAX package, all nine ported; row 4's ``launches`` include phase 8d's,
 the ranks' summed over every rank and case, also given apart as
-``ranks_launches``, and row 8's phase 9g's, as ``lm_ranks_launches``);
+``ranks_launches``, and row 8's phase 9g's, as ``lm_ranks_launches``;
+every kernel's phase 9h launches are in ``launches`` and given apart as
+``boards_launches``);
 the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package
 ``repro``.
@@ -598,6 +615,40 @@ LM_RANKS_CASES = {
 LM_RANKS_TRUTH_FACTOR = 2.0
 LM_RANKS_PHASE_S = 180.0
 LM_RANKS_SPAWN_S = 150.0
+# Phase 9h, boards of k ranks and checkpoints over k ranks (ROADMAP
+# A6b-ii): gloo ranks spawned as phase 8d's, each on cuda:0. (a) the
+# reference's test_autoscaler_scales_and_preserves_results at full width:
+# BOARDS_QUERIES stationary queries at BOARDS_QPS, 2-query micro-batches,
+# jsq, boards of 2 of 4 ranks autoscaled 1 -> 3 under an impossible SLA
+# (board 1 re-placed across ranks, board 2 copied onto ranks 0-1), every
+# query held against the 1-rank serve_direct at the k-rank serve
+# tolerance, the card's used memory under BOARDS_USED_LIMIT; (b) the
+# sharded fleet on 2 ranks, one board of 2 ranks holding every table,
+# then 3 boards of FABRIC_BOARD_MB over a zipf_drift trace of
+# BOARDS_FABRIC_QUERIES, bitwise; (c) checkpoints at reduced(): the CPU
+# tests' three DLRM and two LM cases (LM lr BOARDS_LM_LR), resumed against
+# uninterrupted at the k-rank train tolerance (the card's scatter-adds
+# are not bitwise), and the plan-none checkpoint of 2 ranks restored onto
+# 4, its BOARDS_CROSS_QUERIES queries against a 1-rank restore.
+BOARDS_QUERIES = 40
+BOARDS_QPS = 2000.0
+BOARDS_FABRIC_QUERIES = 48
+BOARDS_USED_LIMIT = 75 * 10**9
+BOARDS_LM_LR = 2e-5
+BOARDS_CROSS_QUERIES = 8
+BOARDS_PHASE_S = 180.0   # 63.5-114.8 s over four calls: the host's pace
+BOARDS_SPAWN_S = 150.0
+BOARDS_RELEASE_S = 40.0
+BOARDS_DLRM = {
+    # name: (job, mesh shape, axes, embedding axis, dp_axes, plan,
+    #        optimizer, compress_grads)
+    "none_sgd": ("k2", (2,), ("model",), "model", (), "none", "sgd", False),
+    "auto_adagrad": ("k2", (2,), ("model",), "model", (), "auto", "adagrad",
+                     False),
+    "dp_compress": ("k4", (2, 2), ("data", "model"), "model", ("data",),
+                    "none", "sgd", True)}
+BOARDS_LM = {"mixtral-8x7b": ("k2", (1, 2), "ep"),
+             "internlm2-1.8b": ("k4", (2, 2), "auto")}
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -6457,6 +6508,497 @@ def phase_lm_ranks(dev, card):
     return launches, report
 
 
+# -------------------------------------------------------------- phase 9h
+def boards_events():
+    """(a)'s trace: the reference's autoscaler scenario."""
+    from repro_torch.traffic import make_scenario
+    return make_scenario("stationary", alpha=RANKS_ALPHA).events(
+        BOARDS_QUERIES, qps=BOARDS_QPS, seed=2)
+
+
+def boards_replicated(dev):
+    """(a), on each of 4 ranks: boards of 2 ranks of the full-width
+    config, 1 -> 3 under an impossible SLA. Returns this rank's view:
+    every query's probs and latency, the scale events with their remesh
+    reports, the boards' ranks, the kernel launches and collectives of
+    the run, the world-agreement broadcasts, each flush's wall and
+    service time, each re-placement's wall time, the card's used memory
+    with 3 boards, this process's peak host RSS."""
+    import repro_torch.cluster.replica as replica_mod
+    from repro_torch.cluster import Cluster, Replica, SLAAutoscaler
+    from repro_torch.configs import get_dlrm
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import primitives as prim
+    cfg = get_dlrm(CONFIG)
+    remesh_s, flush_s, shares = [], [], []
+    clone, flush, share = (Replica.clone_params_onto, Replica.flush,
+                           replica_mod.share)
+
+    def counted_share(mesh, values):
+        # a board of 2 of the 4 ranks: one broadcast to the other 2
+        shares.append(mesh.size() < torch.distributed.get_world_size())
+        return share(mesh, values)
+
+    def timed_clone(self, mesh):
+        t0 = time.perf_counter()
+        out = clone(self, mesh)
+        torch.cuda.synchronize()
+        remesh_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_flush(self, trigger, service_scale=1.0):
+        t0 = time.perf_counter()
+        futs = flush(self, trigger, service_scale)
+        if futs:
+            flush_s.append((time.perf_counter() - t0,
+                            self.last_flush["service_s"]))
+        return futs
+
+    Replica.clone_params_onto, Replica.flush = timed_clone, timed_flush
+    replica_mod.share = counted_share
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cl = Cluster(cfg, n_replicas=1, devices_per_replica=2,
+                     alpha=RANKS_ALPHA, router="jsq", max_batch_queries=2,
+                     autoscaler=SLAAutoscaler(sla_ms=1e-3, max_replicas=3,
+                                              window=8, patience=1),
+                     device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        events = boards_events()
+        ops.reset_launch_counts()
+        before = dict(prim.call_counts)
+        t0 = time.perf_counter()
+        rep = cl.run(events, sla_ms=1e6)
+        run_s = time.perf_counter() - t0
+        # a spawned rank's ru_maxrss starts from its parent's RSS at the
+        # fork, so its own host memory is sampled, with every board alive
+        out = {"probs": torch.from_numpy(np.stack(
+                   [cl.completed[e.qid].probs for e in events])),
+               "latency": [cl.completed[e.qid].latency_ms for e in events],
+               "events": [(e.action, e.n_replicas, dict(e.remesh))
+                          for e in rep.scale_events],
+               "boards": [list(r.devices) for r in cl.replicas],
+               "launches": dict(ops.launch_counts),
+               "calls": {k: v - before[k] for k, v in
+                         prim.call_counts.items()},
+               "shares": sum(shares),
+               "flush_s": flush_s, "remesh_s": remesh_s,
+               "used_bytes": card_used_bytes(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "rss": rss_bytes()[0],
+               "build_s": build_s, "run_s": run_s,
+               "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms}
+        for r in cl.replicas:
+            r.release()
+        del cl
+    finally:
+        Replica.clone_params_onto, Replica.flush = clone, flush
+        replica_mod.share = share
+    free_case()
+    return out
+
+
+def boards_sharded(dev):
+    """(b), on each of 2 ranks: the full-width sharded fleet, one board of
+    the 2 ranks holding every table, then 3 boards of FABRIC_BOARD_MB
+    (all on the 2 ranks) over one zipf_drift trace; rank 0 alone holds
+    the host tables. Returns this rank's probs of both runs, the kernel
+    launches, the cache refreshes, the build and run times, the card's
+    used memory and this process's peak host RSS."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.fabric import ShardedFleet
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import make_scenario
+    cfg = get_dlrm(CONFIG)
+    kw = dict(alpha=FABRIC_ALPHA, seed=0, max_batch_queries=4,
+              max_wait_ms=2.0, router="jsq", devices_per_board=2, device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    fleet = ShardedFleet(cfg, n_boards=1, board_capacity_bytes=int(
+        FABRIC_REF_MB * 2**20), **kw)
+    torch.cuda.synchronize()
+    out["build_one_s"] = time.perf_counter() - t0
+    # a spawned rank's ru_maxrss starts from its parent's RSS at the fork:
+    # its own host memory is sampled after each build and run instead
+    rss = [rss_bytes()[0]]
+    s_cap = fleet.measure_service_time()
+    qps = 0.3 * 4 / s_cap
+    scen = make_scenario("zipf_drift", alpha=FABRIC_ALPHA,
+                         rotate_every_s=FABRIC_ROTATE_AT
+                         * BOARDS_FABRIC_QUERIES / qps)
+    events = scen.events(BOARDS_FABRIC_QUERIES, qps=qps, seed=0)
+    out["qps"], out["s_cap"] = qps, s_cap
+    for label in ("one", "three"):
+        if label == "three":
+            params = fleet._params
+            for b in fleet.boards:
+                b.retire(0.0)
+            del fleet
+            free_case()
+            t0 = time.perf_counter()
+            fleet = ShardedFleet(cfg, n_boards=3, board_capacity_bytes=int(
+                FABRIC_BOARD_MB * 2**20), params=params, **kw)
+            torch.cuda.synchronize()
+            out["build_three_s"] = time.perf_counter() - t0
+            rss.append(rss_bytes()[0])
+            del params
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = fleet.run(events, sla_ms=1e6, scenario="zipf_drift")
+        out[label] = {
+            "probs": torch.from_numpy(np.stack(
+                [fleet.completed[e.qid].probs for e in events])),
+            "launches": dict(ops.launch_counts),
+            "run_s": time.perf_counter() - t0, "p50_ms": rep.p50_ms,
+            "refreshes": rep.cache_refreshes,
+            "split": list(fleet.partition.split_tables),
+            "used_bytes": card_used_bytes()}
+        rss.append(rss_bytes()[0])
+    for b in fleet.boards:
+        b.retire(0.0)
+    del fleet
+    free_case()
+    out["rss"] = max(rss)
+    return out
+
+
+def boards_dlrm_session(name, ckpt, dev):
+    """(c)'s DLRM session of case ``name`` at reduced(), checkpointing
+    every 4 steps into ``ckpt``."""
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine.planning import build_auto_plan
+    from repro_torch.engine.training import TrainSession
+    from repro_torch.launch.mesh import make_mesh
+    _, shape, axes, axis, dp, plan, opt, compress = BOARDS_DLRM[name]
+    cfg = get_dlrm(CONFIG).reduced()
+    mesh = make_mesh(shape, axes)
+    placed = (build_auto_plan(cfg, mesh.size(axis), alpha=RANKS_ALPHA,
+                              device=dev).plan if plan == "auto" else None)
+    return TrainSession(cfg, device=dev, plan=placed, optimizer=opt, lr=0.05,
+                        alpha=RANKS_ALPHA, ckpt_dir=ckpt, ckpt_every=4,
+                        mesh=mesh, axis=axis, dp_axes=dp,
+                        compress_grads=compress)
+
+
+def boards_resume_pair(make, root, steps):
+    """An uninterrupted run of 2 x ``steps`` into ``root``/full, and a run
+    of ``steps`` into ``root``/cut resumed by a new session for ``steps``
+    more; the resumed session's start step."""
+    make(os.path.join(root, "full")).run(2 * steps)
+    make(os.path.join(root, "cut")).run(steps)
+    resumed = make(os.path.join(root, "cut"))
+    start = resumed.resume_step
+    resumed.run(steps)
+    return start
+
+
+def boards_checkpoints(job, dev):
+    """(c), on each rank of ``job``: its DLRM and LM cases' resume pairs;
+    k2's rank 0 copies the plan-none checkpoint at step 4 for the
+    restores onto 4 ranks and 1; k4 restores it on (4,) and serves
+    BOARDS_CROSS_QUERIES queries from it."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_dlrm
+    from repro_torch.engine import Engine
+    from repro_torch.engine.training import LMTrainSession, TrainSession
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    root = os.path.join(BUILD_DIR, "boards", "ckpt")
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, case in BOARDS_DLRM.items():
+        if case[0] == job:
+            out[name] = boards_resume_pair(
+                lambda c, n=name: boards_dlrm_session(n, c, dev),
+                os.path.join(root, name), 4)
+    for arch, (j, shape, impl) in BOARDS_LM.items():
+        if j == job:
+            mesh = make_mesh(shape, ("data", "model"))
+            out[arch] = boards_resume_pair(
+                lambda c, a=arch, m=mesh, i=impl: LMTrainSession(
+                    get_arch(a).reduced(), device=dev, lr=BOARDS_LM_LR,
+                    batch=4, seq=17, schedule_steps=10, ckpt_dir=c,
+                    ckpt_every=2, mesh=m, moe_impl=i),
+                os.path.join(root, arch), 2)
+    if job == "k2" and dist.get_rank() == 0:
+        for dst in ("cross4", "cross1"):
+            shutil.copytree(
+                os.path.join(root, "none_sgd", "full", "step_00000004"),
+                os.path.join(root, dst, "step_00000004"))
+    if job == "k4":
+        cfg = get_dlrm(CONFIG).reduced()
+        mesh = make_mesh((4,), ("model",))
+        train = TrainSession(cfg, device=dev, lr=0.05, alpha=RANKS_ALPHA,
+                             ckpt_dir=os.path.join(root, "cross4"),
+                             ckpt_every=100, mesh=mesh, axis="model")
+        out["cross_start"] = train.resume_step
+        sess = Engine(cfg, mesh=mesh, axis="model", alpha=RANKS_ALPHA,
+                      device=dev).serve_session(max_batch_queries=1,
+                                                params=train.params)
+        out["cross_probs"] = torch.from_numpy(np.concatenate(
+            [sess._execute([sess._make_query(q)])[0]
+             for q in range(BOARDS_CROSS_QUERIES)]))
+        del sess, train
+    out["launches"] = dict(ops.launch_counts)
+    out["wall_s"] = time.perf_counter() - t0
+    free_case()
+    return out
+
+
+def boards_device(rank):
+    """A phase 9h rank's device: ``cuda:(rank % device_count)``."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def boards_rank_main(rank, world, store, out_dir, job):
+    """A spawned rank of phase 9h: joins the gloo world on ``store``, runs
+    (a) then (c) as "k4", or (c) then (b) as "k2", and writes its results
+    (or its traceback) under ``out_dir``. It checks nothing itself."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.parallel import primitives as prim
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        dev = boards_device(rank)
+        torch.cuda.set_device(dev)
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+        if job == "k4":
+            res["a"] = boards_replicated(dev)
+            res["c"] = boards_checkpoints(job, dev)
+        else:
+            res["c"] = boards_checkpoints(job, dev)
+            res["b"] = boards_sharded(dev)
+        res["wall_s"] = time.perf_counter() - t0
+        res["calls"] = dict(prim.call_counts)
+        torch.save(res, os.path.join(out_dir, f"{job}-{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"{job}-{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def read_checkpoint(root, step):
+    """{key path: full-width array} of the checkpoint at ``step``."""
+    d = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(d, "arrays.npz")) as z:
+        return {m["path"]: z[f"leaf_{i}"]
+                for i, m in enumerate(manifest["leaves"])}
+
+
+def boards_resumed(name, ranks, steps):
+    """(c): every rank of a case resumed at ``steps``, and the resumed
+    run's checkpoints (at ``steps`` and 2 x ``steps``) against the
+    uninterrupted run's at the k-rank train tolerance. Returns the
+    largest difference."""
+    root = os.path.join(BUILD_DIR, "boards", "ckpt", name)
+    check(all(r["c"][name] == steps for r in ranks),
+          f"9h (c) {name}: resumed at {[r['c'][name] for r in ranks]}, "
+          f"want {steps}")
+    worst = 0.0
+    for step in (steps, 2 * steps):
+        full = read_checkpoint(os.path.join(root, "full"), step)
+        cut = read_checkpoint(os.path.join(root, "cut"), step)
+        check(sorted(full) == sorted(cut),
+              f"9h (c) {name}: the checkpoints' leaves differ")
+        for path, want in full.items():
+            got = cut[path]
+            check(got.shape == want.shape and np.allclose(
+                got, want, **RANKS_TRAIN_TOL),
+                f"9h (c) {name} step {step}: {path} resumed differs from "
+                f"uninterrupted")
+            if got.size:
+                worst = max(worst, float(np.abs(
+                    got.astype(np.float64) - want).max()))
+    return worst
+
+
+def phase_boards(dev, card):
+    """Phase 9h: boards of k ranks and checkpoints over k ranks (ROADMAP
+    A6b-ii), gloo ranks sharing the card (module constants above). The
+    1-rank serve_direct of (a)'s queries first, at full width, then freed;
+    then a spawn of 2 ranks ((c), then (b)) and one of 4 ((a), then (c)).
+    Held here: (a)'s scale events, remesh reports, boards and every rank's
+    completed queries alike, every probability against the 1-rank
+    serve_direct at the k-rank serve tolerance, the card's used memory
+    under BOARDS_USED_LIMIT; (b) bitwise; (c) each resume against its
+    uninterrupted run, the 4-rank restore's queries against a 1-rank
+    restore of the same checkpoint; the phase within BOARDS_PHASE_S. Its
+    times are ranks sharing one card over gloo, not scale-out. Returns
+    the launches of every kernel over the phase's ranks and its 1-rank
+    runs."""
+    import shutil
+
+    from repro_torch.configs import get_dlrm
+    from repro_torch.engine import Engine
+    from repro_torch.engine.training import TrainSession
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import materialize_query
+    t_phase = time.perf_counter()
+    avail0 = mem_available()
+    shutil.rmtree(os.path.join(BUILD_DIR, "boards"), ignore_errors=True)
+    os.makedirs(os.path.join(BUILD_DIR, "boards", "ckpt"))
+    label = f"{card}; k ranks sharing one card over gloo, not scale-out"
+    cfg = get_dlrm(CONFIG)
+    events = boards_events()
+    ops.reset_launch_counts()
+    sess = Engine(cfg, alpha=RANKS_ALPHA, device=dev).serve_session(
+        max_batch_queries=2)
+    direct = np.stack([sess.serve_direct(**materialize_query(
+        cfg, ev, sess.query_size, device=dev)) for ev in events])
+    launches = collections.Counter(ops.launch_counts)
+    del sess
+    free_case()
+    t_ref = time.perf_counter() - t_phase
+    jobs = {"k2": spawn_ranks("k2", 2, boards_rank_main, "9h",
+                              BOARDS_SPAWN_S),
+            "k4": spawn_ranks("k4", 4, boards_rank_main, "9h",
+                              BOARDS_SPAWN_S)}
+    # -- (a)
+    a = [r["a"] for r in jobs["k4"]]
+    ev = a[0]["events"]
+    print(f"[boards] (a) {CONFIG} at full width, boards of 2 of 4 ranks, "
+          f"1 -> 3 under an impossible SLA: scale events {ev}, boards "
+          f"{a[0]['boards']}")
+    check([e[:2] for e in ev] == [("up", 2), ("up", 3)],
+          f"9h (a): scale events {ev}")
+    check(all(e[2]["resharded"] > 0 and e[2]["replicated_fallback"] == 0
+              for e in ev), f"9h (a): remesh reports {ev}")
+    check(a[0]["boards"] == [[0, 1], [2, 3], [0, 1]],
+          f"9h (a): boards {a[0]['boards']}")
+    for r in a[1:]:
+        check(torch.equal(r["probs"], a[0]["probs"])
+              and r["latency"] == a[0]["latency"] and r["events"] == ev,
+              "9h (a): the ranks' completed queries differ")
+    gap = float(np.abs(a[0]["probs"].numpy() - direct).max())
+    check(np.allclose(a[0]["probs"].numpy(), direct, **RANKS_PROBS_TOL),
+          f"9h (a): probs off the 1-rank serve_direct by {gap:.3e}")
+    row4 = [r["launches"]["embedding_bag"] for r in a]
+    check(all(n > 0 for n in row4), f"9h (a): row 4 launches {row4}")
+    used = max(r["used_bytes"] for r in a)
+    peaks = sum(r["peak_bytes"] for r in a)
+    check(used <= BOARDS_USED_LIMIT,
+          f"9h (a): the card's used memory {used / GB:.2f} GB is over "
+          f"{BOARDS_USED_LIMIT / GB:.0f} GB")
+    flushes = a[0]["flush_s"]
+    shares = a[0]["shares"]
+    wall_ms = sorted(w * 1e3 for w, _ in flushes)
+    svc_ms = sorted(s * 1e3 for _, s in flushes)
+    print(f"[boards] (a) {BOARDS_QUERIES} queries in {len(flushes)} flushes "
+          f"(rank 0's), max |probs - 1-rank serve_direct| {gap:.3e}; row 4 "
+          f"launches by rank {row4}, other kernels "
+          f"{ {k: v for k, v in a[0]['launches'].items() if v and k != 'embedding_bag'} }; "
+          f"world-agreement broadcasts {shares} ({shares / len(flushes):.2f} "
+          f"a flush), collectives of rank 0 "
+          f"{ {k: v for k, v in a[0]['calls'].items() if v} }; flush service "
+          f"p50 {svc_ms[len(svc_ms) // 2]:.3f} ms, flush wall p50 "
+          f"{wall_ms[len(wall_ms) // 2]:.3f} ms; re-placements "
+          f"{[round(x, 2) for x in a[0]['remesh_s']]} s; build "
+          f"{a[0]['build_s']:.1f} s, run {a[0]['run_s']:.1f} s; card used "
+          f"{used / GB:.2f} GB, summed rank peaks {peaks / GB:.2f} GB, "
+          f"summed host RSS {sum(r['rss'] for r in a) / GB:.2f} "
+          f"GB ({label})")
+    for r in a:
+        launches.update(r["launches"])
+    # -- (b)
+    b = [r["b"] for r in jobs["k2"]]
+    for r in b:
+        check(torch.equal(r["three"]["probs"], r["one"]["probs"]),
+              "9h (b): 3 boards of 2 ranks differ from 1 board of 2")
+        check(torch.equal(r["one"]["probs"], b[0]["one"]["probs"]),
+              "9h (b): the ranks' probs differ")
+        for run in ("one", "three"):
+            launches.update(r[run]["launches"])
+    rss = sum(r["rss"] for r in b)
+    print(f"[boards] (b) sharded fleet, {CONFIG} at full width on 2 ranks "
+          f"(rank 0 holds the host tables): 1 board of 2 ranks built in "
+          f"{b[0]['build_one_s']:.1f} s, run {b[0]['one']['run_s']:.1f} s "
+          f"(p50 {b[0]['one']['p50_ms']:.3f} ms, capacity batch "
+          f"{b[0]['s_cap'] * 1e3:.3f} ms, {b[0]['qps']:.1f} qps); 3 boards "
+          f"of {FABRIC_BOARD_MB} MiB (split {b[0]['three']['split']}) built "
+          f"in {b[0]['build_three_s']:.1f} s, run "
+          f"{b[0]['three']['run_s']:.1f} s (p50 "
+          f"{b[0]['three']['p50_ms']:.3f} ms, {b[0]['three']['refreshes']} "
+          f"cache refreshes); {BOARDS_FABRIC_QUERIES} queries bitwise equal; "
+          f"row 4 launches by rank "
+          f"{[r['one']['launches']['embedding_bag'] + r['three']['launches']['embedding_bag'] for r in b]}; "
+          f"card used {max(r['three']['used_bytes'] for r in b) / GB:.2f} "
+          f"GB; summed host RSS at the largest samples {rss / GB:.2f} GB, "
+          f"no rows cut "
+          f"({label})")
+    # -- (c)
+    worst = {}
+    for name, case in BOARDS_DLRM.items():
+        worst[name] = boards_resumed(name, jobs[case[0]], 4)
+    for arch, (job, _, _) in BOARDS_LM.items():
+        worst[arch] = boards_resumed(arch, jobs[job], 2)
+    for r in jobs["k2"] + jobs["k4"]:
+        launches.update(r["c"]["launches"])
+    check(all(r["c"]["cross_start"] == 4 for r in jobs["k4"]),
+          "9h (c): the 4-rank restore did not resume at 4")
+    ops.reset_launch_counts()
+    small = get_dlrm(CONFIG).reduced()
+    train = TrainSession(small, device=dev, lr=0.05, alpha=RANKS_ALPHA,
+                         ckpt_dir=os.path.join(BUILD_DIR, "boards", "ckpt",
+                                               "cross1"), ckpt_every=100)
+    check(train.resume_step == 4, "9h (c): the 1-rank restore did not "
+                                  "resume at 4")
+    sess = Engine(small, alpha=RANKS_ALPHA, device=dev).serve_session(
+        max_batch_queries=1, params=train.params)
+    one = np.concatenate([sess._execute([sess._make_query(q)])[0]
+                          for q in range(BOARDS_CROSS_QUERIES)])
+    launches.update(ops.launch_counts)
+    del sess, train
+    free_case()
+    cross = max(float(np.abs(r["c"]["cross_probs"].numpy() - one).max())
+                for r in jobs["k4"])
+    check(all(np.allclose(r["c"]["cross_probs"].numpy(), one,
+                          **RANKS_PROBS_TOL) for r in jobs["k4"]),
+          f"9h (c): the 4-rank restore's probs off the 1-rank restore's by "
+          f"{cross:.3e}")
+    print(f"[boards] (c) checkpoints at reduced(), resumed against "
+          f"uninterrupted, max |difference| by case "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; the "
+          f"plan-none checkpoint of 2 ranks restored on 4: "
+          f"{BOARDS_CROSS_QUERIES} queries' probs off a 1-rank restore's "
+          f"by {cross:.3e}; (c) on the ranks "
+          f"{ {j: round(max(r['c']['wall_s'] for r in runs), 1) for j, runs in jobs.items()} } s")
+    # the host takes the ranks' pages back over seconds, and phase 10
+    # sizes its tables by MemAvailable: wait for them
+    t0 = time.perf_counter()
+    while (mem_available() < avail0 - 2 * GB
+           and time.perf_counter() - t0 < BOARDS_RELEASE_S):
+        time.sleep(0.25)
+    print(f"[host] phase 9h: MemAvailable back to "
+          f"{mem_available() / GB:.2f} GB ({avail0 / GB:.2f} GB at its "
+          f"start) after {time.perf_counter() - t0:.1f} s")
+    check(mem_available() >= avail0 - 2 * GB,
+          f"phase 9h: the host did not take its memory back in "
+          f"{BOARDS_RELEASE_S} s")
+    wall = time.perf_counter() - t_phase
+    print(f"[boards] phase 9h: 1-rank serve_direct {t_ref:.1f} s, ranks "
+          f"{ {j: round(max(r['wall_s'] for r in runs), 1) for j, runs in jobs.items()} } s, "
+          f"{wall:.1f} s in all (budget {BOARDS_PHASE_S} s); launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({card})")
+    check(wall <= BOARDS_PHASE_S, f"phase 9h took {wall:.1f} s, over its "
+                                  f"{BOARDS_PHASE_S} s budget")
+    shutil.rmtree(os.path.join(BUILD_DIR, "boards"), ignore_errors=True)
+    return dict(launches)
+
+
 # -------------------------------------------------------------- phase 11
 def bench_artifact(name, out_dir, speed_claims=BENCH_SPEED_CLAIMS):
     """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
@@ -6759,6 +7301,7 @@ def main() -> int:
         lm["launches"][name] += n
     lm_ranks_launches, _ = phase_lm_ranks(dev, card)
     lm["launches"]["flash_attention"] += lm_ranks_launches
+    boards_launches = phase_boards(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     torch.cuda.empty_cache()
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
@@ -6779,6 +7322,9 @@ def main() -> int:
         launches[name] += n
     for name, n in lm["launches"].items():
         launches[name] += n
+    for name, n in boards_launches.items():
+        if name in KERNELS:
+            launches[name] += n
     # each kernel's row: the serve kernels at the depth-8 micro-batch
     # B = 25, the bags at B = 200, attention at the largest shape where
     # the plain version and the library also run
@@ -6871,6 +7417,7 @@ def main() -> int:
          **({"online_launches": online_launches[name]}
             if name in online_launches else {}),
          "lm_launches": lm["launches"].get(name, 0),
+         "boards_launches": boards_launches.get(name, 0),
          "bench_launches": bench_launches[name]}
         for name in KERNELS], "not_ported": NOT_PORTED}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,21 @@ As the reference (``repro.checkpoint.manager``):
   * BOUNDED: the newest ``keep`` checkpoints are kept; older ones are
     deleted after a successful write, never before.
 
+  * MESH-AGNOSTIC: over a mesh of k ranks (``mesh=``, with the ``specs``
+    of the tree's leaves, ``runtime.elastic.Spec``), a save is
+    collective: every rank sends its blocks of each sharded leaf, in the
+    same leaf order, into the mesh's lead rank's host memory
+    (``runtime.elastic.gather_tree``), and the lead alone writes the
+    full-width arrays. The manifest's paths, dtypes and shapes are those
+    of a one-rank checkpoint of the same tree, so a checkpoint does not
+    record how many ranks wrote it, and a restore gives each rank of any
+    mesh its blocks of the full-width arrays (the reference's
+    ``restore(shardings=)``), each rank reading only its own blocks'
+    bytes (a leaf is mapped in place). A leaf whose full shape differs
+    from the one the target's layout needs raises ``ValueError`` naming
+    its path; a ``layout`` (the manager's, kept in the metadata) that
+    differs from the checkpoint's does too.
+
 Format: one ``arrays.npz`` (leaves keyed ``leaf_<i>``) plus
 ``manifest.json``; no pickle. bf16 tensors are stored as their 16-bit
 patterns (numpy has no bf16) and named "bfloat16" in the manifest. The
@@ -27,11 +42,14 @@ through ``repro_torch.convert``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import queue
 import re
+import struct
 import threading
 import time
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,19 +79,21 @@ def _leaves(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
 Snapshot = List[Tuple[str, str, np.ndarray]]   # (path, dtype, host array)
 
 
-def _snapshot(tree: Tree) -> Snapshot:
-    """Every leaf copied to host memory, with its key path and dtype name.
-    A device tensor's copy waits for the device: the one sync point."""
+def _snapshot(tree: Tree, copy: bool = True) -> Snapshot:
+    """Every leaf copied to host memory, with its key path and dtype name
+    (``copy`` False: the leaves are host copies of their own already). A
+    device tensor's copy waits for the device: the one sync point."""
     out = []
     for path, x in _leaves(tree):
         if isinstance(x, np.ndarray):
-            out.append((path, str(x.dtype), np.array(x)))
+            out.append((path, str(x.dtype), np.array(x) if copy else x))
             continue
         x = x.detach()
         name = str(x.dtype).replace("torch.", "")
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
-        out.append((path, name, x.cpu().numpy().copy()))
+        a = x.cpu().numpy()
+        out.append((path, name, a.copy() if copy else a))
     return out
 
 
@@ -119,10 +139,51 @@ def _write(root: str, step: int, snap: Snapshot,
     return final
 
 
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.size() > 1
+
+
+def _collect(tree: Tree, specs: Tree, mesh) -> Optional[Snapshot]:
+    """The snapshot a save writes: over a mesh of more than one rank, the
+    tree at full width in the lead rank's host memory (the other ranks,
+    having sent their blocks, get None)."""
+    if not _multi(mesh):
+        return _snapshot(tree)
+    from repro_torch.runtime.elastic import gather_tree
+    full = gather_tree(tree, specs, mesh)
+    return None if full is None else _snapshot(full, copy=False)
+
+
 def save(root: str, step: int, tree: Tree,
          metadata: Optional[Dict[str, Any]] = None) -> str:
     """Synchronous atomic save. Returns the final directory path."""
     return _write(root, step, _snapshot(tree), metadata)
+
+
+def _mapped(npz: str, name: str) -> Optional[np.ndarray]:
+    """The array ``name`` of the npz file ``npz`` mapped read-only in
+    place, so a slice of it reads only its own pages (``np.savez`` stores
+    its members uncompressed); None where a member is compressed, 0-d or
+    empty, or its header is not of format 1.0 or 2.0."""
+    with zipfile.ZipFile(npz) as z:
+        info = z.getinfo(name + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    fmt = np.lib.format
+    with open(npz, "rb") as f:
+        f.seek(info.header_offset)
+        n, m = struct.unpack("<HH", f.read(30)[26:30])
+        f.seek(info.header_offset + 30 + n + m)
+        read = {(1, 0): fmt.read_array_header_1_0,
+                (2, 0): fmt.read_array_header_2_0}.get(fmt.read_magic(f))
+        if read is None:
+            return None
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if not shape or not math.prod(shape) or dtype.hasobject:
+        return None
+    return np.memmap(npz, dtype=dtype, mode="r", offset=offset,
+                     shape=shape, order="F" if fortran else "C")
 
 
 def _rebuild(like: Tree, new: Dict[str, Any], prefix: str = "") -> Tree:
@@ -136,11 +197,18 @@ def _rebuild(like: Tree, new: Dict[str, Any], prefix: str = "") -> Tree:
     return new[prefix[:-1]]
 
 
-def restore(root: str, tree_like: Tree, step: Optional[int] = None
+def restore(root: str, tree_like: Tree, step: Optional[int] = None, *,
+            specs: Tree = None, mesh=None,
+            layout: Optional[Dict[str, Any]] = None
             ) -> Tuple[Tree, int, Dict[str, Any]]:
     """Restore into the structure of ``tree_like``: each leaf a new tensor
-    on the device of ``tree_like``'s leaf at the same path. Raises if the
-    checkpoint's key paths, dtypes or shapes differ from the target's."""
+    on the device of ``tree_like``'s leaf at the same path. Over a
+    ``mesh`` of more than one rank, ``tree_like`` is this rank's shards,
+    laid out by ``specs``; each rank maps the full-width arrays and reads
+    only its blocks. Raises ValueError if the checkpoint's key paths or dtypes
+    differ from the target's, if a leaf's full shape does not fit the
+    target's layout (naming its path), or if ``layout`` is given and
+    differs from the one the checkpoint was saved under."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -149,17 +217,42 @@ def restore(root: str, tree_like: Tree, step: Optional[int] = None
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     like = _leaves(tree_like)
-    got = [(m["path"], m["dtype"], tuple(m["shape"]))
-           for m in manifest["leaves"]]
-    want = [(p, str(x.dtype).replace("torch.", ""), tuple(x.shape))
-            for p, x in like]
+    got = [(m["path"], m["dtype"]) for m in manifest["leaves"]]
+    want = [(p, str(x.dtype).replace("torch.", "")) for p, x in like]
     if got != want:
         raise ValueError(f"checkpoint {d} holds leaves {got}; the target "
                          f"tree has {want}: structure changed?")
+    saved_layout = manifest["metadata"].get("layout")
+    if layout is not None and saved_layout != layout:
+        raise ValueError(f"checkpoint {d} was saved under the layout "
+                         f"{saved_layout}; this session's is {layout}")
+    place = None
+    if _multi(mesh):
+        from repro_torch.runtime import elastic
+        spec_of = dict(elastic._flatten(specs))
+        me = mesh.ranks.index(mesh.rank)
+
+        def place(path, x, a):
+            spec = spec_of[path]
+            return a[elastic.block(a.shape, spec, mesh, me)]
+    for (path, x), m in zip(like, manifest["leaves"]):
+        full = (tuple(x.shape) if place is None else
+                elastic.global_shape(x.shape, spec_of[path], mesh))
+        if tuple(m["shape"]) != full:
+            raise ValueError(
+                f"checkpoint {d}: leaf {path!r} is {tuple(m['shape'])} "
+                f"there, but this layout needs {full}; a layout that "
+                f"depends on the number of ranks cannot be restored onto "
+                f"another")
     new = {}
-    with np.load(os.path.join(d, "arrays.npz")) as data:
+    npz = os.path.join(d, "arrays.npz")
+    with np.load(npz) as data:
         for i, (path, x) in enumerate(like):
-            a = data[f"leaf_{i}"]
+            a = None if place is None else _mapped(npz, f"leaf_{i}")
+            if a is None:
+                a = data[f"leaf_{i}"]
+            if place is not None:
+                a = np.array(place(path, x, a))     # a copy, 0-d kept
             if isinstance(x, np.ndarray):
                 new[path] = a
                 continue
@@ -171,13 +264,29 @@ def restore(root: str, tree_like: Tree, step: Optional[int] = None
 
 
 class CheckpointManager:
-    """Async checkpointing with retention. One background writer thread."""
+    """Async checkpointing with retention. One background writer thread.
 
-    def __init__(self, root: str, keep: int = 3):
+    Over a ``mesh`` of more than one rank (``specs``: the ``Spec`` tree of
+    the trees it saves) every rank holds a manager and makes the same
+    calls: ``save`` is collective, each rank sending its blocks into the
+    mesh's lead rank's host memory, and the lead alone writes, on its
+    writer thread; ``latest_step`` is the lead rank's
+    answer, told to all, so that no rank resumes one checkpoint behind a
+    peer whose view of the directory differs; ``wait`` ends in a barrier
+    over the mesh, so no rank reads a directory the lead is still
+    writing. ``layout`` (JSON-able) goes into every checkpoint's metadata
+    and must match on restore."""
+
+    def __init__(self, root: str, keep: int = 3, *, mesh=None,
+                 specs: Tree = None,
+                 layout: Optional[Dict[str, Any]] = None):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.root = root
         self.keep = keep
+        self.mesh = mesh if _multi(mesh) else None
+        self.specs = specs
+        self.layout = layout
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -192,7 +301,11 @@ class CheckpointManager:
         ``blocking``, else on the writer thread. A failed earlier write
         raises here."""
         self._raise_failed("previous async checkpoint failed")
-        snap = _snapshot(tree)
+        snap = _collect(tree, self.specs, self.mesh)
+        if snap is None:
+            return
+        if self.layout is not None:
+            metadata = dict(metadata or {}, layout=self.layout)
         if blocking:
             self._write(step, snap, metadata)
         else:
@@ -203,12 +316,19 @@ class CheckpointManager:
         failed."""
         self._q.join()
         self._raise_failed("async checkpoint failed")
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def latest_step(self) -> Optional[int]:
-        return latest_step(self.root)
+        if self.mesh is None:
+            return latest_step(self.root)
+        mine = latest_step(self.root) if self.mesh.rank == self.mesh.lead \
+            else None
+        return self.mesh.broadcast_object(mine)
 
     def restore(self, tree_like: Tree, step: Optional[int] = None):
-        return restore(self.root, tree_like, step)
+        return restore(self.root, tree_like, step, specs=self.specs,
+                       mesh=self.mesh, layout=self.layout)
 
     # -- internals ----------------------------------------------------------
     def _raise_failed(self, what: str) -> None:

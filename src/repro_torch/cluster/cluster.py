@@ -13,13 +13,23 @@ run_open_loop``, generalized to N servers:
                   (flush that replica if its batch filled)
       deadline -> flush the replica whose oldest query timed out
 
-Flush SERVICE times are real device executions on the replica's device
+Flush SERVICE times are real device executions on the replica's board
 (optionally retimed by the hit-ratio monitor's hybrid-memory model);
 queueing and batching delays compose on the virtual clock, so a run is
 deterministic given (trace, fleet, policy) up to hardware timing noise --
 and a RECORDED trace reproduces the whole workload. On one card every
 replica shares ``cuda:0`` and the flushes run one at a time, each timed
 on its own replica's busy horizon, as the reference times them.
+
+Over k ranks (``torch.distributed``) the pool is the world's ranks and a
+board is ``devices_per_replica`` of them (``model_axis`` columns), as the
+reference carves sub-meshes from its devices. The event loop runs
+identically on EVERY rank: each value it decides on (service times,
+probs, routing, scale events, monitor refreshes) is the same on all of
+them, because a board's lead rank shares its flushes' results with the
+ranks outside it (``replica.share``). A scale-up builds the new board's
+mesh on every rank and re-places replica 0's params onto it; a
+scale-down drains the board and releases its tensors on its ranks.
 
 Two controllers ride the loop: an ``SLAAutoscaler`` that grows/shrinks
 the fleet on sustained p99 violation/slack (scale-up copies live params
@@ -43,7 +53,7 @@ import numpy as np
 
 from repro_torch.cluster.autoscale import ScaleEvent, SLAAutoscaler
 from repro_torch.cluster.monitor import HitRatioMonitor
-from repro_torch.cluster.replica import (MULTI_DEVICE, Replica,
+from repro_torch.cluster.replica import (MULTI_RANK_UPDATES, Replica,
                                          slice_devices, submesh)
 from repro_torch.cluster.router import Router, make_router
 from repro_torch.configs.base import DLRMConfig
@@ -51,11 +61,18 @@ from repro_torch.core.planner import ShardingPlan
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.batching import QueryFuture
 from repro_torch.engine.planning import PlanReport, build_auto_plan
+from repro_torch.launch.mesh import world_size
 from repro_torch.obs.attribution import AttributionLog, BlameReport
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.obs.trace import Tracer
 from repro_torch.traffic.scenarios import QueryEvent, materialize_query
+
+
+def _pool(devices: Optional[Sequence[int]]) -> List[int]:
+    """The ranks boards are sliced from: ``devices`` (ranks of the
+    world), else every rank of the world ([0] without one)."""
+    return list(range(world_size())) if devices is None else list(devices)
 
 
 @dataclass(frozen=True)
@@ -172,13 +189,14 @@ class Cluster:
     fleet are interchangeable. All replicas init params from the shared
     seed, so they serve bit-identical results regardless of routing.
 
-    ``devices`` is the device pool the boards are sliced from; None is
-    ``[device]``, and ``device=None`` is the card. Queries are
-    materialized on the pool's first device.
+    ``devices`` is the pool of ranks the boards are sliced from (None:
+    every rank of the world, rank 0 alone without one); ``device`` is
+    this rank's device (None: the card). Queries are materialized on
+    this rank's device.
     """
 
     def __init__(self, cfg: DLRMConfig, *, n_replicas: int = 2,
-                 devices: Optional[Sequence] = None,
+                 devices: Optional[Sequence[int]] = None,
                  devices_per_replica: Optional[int] = None,
                  model_axis: int = 1,
                  plan: Union[None, str, ShardingPlan] = "none",
@@ -204,15 +222,10 @@ class Cluster:
         self.cfg = cfg
         self.query_size = int(query_size or cfg.batch_size)
         self.verbose = verbose
-        pool = ([resolve_device(d) for d in devices] if devices is not None
-                else [resolve_device(device)])
+        pool = _pool(devices)
         dpr = devices_per_replica or max(
             model_axis, model_axis * (len(pool) // (model_axis * n_replicas)))
-        if dpr > 1 or model_axis > 1:
-            raise NotImplementedError(
-                f"boards of {dpr} devices (model_axis={model_axis}) are not "
-                f"ported yet ({MULTI_DEVICE})")
-        self.device = pool[0]
+        self.device = resolve_device(device)
         self._pool = pool
         self._dpr = dpr
         self._model_axis = model_axis
@@ -230,7 +243,7 @@ class Cluster:
             model_axis=model_axis, plan=plan, exchange=exchange, alpha=alpha,
             seed=seed, max_batch_queries=max_batch_queries,
             max_wait_ms=max_wait_ms, query_size=self.query_size,
-            pipeline_depth=pipeline_depth)
+            pipeline_depth=pipeline_depth, device=self.device)
         self.replicas: List[Replica] = [
             Replica(rid, cfg, slice_devices(pool, rid, dpr),
                     service_scale=(service_scales[rid]
@@ -270,7 +283,8 @@ class Cluster:
         self._next_rid += 1
         devs = slice_devices(self._pool, rid, self._dpr)
         new_mesh = submesh(devs, self._model_axis)
-        # copy a live replica's params onto the new board
+        # re-place a live replica's params onto the new board (every rank
+        # takes part; each of the board's ranks gets its own copy)
         params, remesh_report = self.replicas[0].clone_params_onto(new_mesh)
         rep = Replica(rid, self.cfg, devs, params=params, **self._replica_kw)
         rep.free = rep.spawned_at = now
@@ -446,6 +460,8 @@ class Cluster:
         arrival time, never on routing or fleet size."""
         if not events:
             raise ValueError("cluster run needs at least one event")
+        if online is not None and self._dpr > 1:
+            raise NotImplementedError(MULTI_RANK_UPDATES)
         self._lat_ms: List[float] = []
         self._batch_sizes: List[int] = []
         self._last_done = 0.0

@@ -1,14 +1,15 @@
-"""Replica: one served board -- an Engine + ServeSession on its own device.
+"""Replica: one served board -- an Engine + ServeSession on its own ranks.
 
 The port's counterpart of ``repro.cluster.replica``. The paper's
 deployment unit is a board ("scale-in" node); a fleet is N of them behind
 a router. Each ``Replica`` owns
 
-  * a board's devices (``submesh``), sliced from the device pool: the
-    replica's Engine/ServeSession build their serve step and place their
-    params there, independent of every other replica. The port gives a
-    board one device; more (``model_axis > 1`` or ``devices_per_replica
-    > 1``) is ROADMAP A6b-ii;
+  * a board's ranks (``submesh``), sliced from the world's ranks as the
+    reference slices its device pool: a ("data", "model") mesh of
+    ``launch.mesh``, on which the replica's Engine/ServeSession shard
+    their tables over every rank of the board (``axis=("data",
+    "model")``), independent of every other replica. On one rank without
+    a world the board is a mesh of rank 0;
   * a ``MicroBatcher`` + a virtual-clock busy horizon (``free``): the
     cluster event loop (``repro_torch.cluster.cluster``) drives flushes
     with explicit trigger times, exactly like ``ServeSession.
@@ -16,13 +17,21 @@ a router. Each ``Replica`` owns
     compose event-by-event while SERVICE times stay real device
     executions.
 
+Over k ranks every rank of the world builds every Replica and runs the
+same event loop; only the board's own ranks hold its session. A flush's
+service time is its slowest rank's (the session's pmax over the board),
+and the board's lead rank then shares the service time and the probs
+with every rank outside the board (one broadcast a flush), so that every
+rank decides the same routing, scaling and reports.
+
 Replicas are spawned two ways: fresh (param init from the shared seed --
 all replicas of a cluster start bit-identical) or by RE-PLACING a live
 replica's params onto a new board via ``runtime/elastic.remesh_tree``
 (``clone_params_onto``) -- the autoscaler's scale-up path, which must not
-change served results. On one card the pool is ``[cuda:0]`` and the
-replicas wrap onto it, as the reference's oversubscription does; each
-serializes on its own virtual busy horizon.
+change served results. On one card every rank shares ``cuda:0``; boards
+past the pool wrap onto its first ranks, as the reference's
+oversubscription does, and each serializes on its own virtual busy
+horizon.
 """
 from __future__ import annotations
 
@@ -33,39 +42,54 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DLRMConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.engine.batching import MicroBatcher, QueryFuture
 from repro_torch.engine.engine import Engine
-from repro_torch.runtime.elastic import none_specs, remesh_tree
+from repro_torch.launch.mesh import Mesh, group_of, sub_mesh, world_size
+from repro_torch.parallel import primitives as prim
+from repro_torch.parallel.build import AXIS, param_specs
+from repro_torch.parallel.plan import plan_table_groups
+from repro_torch.runtime.elastic import remesh_tree
 
-MULTI_DEVICE = "ROADMAP A6b-ii, boards of k ranks"
+MULTI_RANK_UPDATES = (
+    "online row updates into a board of more than one rank are not "
+    "ported yet (ROADMAP A6b-ii)")
 
 
-def submesh(devices: Sequence, model_axis: int = 1) -> List[torch.device]:
-    """A board's devices, checked: the port serves a board on one
-    device, so a board of several (a ("data", "model") mesh in the
-    reference) raises naming the item that brings it."""
-    devs = [resolve_device(d) for d in devices]
-    if model_axis < 1 or len(devs) % model_axis:
-        raise ValueError(f"{len(devs)} devices do not split into "
-                         f"model_axis={model_axis} columns")
-    if model_axis > 1 or len(devs) > 1:
-        raise NotImplementedError(
-            f"a board of {len(devs)} devices (model_axis={model_axis}) is "
-            f"not ported yet ({MULTI_DEVICE})")
-    return devs
+def submesh(devices: Sequence[int], model_axis: int = 1) -> Mesh:
+    """A board's ranks of the world as a ("data", "model")
+    ``launch.mesh.Mesh`` of shape (len // model_axis, model_axis), the
+    reference's ``submesh(devices, model_axis)``, built on every rank of
+    the world. A board needs a rank each of its devices; this rank's
+    device is the caller's ``device=``."""
+    ranks = list(devices)
+    if not all(isinstance(r, (int, np.integer)) for r in ranks):
+        raise ValueError(
+            f"a board needs a rank each of its devices: pass ranks of the "
+            f"world (ints; torch.distributed, launch.mesh) and this rank's "
+            f"device as device=, got {ranks!r}")
+    return sub_mesh(ranks, model_axis)
 
 
 def slice_devices(pool: Sequence, rid: int, per_replica: int) -> List:
-    """Device slice for replica ``rid``: disjoint while the pool lasts, then
-    wrapped (oversubscribed). Oversubscription is exact on the virtual
-    clock -- each replica serializes on its own busy horizon -- and mirrors
-    bring-up on fewer boards than the target fleet."""
+    """Rank slice for replica ``rid``: disjoint while the pool
+    lasts, then wrapped (oversubscribed). Oversubscription is exact on the
+    virtual clock -- each replica serializes on its own busy horizon --
+    and mirrors bring-up on fewer boards than the target fleet."""
     if per_replica > len(pool):
         raise ValueError(f"replica needs {per_replica} devices; pool has "
                          f"{len(pool)}")
     start = (rid * per_replica) % len(pool)
     return [pool[(start + i) % len(pool)] for i in range(per_replica)]
+
+
+def share(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
+    """``values`` (a float64 CPU tensor) as the board's lead rank holds
+    it, on every rank of the world: one broadcast, skipped where the
+    board is the whole world (its ranks agree already)."""
+    if mesh.size() == world_size():
+        return values
+    return prim.broadcast(values, mesh.lead, group_of(range(world_size())))
 
 
 class Replica:
@@ -77,23 +101,32 @@ class Replica:
                  max_batch_queries: int = 4, max_wait_ms: float = 2.0,
                  query_size: Optional[int] = None, params=None,
                  pipeline_depth: Optional[int] = None,
-                 service_scale: float = 1.0):
+                 service_scale: float = 1.0, device: DeviceArg = None):
         self.rid = rid
+        self.cfg = cfg
         self.devices = list(devices)
         # fixed per-board slowdown (straggler/degraded board, the serving
         # analogue of runtime/straggler.py): scales every service time
         self.service_scale = float(service_scale)
         self.mesh = submesh(self.devices, model_axis)
-        self.device = self.mesh[0]
-        # the plan is resolved ONCE at cluster level and passed concrete
-        # (or None): replicas must not re-profile independently
-        self.engine = Engine(cfg, plan=plan if plan is not None else "none",
-                             exchange=exchange, alpha=alpha, seed=seed,
-                             pipeline_depth=pipeline_depth,
-                             device=self.device)
-        self.session = self.engine.serve_session(
-            max_batch_queries=max_batch_queries, max_wait_ms=max_wait_ms,
-            query_size=query_size, params=params)
+        # this rank's device; a rank outside the board holds nothing of it
+        self.device = resolve_device(device)
+        self.member = self.mesh.member
+        self.query_size = int(query_size or cfg.batch_size)
+        self._plan = plan
+        self.engine = self.session = None
+        if self.member:
+            # the plan is resolved ONCE at cluster level and passed
+            # concrete (or None): replicas must not re-profile
+            # independently
+            self.engine = Engine(
+                cfg, plan=plan if plan is not None else "none",
+                exchange=exchange, alpha=alpha, seed=seed,
+                pipeline_depth=pipeline_depth, device=self.device,
+                mesh=self.mesh, axis=AXIS)
+            self.session = self.engine.serve_session(
+                max_batch_queries=max_batch_queries, max_wait_ms=max_wait_ms,
+                query_size=query_size, params=params)
         self.batcher = MicroBatcher(int(max_batch_queries), max_wait_ms / 1e3)
         self.free = 0.0          # virtual clock: busy until this time
         self.spawned_at = 0.0
@@ -150,8 +183,18 @@ class Replica:
         futs = self.batcher.drain()
         if not futs:
             return []
-        probs, service, stall = self.session._execute(
-            [f.query for f in futs])
+        n = len(futs)
+        values = torch.empty(2 + n * self.query_size, dtype=torch.float64)
+        if self.member:
+            probs, service, stall = self.session._execute(
+                [f.query for f in futs])
+            values[0], values[1] = service, stall
+            values[2:] = torch.from_numpy(probs.reshape(-1).astype(
+                np.float64))
+        values = share(self.mesh, values)
+        service, stall = float(values[0]), float(values[1])
+        probs = values[2:].numpy().astype(np.float32).reshape(
+            n, self.query_size)
         scale = float(service_scale) * self.service_scale
         service *= scale
         stall *= scale
@@ -179,6 +222,21 @@ class Replica:
             f.query = None
         return futs
 
+    @property
+    def serve_kernel(self) -> Optional[str]:
+        """The session's serve kernel (None on a rank outside the
+        board)."""
+        return None if self.session is None else self.session.serve_kernel
+
+    def measure_service_time(self, n_queries: int = 1) -> float:
+        """``ServeSession.measure_service_time`` of this board, the same
+        on every rank of the world (the lead rank's, after the board's
+        pmax)."""
+        t = torch.zeros(1, dtype=torch.float64)
+        if self.member:
+            t[0] = self.session.measure_service_time(n_queries)
+        return float(share(self.mesh, t)[0])
+
     def release(self) -> None:
         """Let go of the board's device tensors (its session and the
         params it serves) when the board retires; the stats stay. The
@@ -196,7 +254,14 @@ class Replica:
         cluster loop broadcasts each batch to all replicas -- after this
         call the board serves the batch's row values bit-exactly. A
         replica spawned by ``clone_params_onto`` holds its own copy and
-        takes the rows there. Returns rows written."""
+        takes the rows there. Returns rows written (the batch's rows on
+        every rank; only the board's own ranks write). A board of more
+        than one rank raises (ROADMAP A6b-ii)."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(MULTI_RANK_UPDATES)
+        if not getattr(self, "member", True):
+            return sum(d.n_rows for d in batch.deltas)
         params = self.session.params
         if not isinstance(params, dict) or "tables" not in params:
             raise ValueError(
@@ -214,18 +279,26 @@ class Replica:
 
     # -- elastic re-placement ------------------------------------------------
     def param_specs(self) -> Any:
-        """A spec tree congruent with this replica's (possibly plan-split)
-        param tree -- what ``remesh_tree`` re-places against: every leaf
-        whole on a board's one device."""
-        return none_specs(self.session.params)
+        """The ``Spec`` tree of this replica's (possibly plan-split) param
+        tree -- what ``remesh_tree`` re-places against: the reference's
+        ``parallel.param_specs`` over the board's ("data", "model") axis
+        (known on every rank)."""
+        groups = None
+        if self._plan is not None and self._plan.placements:
+            groups = plan_table_groups(self._plan, self.mesh.size(AXIS))
+        return param_specs(self.cfg, AXIS, groups)
 
-    def clone_params_onto(self, new_mesh: Sequence
-                          ) -> Tuple[Any, Dict[str, int]]:
-        """Copy this replica's live params onto another board's devices
-        via ``runtime/elastic.remesh_tree`` -- the autoscaler's scale-up
-        path. Returns (params on the new board, remesh report)."""
-        return remesh_tree(self.session.params, self.param_specs(),
-                           new_mesh[0])
+    def clone_params_onto(self, new_mesh) -> Tuple[Any, Dict[str, int]]:
+        """Re-place this replica's live params onto another board via
+        ``runtime/elastic.remesh_tree`` -- the autoscaler's scale-up path:
+        every rank of the world calls, and each rank of ``new_mesh`` gets
+        its shards (a copy, also where it is one of this board's ranks).
+        Returns (params on the new board, None on a rank outside it;
+        remesh report)."""
+        return remesh_tree(
+            self.session.params if self.member else None,
+            self.param_specs(), new_mesh, src_mesh=self.mesh,
+            device=self.device)
 
     def stats(self, makespan_s: float) -> Dict[str, float]:
         """Utilization is busy time over the board's LIVE window -- spawn to

@@ -73,6 +73,18 @@ def local_lm_params(params: Any, cfg, sharder: Sharder) -> Any:
     return _map_experts(params, cfg, sharder, mine)
 
 
+def lm_param_specs(params: Any, cfg, sharder: Sharder) -> Any:
+    """The ``runtime.elastic.Spec`` tree of this rank's LM params: each
+    expert weight a layout shards split over "model" along its dim,
+    every other leaf replicated (None)."""
+    from repro_torch.runtime.elastic import Spec, none_specs
+
+    def split(_, dim):
+        return Spec(*([None] * dim + ["model"]))
+
+    return _map_experts(none_specs(params), cfg, sharder, split)
+
+
 def gather_lm_params(params: Any, cfg, sharder: Sharder) -> Any:
     """The inverse of ``local_lm_params`` over the "model" group: each
     sharded leaf all-gathered whole (a tree of grads, too)."""

@@ -49,7 +49,8 @@ over k ranks too: the batch split over "data", the MoE over "model"
 
 ``sharded_fleet(n_boards=...)`` builds the sharded fabric fleet
 (``repro_torch.fabric``): boards that together hold one partitioned table
-set, on the engine's device.
+set, on the engine's device, or, over k ranks, on boards of the engine's
+ranks.
 
 Over k ranks (``torch.distributed``, gloo; ``launch.mesh``), every rank
 builds the same Engine and runs the same session loop on its own shard,
@@ -60,8 +61,8 @@ as each device runs the reference's ``shard_map`` body:
 
 ``mesh=None`` is ``make_host_mesh(model_axis)`` over the world (one rank
 without a process group). DLRM serves and trains over k ranks, and the LM
-trains; the sharded fleet and checkpoints take one rank, and more raise
-``NotImplementedError`` naming ROADMAP A6b-ii.
+trains; checkpoints are mesh-agnostic (a save gathers the shards at full
+width), and the fleets build boards of k ranks (``cluster``, ``fabric``).
 """
 from __future__ import annotations
 
@@ -87,9 +88,6 @@ PlanArg = Union[None, str, ShardingPlan]
 
 # The row-wise wire modes (the reference's ``RowWiseExchange``).
 _ROW_WISE_EXCHANGES = ("partial_pool", "unpooled")
-# What a mesh of more than one rank does not carry yet.
-MULTI_RANK = "ROADMAP A6b-ii"
-
 
 def _check_lm(cfg, plan, pipeline_depth, compress_grads, dp_axes,
               host_capacity_mb) -> None:
@@ -435,16 +433,17 @@ class Engine:
         config on its device: N boards that TOGETHER own one partitioned
         table set (vs the replicated ``repro_torch.cluster`` fleet),
         profiled and partitioned with the engine's (alpha, seed) stream
-        so the placement sees the traffic the fleet will serve. Every
-        keyword (``n_boards``, ``board_capacity_bytes``, ``link``,
-        ``cache_rows``, ``router``, ...) forwards to ``ShardedFleet``."""
+        so the placement sees the traffic the fleet will serve. Over k
+        ranks its boards are sliced from the engine's mesh's ranks (every
+        rank of the world builds the same fleet). Every keyword
+        (``n_boards``, ``board_capacity_bytes``, ``link``,
+        ``cache_rows``, ``router``, ``devices_per_board``,
+        ``model_axis``, ...) forwards to ``ShardedFleet``."""
         if not isinstance(self.cfg, DLRMConfig):
             raise ValueError("sharded_fleet is DLRM-only")
-        if self.n_devices > 1:
-            raise NotImplementedError(
-                f"a sharded fleet over {self.n_devices} ranks is not ported "
-                f"yet ({MULTI_RANK})")
         from repro_torch.fabric import ShardedFleet
+        if self.n_devices > 1:
+            kw.setdefault("devices", list(self.mesh.ranks))
         return ShardedFleet(
             self.cfg, alpha=self.alpha, seed=self.seed,
             profile_batches=self.profile_batches, verbose=self.verbose,

@@ -27,8 +27,10 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import Sharder
 from repro_torch.obs.serialize import report_asdict, report_to_json
 from repro_torch.optim import adamw, cosine_schedule
+from repro_torch.convert import lm_param_specs
 from repro_torch.parallel.build import (AXIS, build_step,
-                                        init_dlrm_opt_state, init_local_dlrm)
+                                        init_dlrm_opt_state, init_local_dlrm,
+                                        opt_state_specs, param_specs)
 from repro_torch.parallel.exchange import EmbeddingExchange, make_exchange
 from repro_torch.parallel.plan import (plan_table_groups,
                                        split_dlrm_params_in_place)
@@ -98,10 +100,16 @@ HOST_TIER_CKPT = (
     "the store's written-back rows and the chunk manager's residency, "
     "dirty and pos bookkeeping are not in them, so a resumed session "
     "would train on a fresh store")
-MULTI_RANK_CKPT = (
-    "checkpoints over more than one rank are not ported yet (ROADMAP "
-    "A6b-ii): each rank holds only its shards, and a checkpoint needs "
-    "them gathered at full width")
+
+
+def _manager(ckpt_dir: Optional[str], keep: int, mesh, specs,
+             layout=None) -> Optional[CheckpointManager]:
+    """The session's checkpoint manager (None without ``ckpt_dir``):
+    over a mesh of more than one rank, collective by ``specs``."""
+    if not ckpt_dir:
+        return None
+    return CheckpointManager(ckpt_dir, keep=keep, mesh=mesh, specs=specs,
+                             layout=layout)
 
 
 class TrainSession(_SessionBase):
@@ -131,8 +139,15 @@ class TrainSession(_SessionBase):
     builds the same session, draws only its shards of the init
     (``init_local_dlrm``) and runs the same loop over the same batches,
     training on its slice of each; ``params`` and ``opt_state`` are this
-    rank's shards, and the loss is the global batch's. Over more than one
-    rank a ``ckpt_dir`` raises (ROADMAP A6b-ii)."""
+    rank's shards, and the loss is the global batch's. Its checkpoints
+    hold the state at full width (``parallel.param_specs`` and
+    ``opt_state_specs``), so one written on k ranks resumes on any number
+    whose layout is the same: plan none without ``compress_grads``
+    always; a placed plan only where its fast/bulk groups are the same
+    (they are kept in the checkpoint's ``layout``), and the error-feedback
+    residuals (one per rank) only at the same number of ranks. Any other
+    resume raises ValueError (the reference would load such a state into
+    the wrong shapes)."""
 
     workload = "dlrm"
 
@@ -150,8 +165,6 @@ class TrainSession(_SessionBase):
         self.plan = plan
         self.pipeline_depth = int(pipeline_depth)
         n_embed = 1 if mesh is None else mesh.size(axis)
-        if ckpt_dir and mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(MULTI_RANK_CKPT)
         exch = self.exchange_inst = (
             exchange if exchange is not None
             else make_exchange(cfg, n_embed, plan=plan,
@@ -190,12 +203,19 @@ class TrainSession(_SessionBase):
 
         device = self.device      # the loop must not hold the session
 
+        groups = (plan_table_groups(plan, n_embed)
+                  if plan is not None and plan.placements else None)
+        specs = (param_specs(cfg, axis, groups),
+                 opt_state_specs(cfg, optimizer, plan, n_embed,
+                                 compress_grads, axis, dp_axes))
+        layout = (None if groups is None else
+                  {"fast_ids": list(groups.fast_ids),
+                   "bulk_ids": list(groups.bulk_ids)})
         loop = TrainLoop(
             step_fn=loop_step,
             batch_fn=lambda s: make_recsys_batch(cfg, s, seed, alpha,
                                                  device=device),
-            ckpt=(CheckpointManager(ckpt_dir, keep=ckpt_keep)
-                  if ckpt_dir else None),
+            ckpt=_manager(ckpt_dir, ckpt_keep, mesh, specs, layout),
             ckpt_every=ckpt_every)
         super().__init__(cfg, loop, (params, opt_state))
 
@@ -225,7 +245,9 @@ class LMTrainSession(_SessionBase):
     batches and keeps its rows (``lm.shard_batch``; a batch that does not
     divide over the batch axes raises ValueError), and runs the same
     loop; the history's losses and grad norms are the global batch's.
-    ``ckpt_dir`` over more than one rank raises (ROADMAP A6b-ii)."""
+    Checkpoints hold the state at full width (the expert weights and
+    their AdamW moments gathered over "model", ``convert.lm_param_specs``)
+    and resume on any mesh."""
 
     workload = "lm"
 
@@ -236,8 +258,6 @@ class LMTrainSession(_SessionBase):
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  ckpt_keep: int = 3, mesh=None, moe_impl: str = "auto"):
         multi = mesh is not None and mesh.size() > 1
-        if ckpt_dir and multi:
-            raise NotImplementedError(MULTI_RANK_CKPT)
         self.sharder = sharder = Sharder(mesh if multi else None,
                                          moe_impl=moe_impl)
         if batch % sharder.batch_size:
@@ -251,13 +271,17 @@ class LMTrainSession(_SessionBase):
             cfg, torch.Generator(device=device).manual_seed(seed), sharder)
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
+        p_specs = lm_param_specs(params, cfg, sharder)
+        specs = {"params": p_specs,
+                 "opt": {"mu": p_specs, "nu": p_specs, "count": None},
+                 "step": None}
         loop = TrainLoop(
             step_fn=lm.make_train_step(cfg, opt, sharder),
             batch_fn=lambda s: lm.shard_batch(make_lm_batch(
                 cfg, s, seed, batch, seq, chain_prob, device=device),
                 sharder),
-            ckpt=(CheckpointManager(ckpt_dir, keep=ckpt_keep)
-                  if ckpt_dir else None),
+            ckpt=_manager(ckpt_dir, ckpt_keep, mesh if multi else None,
+                          specs),
             ckpt_every=ckpt_every)
         super().__init__(cfg, loop, state)
 

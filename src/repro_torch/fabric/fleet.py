@@ -29,12 +29,23 @@ One flushed batch's timeline on the virtual clock:
 
 Lookup, gather, pool and dense SERVICE times are real device executions
 on each board's device, each timed alone; only the fabric term is
-modeled. On one card every board is ``cuda:0``. Served values are
-bit-identical to one full board regardless of partition, split
-granularity, cache state or link: every flush is padded to the capacity
-shape, and the split-table path pools a (T_s, B*L, d) "fake table" of
-gathered rows with the bag kernel, whose per-(sample, table) summation
-order depends only on L and d.
+modeled. On one card every board is ``cuda:0``.
+
+Over k ranks (``torch.distributed``) a board is ``devices_per_board``
+ranks of the world (``model_axis`` columns), as the reference carves its
+sub-meshes: as there, the board's owned rows and dense MLPs are
+REPLICATED on each of its ranks, each rank computes the board's lookups,
+and the board's time is its slowest rank's. The event loop runs
+identically on every rank of the world; each board operation's result
+(pooled parts, gathered rows, probs) and time is shared by the board's
+lead rank with the ranks outside the board, so every rank reassembles
+the same batch and decides the same routing, caching and scaling.
+
+Served values are bit-identical to one full board regardless of
+partition, split granularity, cache state or link: every flush is padded
+to the capacity shape, and the split-table path pools a (T_s, B*L, d)
+"fake table" of gathered rows with the bag kernel, whose per-(sample,
+table) summation order depends only on L and d.
 
 An optional `SLAAutoscaler` makes the fleet ELASTIC: on sustained p99
 violation/slack it grows/shrinks the board count mid-trace via
@@ -48,7 +59,9 @@ width (RM2-small: 21.47 GB of tables):
   * the canonical tables live ONCE, in host memory (drawn a table at a
     time by ``hoststore.draw_host_tables``, or the CPU tensor of
     ``params=``, shared without a copy); no fleet holds a device copy of
-    all tables beside the boards' slices;
+    all tables beside the boards' slices. Over k ranks world rank 0
+    alone holds them and broadcasts each board's rows to its other
+    ranks (the reference's host arrays are one process's);
   * capacity is budgeted at the bytes the tables are stored in (fp32:
     4 bytes an element), not at the config's nominal fp16 as the
     reference budgets them, so a board's budget is what it holds;
@@ -78,8 +91,9 @@ import numpy as np
 import torch
 
 from repro_torch.cluster.autoscale import ScaleEvent, SLAAutoscaler
-from repro_torch.cluster.cluster import FleetReport
-from repro_torch.cluster.replica import slice_devices, submesh
+from repro_torch.cluster.cluster import FleetReport, _pool
+from repro_torch.cluster.replica import (MULTI_RANK_UPDATES, share,
+                                         slice_devices, submesh)
 from repro_torch.cluster.router import Router, make_router
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm as dlrm_lib
@@ -94,11 +108,14 @@ from repro_torch.fabric.exchange import FabricExchange
 from repro_torch.fabric.partition import ShardMap, partition_rows
 from repro_torch.hoststore import StagingRing, draw_host_tables
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import group_of, world_rank, world_size
 from repro_torch.obs.attribution import AttributionLog, interval_overlap_s
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.online.delta import ELEM_BYTES, INDEX_BYTES, DeltaBatch
 from repro_torch.online.report import OnlineReport
+from repro_torch.parallel import primitives as prim
+from repro_torch.runtime.elastic import broadcast_chunks
 from repro_torch.traffic.scenarios import QueryEvent, materialize_query
 
 RowRanges = Dict[int, List[Tuple[int, int]]]   # table -> [(row_lo, row_hi)]
@@ -180,25 +197,40 @@ class FabricBoard:
     enqueue / deadline). Residency is re-settable (`set_residency`) so a
     live re-partition can move row ranges without rebuilding the board.
     Rows come from host memory through ``staging``, the pinned ring its
-    device shares with the fleet's other boards there. The port's board
-    is one device; more raises naming ROADMAP A6b-ii."""
+    device shares with the fleet's other boards there.
+
+    ``devices`` are ranks of the world (every rank builds every board; a
+    rank outside it keeps only its bookkeeping, ``member`` False), and
+    ``device`` this rank's device. The rows come from the host tables of the world
+    rank ``holder``, which installs its own copy and broadcasts them to
+    the board's other ranks."""
 
     def __init__(self, rid: int, cfg: DLRMConfig, devices: Sequence,
                  whole_tids: Sequence[int], split_ranges: RowRanges,
-                 params, tables_host: torch.Tensor, *,
+                 params, tables_host: Optional[torch.Tensor], *,
                  model_axis: int = 1, max_batch_queries: int = 4,
-                 max_wait_ms: float = 2.0, staging: StagingRing,
-                 service_scale: float = 1.0):
+                 max_wait_ms: float = 2.0,
+                 staging: Optional[StagingRing],
+                 service_scale: float = 1.0, device: DeviceArg = None,
+                 holder: int = 0, dtype: torch.dtype = torch.float32):
         self.rid = rid
         self.cfg = cfg
         self.devices = list(devices)
         self.mesh = submesh(self.devices, model_axis)
-        self.device = self.mesh[0]
+        self.device = resolve_device(device)
+        self.member = self.mesh.member
+        # the board's ranks (None: one), and whether ranks outside it
+        # must be told its results
+        self._group = self.mesh.group(self.mesh.axis_names)
+        self._shared = self.mesh.size() < world_size()
+        self._holder = holder
+        self._dtype = dtype
         # fixed per-board slowdown (a straggler board): scales every
         # measured device time
         self.service_scale = float(service_scale)
-        self.dense_params = _on({"bot_mlp": params["bot_mlp"],
-                                 "top_mlp": params["top_mlp"]}, self.device)
+        self.dense_params = (_on({"bot_mlp": params["bot_mlp"],
+                                  "top_mlp": params["top_mlp"]}, self.device)
+                             if self.member else None)
         self.batcher = MicroBatcher(int(max_batch_queries), max_wait_ms / 1e3)
         self.free = 0.0              # virtual clock: busy until this time
         self.busy_s = 0.0            # occupied window (incl. link stalls)
@@ -225,14 +257,26 @@ class FabricBoard:
         self.table_ids = np.zeros(0, np.int32)
         self.residency = ((), {})
 
-    def _install(self, dst: torch.Tensor, src: torch.Tensor) -> None:
-        """dst (n, d) on the device <- src (n, d) in host memory, through
-        the pinned staging ring."""
-        d = src.shape[-1]
-        self._staging.to_device(
-            src.shape[0], (d,),
-            lambda a, b, piece: piece.copy_(src[a:b]),
-            lambda a, b, piece: dst[a:b].copy_(piece, non_blocking=True))
+    def _install(self, dst: Optional[torch.Tensor],
+                 src: Optional[torch.Tensor], n: int) -> None:
+        """dst (n, d) on this rank's device <- the rows src (n, d) that
+        the holder rank keeps in host memory: the holder copies its own
+        through the pinned staging ring, then broadcasts the rows from
+        host memory to the board's other ranks, a chunk at a time
+        (``runtime.elastic.broadcast_chunks``; every rank of the world
+        runs this, those outside the board and the holder skipping it)."""
+        me = world_rank()
+        if me == self._holder and self.member:
+            self._staging.to_device(
+                n, (self.cfg.embed_dim,),
+                lambda a, b, piece: piece.copy_(src[a:b]),
+                lambda a, b, piece: dst[a:b].copy_(piece, non_blocking=True))
+        ranks = sorted({self._holder, *self.mesh.ranks})
+        group = group_of(ranks)       # built on every rank of the world
+        if len(ranks) == 1 or me not in ranks:
+            return
+        broadcast_chunks(src.reshape(-1) if me == self._holder
+                         else dst.view(-1), self._holder, group)
 
     def set_residency(self, whole_tids: Sequence[int],
                       split_ranges: RowRanges,
@@ -246,19 +290,29 @@ class FabricBoard:
             return
         residency = _residency_key(whole_tids, split_ranges)
         self.release()
-        _, R, d = tables_host.shape
+        R, d = self.cfg.rows_per_table, self.cfg.embed_dim
         tids, ranges = residency
         self.table_ids = np.asarray(tids, np.int32)
-        self.tables = torch.empty((len(tids), R, d), dtype=tables_host.dtype,
-                                  device=self.device)
+        member = self.member
+
+        def empty(*shape):
+            return (torch.empty(shape, dtype=self._dtype, device=self.device)
+                    if member else None)
+
+        def host(t, lo, hi):
+            return None if tables_host is None else tables_host[t, lo:hi]
+
+        self.tables = empty(len(tids), R, d)
         for j, t in enumerate(tids):
-            self._install(self.tables[j], tables_host[t])
+            self._install(None if self.tables is None else self.tables[j],
+                          host(t, 0, R), R)
         for t, rr in sorted(ranges.items()):
-            rows = torch.empty((sum(hi - lo for lo, hi in rr), d),
-                               dtype=tables_host.dtype, device=self.device)
+            rows = empty(sum(hi - lo for lo, hi in rr), d)
             off = 0
             for lo, hi in rr:
-                self._install(rows[off:off + hi - lo], tables_host[t, lo:hi])
+                self._install(None if rows is None else
+                              rows[off:off + hi - lo], host(t, lo, hi),
+                              hi - lo)
                 off += hi - lo
             row_ids = torch.cat([torch.arange(lo, hi) for lo, hi in rr])
             self.split_rows[t] = (row_ids.to(self.device), rows)
@@ -297,19 +351,37 @@ class FabricBoard:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _timed(self, key: tuple, fn: Callable[[], torch.Tensor]
-               ) -> Tuple[torch.Tensor, float]:
-        """(fn(), seconds of its device work alone x ``service_scale``).
+    def _timed(self, key: tuple, fn: Callable[[], torch.Tensor],
+               shape: Tuple[int, ...]) -> Tuple[torch.Tensor, float]:
+        """(fn(), seconds of its device work alone x ``service_scale``),
+        on every rank of the world: each of the board's ranks runs it, the
+        time is their slowest's, and the lead rank shares the result
+        (``shape``, fp32) and the time with the ranks outside the board.
         The first call of a (role, shape) key runs once untimed first (the
         reference's compile-once warm-up)."""
-        if key not in self.warmed:
-            fn()
-            self.warmed.add(key)
-        self._sync()
-        t0 = time.perf_counter()
-        out = fn()
-        self._sync()
-        return out, (time.perf_counter() - t0) * self.service_scale
+        out, t = None, 0.0
+        if self.member:
+            if key not in self.warmed:
+                fn()
+                self.warmed.add(key)
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn()
+            self._sync()
+            t = (time.perf_counter() - t0) * self.service_scale
+            if self._group is not None:
+                t = float(prim.pmax(torch.tensor([t], dtype=torch.float64),
+                                    self._group))
+        if not self._shared:
+            return out, t
+        values = torch.empty(1 + int(np.prod(shape)), dtype=torch.float64)
+        if self.member:
+            values[0] = t
+            values[1:] = out.reshape(-1).double().cpu()
+        values = share(self.mesh, values)
+        if not self.member:
+            out = values[1:].float().reshape(shape).to(self.device)
+        return out, float(values[0])
 
     def lookup(self, indices_local: torch.Tensor
                ) -> Tuple[torch.Tensor, float]:
@@ -317,8 +389,10 @@ class FabricBoard:
         with row 4: (B, T_own, L) ids in owned-table order -> ((B, T_own,
         d) pooled part, measured seconds x service_scale)."""
         idx = indices_local.to(self.device, torch.int32).contiguous()
+        B, T_own, _ = idx.shape
         return self._timed(("lookup", tuple(idx.shape)),
-                           lambda: ops.embedding_bag(self.tables, idx))
+                           lambda: ops.embedding_bag(self.tables, idx),
+                           (B, T_own, self.cfg.embed_dim))
 
     def gather_rows(self, table: int, idx_bl: torch.Tensor
                     ) -> Tuple[torch.Tensor, float]:
@@ -337,7 +411,8 @@ class FabricBoard:
             return rows[pos] * mask[..., None].to(rows.dtype)
 
         return self._timed(("gather", int(table), tuple(ids.shape),
-                            row_ids.numel()), gather)
+                            row_ids.numel()), gather,
+                           tuple(ids.shape) + (self.cfg.embed_dim,))
 
     def pool_rows(self, fake_tables: torch.Tensor, fake_idx: torch.Tensor
                   ) -> Tuple[torch.Tensor, float]:
@@ -348,7 +423,8 @@ class FabricBoard:
         tables = fake_tables.to(self.device).contiguous()
         idx = fake_idx.to(self.device, torch.int32).contiguous()
         return self._timed(("pool", tuple(tables.shape), tuple(idx.shape)),
-                           lambda: ops.embedding_bag(tables, idx))
+                           lambda: ops.embedding_bag(tables, idx),
+                           tuple(idx.shape[:2]) + (self.cfg.embed_dim,))
 
     def dense_forward(self, dense: torch.Tensor, pooled: torch.Tensor
                       ) -> Tuple[np.ndarray, float]:
@@ -360,7 +436,7 @@ class FabricBoard:
         probs, t = self._timed(
             ("dense", tuple(dense.shape)),
             lambda: torch.sigmoid(dlrm_lib.dlrm_forward_from_pooled(
-                self.dense_params, dense, pooled)))
+                self.dense_params, dense, pooled)), (dense.shape[0],))
         return probs.cpu().numpy(), t
 
     def pull(self, x: torch.Tensor) -> torch.Tensor:
@@ -407,12 +483,15 @@ class ShardedFleet:
     ``params`` serve given weights: ``{"bot_mlp", "top_mlp", "tables"}``
     with the (T, R, d) tables in host memory (a CPU tensor or numpy
     array, used without a copy). None draws them from ``seed`` as the
-    port's stacked session would. ``devices`` is the pool the boards are
-    sliced from; None is ``[device]``, and ``device=None`` is the card.
+    port's stacked session would. ``devices`` is the pool of ranks the
+    boards are sliced from (None: every rank of the world, rank 0 alone
+    without one); ``device`` is this rank's device (None: the card). Over
+    k ranks only world rank 0 keeps the host tables (the other ranks
+    ignore those of ``params``).
     """
 
     def __init__(self, cfg: DLRMConfig, *, n_boards: int = 2,
-                 devices: Optional[Sequence] = None,
+                 devices: Optional[Sequence[int]] = None,
                  devices_per_board: Optional[int] = None,
                  model_axis: int = 1,
                  board_capacity_bytes: Optional[int] = None,
@@ -447,9 +526,8 @@ class ShardedFleet:
         self.seed = int(seed)
         self.link = link if link is not None else perf_model.fabric_link()
         self.min_shard_rows = int(min_shard_rows)
-        self._pool = ([resolve_device(d) for d in devices]
-                      if devices is not None else [resolve_device(device)])
-        self.device = self._pool[0]
+        self._pool = _pool(devices)
+        self.device = resolve_device(device)
         self._dpb = devices_per_board or max(
             model_axis,
             model_axis * (len(self._pool) // (model_axis * n_boards)))
@@ -470,15 +548,22 @@ class ShardedFleet:
         # -- weights: the canonical tables once, in host memory ---------------
         # Fleets built from one `params` share them; an online run's first
         # row update copies them (`_own_tables`), so another fleet's never
-        # change.
+        # change. Over k ranks world rank 0 alone holds them.
+        self._holder = 0
+        holds = world_rank() == self._holder
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             params = dict(dlrm_lib.init_mlps(cfg, gen),
-                          tables=draw_host_tables(cfg, self.seed,
-                                                  self.device))
-        tables = torch.as_tensor(params["tables"])
-        if tables.device.type != "cpu":
+                          tables=(draw_host_tables(cfg, self.seed,
+                                                   self.device)
+                                  if holds else None))
+        tables = (torch.as_tensor(params["tables"])
+                  if params["tables"] is not None else None)
+        if tables is not None and tables.device.type != "cpu":
             tables = tables.cpu()
+        self._dtype = tables.dtype if tables is not None else torch.float32
+        if not holds:
+            tables = None
         self._tables_host = tables
         self._params = dict(params, tables=tables)
         self._tables_owned = False
@@ -489,7 +574,7 @@ class ShardedFleet:
         self._row_freq_dev = te.measure_row_freq(
             cfg, alpha, seed, n_batches=profile_batches, device=self.device)
         self.row_freq = self._row_freq_dev.cpu().numpy()
-        row_bytes = cfg.embed_dim * tables.element_size()
+        row_bytes = cfg.embed_dim * self._dtype.itemsize
         table_bytes = [cfg.rows_per_table * row_bytes] * cfg.num_tables
         if board_capacity_bytes is None:
             # tightest sensible default: the fair share + 25% headroom for
@@ -543,12 +628,15 @@ class ShardedFleet:
     def _new_board(self, rid: int, whole: List[int], ranges: RowRanges,
                    service_scale: float = 1.0) -> FabricBoard:
         devs = slice_devices(self._pool, rid, self._dpb)
-        dev = resolve_device(devs[0])
-        if dev not in self._staging:
-            self._staging[dev] = StagingRing(dev, self._tables_host.dtype)
+        dev = self.device
+        if self._tables_host is not None and dev not in self._staging:
+            self._staging[dev] = StagingRing(dev, self._dtype)
         return FabricBoard(rid, self.cfg, devs, whole, ranges, self._params,
-                           self._tables_host, staging=self._staging[dev],
-                           service_scale=service_scale, **self._board_kw)
+                           self._tables_host,
+                           staging=self._staging.get(dev),
+                           service_scale=service_scale, device=dev,
+                           holder=self._holder, dtype=self._dtype,
+                           **self._board_kw)
 
     @staticmethod
     def _residency_of(pm: ShardMap, rid: int
@@ -897,7 +985,7 @@ class ShardedFleet:
         on its device: a whole table's rows in the board's stacked tables,
         a split table's in its compact slice, found by a search of the
         slice's sorted row ids. Returns {owner rid: rows written}."""
-        vals = torch.from_numpy(d.values).to(self._tables_host.dtype)
+        vals = torch.from_numpy(d.values).to(self._dtype)
         split = set(self.partition.split_tables)
         written: Dict[int, int] = {}
         for s in self.partition.table_shards(d.table):
@@ -905,6 +993,9 @@ class ShardedFleet:
             if hi <= lo:
                 continue
             b = self.boards[s.board]
+            written[s.board] = written.get(s.board, 0) + int(hi - lo)
+            if not b.member:
+                continue
             rows = torch.from_numpy(d.rows[lo:hi]).to(b.device)
             v = vals[lo:hi].to(b.device)
             if d.table in split:
@@ -913,7 +1004,6 @@ class ShardedFleet:
             else:
                 j = int(np.searchsorted(b.table_ids, d.table))
                 b.tables[j, rows] = v
-            written[s.board] = written.get(s.board, 0) + int(hi - lo)
         return written
 
     def _apply_delta(self, batch: DeltaBatch, now: float, mode: str) -> None:
@@ -928,11 +1018,13 @@ class ShardedFleet:
         it read as update_stall in the attribution."""
         from repro_torch.online.coherence import apply_to_remote_cache
 
-        self._own_tables()
         owner_rows: Dict[int, int] = {}
+        if self._tables_host is not None:
+            self._own_tables()
         for d in batch.deltas:
-            self._tables_host[d.table, torch.from_numpy(d.rows)] = \
-                torch.from_numpy(d.values).to(self._tables_host.dtype)
+            if self._tables_host is not None:
+                self._tables_host[d.table, torch.from_numpy(d.rows)] = \
+                    torch.from_numpy(d.values).to(self._dtype)
             for rid, n in self._write_owned_rows(d).items():
                 owner_rows[rid] = owner_rows.get(rid, 0) + n
 
@@ -1039,6 +1131,8 @@ class ShardedFleet:
         payload)."""
         if not events:
             raise ValueError("fleet run needs at least one event")
+        if online is not None and self._dpb > 1:
+            raise NotImplementedError(MULTI_RANK_UPDATES)
         self._lat_ms: List[float] = []
         self._batch_sizes: List[int] = []
         self._last_done = 0.0

@@ -74,8 +74,16 @@ ranks share it (``cuda:(LOCAL_RANK % device_count)``):
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.serve --smoke --device cpu --model-axis 2
 
-The fleet paths take one rank a board: --model-axis > 1 or k ranks with
-them raise, naming ROADMAP A6b-ii.
+The fleet paths run over the k ranks too: each board takes
+--model-axis ranks, or the world split over --replicas (the reference's
+``dpr``); every rank runs the same event loop and only rank 0 prints:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --smoke --device cpu --replicas 2 \
+      --model-axis 2
+
+Online updates into a board of more than one rank raise, naming ROADMAP
+A6b-ii.
 
 The "[plan]" line's predicted_qps is the paper's performance model for
 its RecSpeed hybrid HBM+DDR4 system (Table XIV), as the reference prints
@@ -274,11 +282,10 @@ def main(argv: Optional[list] = None) -> int:
             "--host-capacity-mb is single-board only: give each fleet "
             "board its own Engine/host tier instead")
     joined = init_from_env()
-    if fleet_path and (args.model_axis > 1 or world_size() > 1):
-        raise NotImplementedError(
-            f"fleet boards of more than one rank (--model-axis "
-            f"{args.model_axis}, {world_size()} launched ranks) are not "
-            f"ported yet (ROADMAP A6b-ii)")
+    if world_size() > 1 and fleet_path and (args.online_every_s > 0
+                                            or args.replay_deltas):
+        from repro_torch.cluster.replica import MULTI_RANK_UPDATES
+        raise NotImplementedError(MULTI_RANK_UPDATES)
     with rank0_prints():
         rc = _main(args, ap, fleet_path)
     if joined:
@@ -423,10 +430,11 @@ def _fabric_main(args, cfg, device) -> int:
             args.autoscale_sla_ms or args.sla_ms,
             min_replicas=args.min_replicas, max_replicas=args.max_replicas)
     engine = Engine(cfg, seed=args.seed, alpha=args.alpha, device=device,
-                    verbose=True)
+                    model_axis=args.model_axis, verbose=True)
     tracer = Tracer() if args.trace_out else None
     fleet = engine.sharded_fleet(
         n_boards=args.replicas, board_capacity_bytes=cap,
+        model_axis=args.model_axis,
         link=fabric_link(args.fabric_latency_us, args.fabric_gbs),
         cache_rows=args.fabric_cache_rows,
         cache_enabled=(args.fabric_cache_rows is None
@@ -515,16 +523,16 @@ def _cluster_main(args, cfg, full_cfg, device) -> int:
         max_wait_ms=args.max_wait_ms, router=args.router,
         autoscaler=autoscaler, monitor=monitor,
         pipeline_depth=args.pipeline_depth or None, tracer=tracer,
-        verbose=True, device=device)
-    sess = cluster.replicas[0].session
+        model_axis=args.model_axis, verbose=True, device=device)
+    board = cluster.replicas[0]
     print(f"[serve] fleet of {args.replicas} replicas on {device}: "
-          f"serve_kernel={sess.serve_kernel}")
+          f"serve_kernel={board.serve_kernel}")
 
     if events is None:
         qps = args.qps
         if qps <= 0:
             # default load: ~80% of the fleet's aggregate per-query capacity
-            s1 = sess.measure_service_time()
+            s1 = board.measure_service_time()
             qps = 0.8 * args.replicas / s1
             print(f"[serve] --qps 0: offering 0.8 x fleet capacity = "
                   f"{qps:.1f} qps (per-query service {s1 * 1e3:.2f} ms)")
@@ -535,8 +543,9 @@ def _cluster_main(args, cfg, full_cfg, device) -> int:
                          seed=args.seed, config=cfg.name)
             print(f"[serve] recorded trace -> {args.record_trace}")
 
-    online = _online_channel(args, cfg, cluster.replicas[0].session.params,
-                             events, scen_name, device)
+    online = _online_channel(
+        args, cfg, board.session.params if board.session else None, events,
+        scen_name, device)
     report = cluster.run(events, sla_ms=args.sla_ms,
                          percentile=args.sla_percentile, scenario=scen_name,
                          online=online)

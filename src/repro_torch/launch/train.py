@@ -56,8 +56,14 @@ of ``torch.distributed.run``'s world: the card unless ``--device cpu``.
       --steps 8 --compress-grads
 
 Under --workload lm the DLRM-only flags are ignored with a note, as in
-the reference; checkpoints over more than one rank raise, naming ROADMAP
-A6b-ii.
+the reference. --ckpt-dir works over k ranks too: a save gathers the
+shards at full width and rank 0 writes it, every rank resumes from the
+step rank 0 finds (rank 0 prints it), and a checkpoint resumes on another
+number of ranks where the state's layout does not depend on it:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --smoke --device cpu --steps 8 \
+      --ckpt-dir /tmp/ck --ckpt-every 4
 """
 from __future__ import annotations
 

@@ -50,8 +50,8 @@ from repro_torch.core.dlrm import bce_loss, dlrm_forward_from_pooled
 from repro_torch.data.recsys import make_recsys_batch, teacher_click_probs
 from repro_torch.device import DeviceArg, resolve_device
 from repro_torch.hoststore.chunks import StagingRing, copy_to_host
+from repro_torch.models.common import tree_map
 from repro_torch.online.delta import DeltaBatch, DeltaChannel, RowDelta
-from repro_torch.runtime.elastic import none_specs, remesh_tree
 from repro_torch.traffic.scenarios import QueryEvent
 
 
@@ -102,9 +102,8 @@ class OnlineTrainer:
         self.step = int(start_step)
         self._dense_params = {"bot_mlp": params["bot_mlp"],
                               "top_mlp": params["top_mlp"]}
-        self._mlps, _ = remesh_tree(self._dense_params,
-                                    none_specs(self._dense_params),
-                                    self.device)
+        self._mlps = tree_map(lambda x: x.to(self.device, copy=True),
+                              self._dense_params)
         src = params["tables"]
         src = src if torch.is_tensor(src) else torch.from_numpy(
             np.asarray(src))

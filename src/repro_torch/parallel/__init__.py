@@ -1,7 +1,7 @@
 """Exchange + step composition and plan execution, on one rank or k."""
 from repro_torch.parallel.build import (  # noqa: F401
     build_step, init_dlrm_opt_state, init_error_feedback, init_local_dlrm,
-    shard_dlrm_params)
+    opt_state_specs, param_specs, shard_dlrm_params)
 from repro_torch.parallel.exchange import (  # noqa: F401
     EmbeddingExchange, PlannedTieredExchange, RowWiseExchange,
     TableWiseExchange, acc_key, make_exchange, planned_forward,

@@ -55,6 +55,7 @@ from repro_torch.parallel.exchange import (EmbeddingExchange, acc_key,
 from repro_torch.parallel.plan import (plan_table_groups,
                                        split_dlrm_params_by_plan)
 from repro_torch.parallel.updates import adagrad_row_update, sgd_row_update
+from repro_torch.runtime.elastic import Spec
 
 Params = Dict[str, object]
 # The reference's default mesh axes of the embedding distribution.
@@ -95,6 +96,55 @@ def shard_dlrm_params(params: Params, plan: Optional[ShardingPlan] = None,
         idx = torch.as_tensor(ids, dtype=torch.long, device=tables.device)
         out[k] = tables.index_select(0, idx)[:, r0:r0 + rows].contiguous()
     return out
+
+
+def param_specs(cfg: DLRMConfig, axis=AXIS, groups=None) -> Params:
+    """The reference's ``param_specs(cfg, axis, groups)``: the ``Spec`` of
+    each leaf of DLRM params over the embedding ``axis`` (this rank's
+    shards, as the exchange's ``shards()`` cuts them; replicated over
+    ``dp_axes`` and every other axis). The MLPs are replicated; the
+    tables table-wise over the axis (``Spec(axis)``) or row-wise
+    (``Spec(None, axis)``); with plan ``groups`` (``PlanGroups``) the fast
+    group table-wise and the bulk group row-wise, an empty group
+    replicated."""
+    mlps = {k: [{"w": None, "b": None} for _ in layers]
+            for k, layers in dlrm_lib.mlp_shapes(cfg).items()}
+    if groups is not None:
+        return dict(mlps,
+                    tables_fast=Spec(axis) if groups.fast_ids else None,
+                    tables_bulk=Spec(None, axis) if groups.bulk_ids
+                    else None)
+    return dict(mlps, tables=(Spec(axis) if cfg.sharding == "table_wise"
+                              else Spec(None, axis)))
+
+
+def opt_state_specs(cfg: DLRMConfig, optimizer: str,
+                    plan: Optional[ShardingPlan] = None, n: int = 1,
+                    compress_grads: bool = False, axis=AXIS,
+                    dp_axes: Tuple[str, ...] = ()) -> Optional[Params]:
+    """The ``Spec`` tree of ``init_dlrm_opt_state``'s state over an
+    embedding axis of ``n`` ranks: each AdaGrad accumulator sharded as its
+    tables (an empty group replicated), and the error-feedback residuals
+    one per rank of ``dp_axes + axis`` (``Spec(stack=...)``: at full
+    width the reference's (n_devices, ...) leaves). None where the state
+    is None. ``runtime.elastic.gather_tree`` by these specs and
+    ``param_specs`` gathers a rank's state at full width."""
+    if optimizer == "sgd" and not compress_grads:
+        return None
+    specs: Params = {}
+    if optimizer == "adagrad":
+        if plan is None or not plan.placements:
+            specs["table_acc"] = param_specs(cfg, axis)["tables"]
+        else:
+            p = param_specs(cfg, axis, plan_table_groups(plan, n))
+            specs["table_acc_fast"] = p["tables_fast"]
+            specs["table_acc_bulk"] = p["tables_bulk"]
+    if compress_grads:
+        stack = _axes(dp_axes) + _axes(axis)
+        specs["ef"] = {k: [{n_: Spec(stack=stack) for n_ in layer}
+                           for layer in layers]
+                       for k, layers in dlrm_lib.mlp_shapes(cfg).items()}
+    return specs
 
 
 def init_local_dlrm(cfg: DLRMConfig, generator: torch.Generator,

@@ -24,8 +24,11 @@ looked-up row and applied by a sparse optimizer; the dense (T, R, d)
 embedding gradient never exists.
 
 Every collective goes through one small wrapper (``all_to_all``,
-``all_gather``, ``psum_scatter``, ``psum``, ``pmax``). gloo takes CUDA
-tensors for all five (measured on PyTorch 2.11's gloo, which copies them
+``all_gather``, ``psum_scatter``, ``psum``, ``pmax``, ``broadcast``,
+which moves a tree's pieces between boards of a fleet and agrees a
+board's results with the ranks outside it, and ``gather``, which brings
+a checkpoint's blocks to one rank's host memory). gloo takes CUDA
+tensors for the first six (measured on PyTorch 2.11's gloo, which copies them
 through host memory itself), so no wrapper stages a tensor through the
 host. ``call_counts`` counts every collective a wrapper ran, by the
 tensor's device. No wrapper catches an error of a collective.
@@ -45,7 +48,7 @@ passes go through the same counted wrappers.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -54,7 +57,8 @@ from repro_torch.core import dlrm as dlrm_lib
 from repro_torch.kernels import ops
 
 Group = Optional[dist.ProcessGroup]
-COLLECTIVES = ("all_to_all", "all_gather", "psum_scatter", "psum", "pmax")
+COLLECTIVES = ("all_to_all", "all_gather", "psum_scatter", "psum", "pmax",
+               "broadcast", "gather")
 call_counts: Dict[str, int] = {f"{c}_{where}": 0 for c in COLLECTIVES
                                for where in ("cuda", "cpu")}
 
@@ -144,6 +148,30 @@ def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
 def pmax(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``jax.lax.pmax(x, axis)``, into a new tensor."""
     return _all_reduce("pmax", x, group, dist.ReduceOp.MAX)
+
+
+def broadcast(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:
+    """``x`` as the global rank ``src`` holds it, written in place into
+    ``x`` (contiguous) on every rank of ``group``."""
+    if group_size(group) == 1:
+        return x
+    return _run("broadcast",
+                lambda o, i: dist.broadcast(o, src=src, group=group), x, x)
+
+
+def gather(x: torch.Tensor, dst: int, group: Group
+           ) -> Optional[List[torch.Tensor]]:
+    """The ``x`` of every rank of ``group``, in group order, on the global
+    rank ``dst`` (None on the others). ``x`` lies in host memory: gloo
+    gathers CPU tensors only."""
+    if group_size(group) == 1:
+        return [x]
+    x = x.contiguous()
+    parts = ([torch.empty_like(x) for _ in range(group_size(group))]
+             if dist.get_rank() == dst else None)
+    return _run("gather",
+                lambda o, i: dist.gather(i, o, dst=dst, group=group),
+                parts, x)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,11 @@ here is the control-plane piece that runs on the coordinator:
     slow host a smaller data-parallel slice next epoch) -> EVICT (trigger
     the elastic re-mesh path without the host).
 
-In the reference, eviction composes with runtime/elastic.py (the job
-checkpoint-restores on the reduced device set), which comes to the port
-with multi-rank boards (ROADMAP A6b-ii); on one device the policy only
-reports.
+The policy only decides: the reference's ``TrainLoop`` logs an EVICT
+and takes no action (``repro.runtime.trainer``), and the port's loop does
+the same. A job that loses a host restarts on the smaller set of ranks
+from its latest checkpoint, which is mesh-agnostic (``checkpoint.
+manager``, ``runtime.elastic``).
 """
 from __future__ import annotations
 

@@ -8,7 +8,11 @@ As the reference (``repro.runtime.trainer``):
   * metric logging.
 
 It is model-agnostic: it drives any ``step(state, batch) -> (state,
-metrics)`` over any ``batch_fn(step) -> batch``. ``float()`` of each
+metrics)`` over any ``batch_fn(step) -> batch``. Over k ranks every rank
+runs the same loop with its own manager over the session's mesh: the
+resume step is the mesh's lead rank's (``CheckpointManager.latest_step``),
+each save is collective, the final ``wait`` ends in a barrier, and the
+straggler accounting stays per rank, as in the reference. ``float()`` of each
 metric (the step's loss, a device scalar) is the loop's one wait for the
 device a step, so a step's time is its real work.
 """

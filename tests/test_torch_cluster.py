@@ -217,9 +217,9 @@ def test_remesh_report_matches_and_returns_copies():
         jax.tree_util.tree_map(np.asarray, jrep.session.params), "cpu")
     _, jreport = jax_remesh_tree(jrep.session.params, jrep.param_specs(),
                                  jc.submesh(jax.devices()[:1]))
-    prep = pc.Replica(0, cfg, ["cpu"], alpha=ALPHA, max_batch_queries=2,
-                      params=params)
-    new, report = prep.clone_params_onto(pc.submesh(["cpu"]))
+    prep = pc.Replica(0, cfg, [0], alpha=ALPHA, max_batch_queries=2,
+                      params=params, device="cpu")
+    new, report = prep.clone_params_onto(pc.submesh([0]))
     assert report == jreport
     assert report == {"resharded": len(jax.tree_util.tree_leaves(
         jrep.session.params)), "replicated_fallback": 0}
@@ -231,7 +231,8 @@ def test_remesh_report_matches_and_returns_copies():
     new["tables"][0, 0].add_(1.0)              # an update stays on its board
     assert not torch.equal(new["tables"], prep.session.params["tables"])
     with pytest.raises(ValueError, match="specs do not match"):
-        remesh_tree(prep.session.params, {"tables": None}, "cpu")
+        remesh_tree(prep.session.params, {"tables": None}, pc.submesh([0]),
+                    device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -339,14 +340,27 @@ def test_zipf_drift_monitor_matches_the_reference(monkeypatch,
 # What the slice does not carry, and the card by default
 # ---------------------------------------------------------------------------
 def test_unported_fleet_options_name_their_item():
+    """Boards of k ranks are ported (ROADMAP A6b-ii; tests/
+    test_torch_boards.py runs them over 4 ranks): on one rank a board of 2
+    needs a pool of 2, as the reference's on one device, and a board of
+    several devices needs a rank each, while a board of rank 0 is a mesh
+    of it. What is left of A6b-ii (online updates into a board of more
+    than one rank) is tested there."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(ValueError, match="pool has 1"):
         pc.Cluster(cfg, n_replicas=1, model_axis=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(ValueError, match="needs a rank each"):
         pc.Cluster(cfg, n_replicas=1, devices_per_replica=2,
-                   devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+                   devices=["cpu", "cpu"], device="cpu")
+    with pytest.raises(ValueError, match="needs a rank each"):
         pc.submesh(["cpu", "cpu"], model_axis=2)
+    mesh = pc.submesh([0])
+    assert mesh.ranks == (0,) and mesh.member and mesh.shape == {
+        "data": 1, "model": 1}
+    board = pc.Replica(0, cfg, [0], alpha=ALPHA, max_batch_queries=2,
+                       device="cpu")
+    assert board.mesh.ranks == (0,) and board.member
+    assert board.param_specs()["tables"].dims == (("data", "model"),)
     # online updates (A7c) work: an empty channel changes nothing, and a
     # batch lands in the replica's tables
     from repro_torch.online import DeltaBatch, DeltaChannel, RowDelta

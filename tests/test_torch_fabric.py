@@ -563,9 +563,15 @@ def test_unported_fabric_options_name_their_item():
     fleet._apply_delta(batch, 0.0, "propagate")
     assert torch.equal(fleet._tables_host[1, 3], torch.ones(cfg.embed_dim))
     assert torch.equal(fleet.boards[0].tables[1, 3], torch.ones(cfg.embed_dim))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    # boards of k ranks are ported (ROADMAP A6b-ii, tests/
+    # test_torch_boards.py): on one rank a board of 2 devices needs a
+    # rank each, and a board of rank 0 serves as one device
+    with pytest.raises(ValueError, match="needs a rank each"):
         pf.ShardedFleet(cfg, n_boards=1, devices=["cpu", "cpu"],
-                        devices_per_board=2)
+                        devices_per_board=2, device="cpu")
+    ranked = pf.ShardedFleet(cfg, n_boards=1, devices=[0], device="cpu")
+    assert ranked.boards[0].mesh.ranks == (0,) and ranked.boards[0].member
+    assert torch.equal(ranked.boards[0].tables, ranked._tables_host)
     with pytest.raises(ValueError, match="n_boards"):
         pf.ShardedFleet(cfg, n_boards=0, device="cpu")
     assert sorted(pf.__all__) == sorted(jf.__all__)

@@ -38,6 +38,13 @@ RANK_MODULES = (
     "repro_torch.optim.compression", "repro_torch.core.sharding")
 # The LM over k ranks (ROADMAP A6b-ii, first item), held the same way.
 LM_RANK_MODULES = ("repro_torch.models.moe_dist",)
+# Fleet boards of k ranks and checkpoints over k ranks (ROADMAP A6b-ii),
+# held the same way.
+BOARD_MODULES = (
+    "repro_torch.runtime.elastic", "repro_torch.cluster.replica",
+    "repro_torch.cluster.cluster", "repro_torch.fabric.fleet",
+    "repro_torch.checkpoint.manager", "repro_torch.parallel.build",
+    "repro_torch.convert", "repro_torch.launch.serve")
 
 
 def _forbidden(module: str) -> bool:
@@ -74,7 +81,8 @@ def test_training_modules_import_without_jax_or_repro():
         print(bad)
         sys.exit(1 if bad else 0)
     """)
-    for name in TRAINING_MODULES + RANK_MODULES + LM_RANK_MODULES:
+    for name in (TRAINING_MODULES + RANK_MODULES + LM_RANK_MODULES
+                 + BOARD_MODULES):
         rel = Path(*name.split(".")[1:])
         assert ((PORT / rel).with_suffix(".py").exists()
                 or (PORT / rel / "__init__.py").exists()), name
@@ -82,7 +90,8 @@ def test_training_modules_import_without_jax_or_repro():
                    or p == PORT / rel / "__init__.py" for p in SOURCES), name
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES,
-                           *RANK_MODULES, *LM_RANK_MODULES],
+                           *RANK_MODULES, *LM_RANK_MODULES,
+                           *BOARD_MODULES],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -26,8 +26,8 @@ Within the port, over 2 ranks: an ``Engine(cfg, model_axis=2)`` session
 of mixtral-8x7b's reduced config at capacity factor 4 (ep over 2 drops
 nothing at E = 4, top 2, and at that factor neither does the 1-rank
 global formulation) against the 1-rank session at ``test_torch_lm_train.py``'s bf16
-tolerances; what raises (``ckpt_dir``, a batch that does not split over
-"data", ``dp_axes``); and ``torch.distributed.run`` of the train launcher
+tolerances; what raises (a batch that does not split over "data",
+``dp_axes``) and a ``ckpt_dir``, which it takes; and ``torch.distributed.run`` of the train launcher
 with ``--workload lm --model-axis 2`` printing, from rank 0, the
 session's losses. JAX is imported only inside fixtures and the
 reference's subprocess, so the spawned ranks do not load it.
@@ -206,8 +206,9 @@ def _job_sessions(rank, world, out_dir):
                np.uint8)}
     lm = get_arch("internlm2-1.8b").reduced()
     cases = {
-        "ckpt": lambda: Engine(lm, device="cpu", model_axis=2)
-        .train_session(ckpt_dir=os.path.join(out_dir, "unused")),
+        "ckpt": lambda: "ok: resume_step=%d" % Engine(
+            lm, device="cpu", model_axis=2).train_session(
+                ckpt_dir=os.path.join(out_dir, "unused")).resume_step,
         "batch": lambda: Engine(lm, device="cpu",
                                 mesh=make_mesh((2, 1), ("data", "model")))
         .train_session(batch=3),
@@ -215,8 +216,7 @@ def _job_sessions(rank, world, out_dir):
     }
     for name, fn in cases.items():
         try:
-            fn()
-            msg = "no error"
+            msg = fn() or "no error"
         except (ValueError, NotImplementedError) as err:
             msg = f"{type(err).__name__}: {err}"
         out[f"error/{name}"] = np.frombuffer(msg.encode(), np.uint8)
@@ -379,7 +379,8 @@ def test_engine_session_over_2_ranks_matches_one_rank(runs):
 
 
 ERRORS = {
-    "ckpt": ("NotImplementedError", "ROADMAP A6b-ii"),
+    # checkpoints over k ranks are ported (ROADMAP A6b-ii)
+    "ckpt": ("ok", "resume_step=0"),
     "batch": ("ValueError", "batch of 3 does not split over the 2 ranks"),
     "dp_axes": ("ValueError", "dp_axes is DLRM-only"),
 }
@@ -387,9 +388,10 @@ ERRORS = {
 
 @pytest.mark.parametrize("case", sorted(ERRORS))
 def test_lm_over_2_ranks_refuses(runs, case):
-    """Checkpoints over more than one rank (ROADMAP A6b-ii), a batch that
-    does not split over "data" (naming both sizes), and dp_axes for an LM
-    (the reference's ``_check_lm``) raise on every rank."""
+    """A batch that does not split over "data" (naming both sizes) and
+    dp_axes for an LM (the reference's ``_check_lm``) raise on every
+    rank; a ckpt_dir over 2 ranks is taken (checkpoints over k ranks,
+    ROADMAP A6b-ii)."""
     kind, text = ERRORS[case]
     for r in runs[2]:
         msg = bytes(r[f"error/{case}"]).decode()

@@ -772,11 +772,12 @@ def test_cluster_broadcasts_updates_bit_identically():
 
 def test_replica_row_updates_in_place_and_on_a_spawned_copy():
     _, cfg = _cfgs()
-    rep = pc.Replica(0, cfg, ["cpu"], alpha=1.05, max_batch_queries=2)
+    rep = pc.Replica(0, cfg, [0], alpha=1.05, max_batch_queries=2,
+                     device="cpu")
     tables = rep.session.params["tables"]
-    spawned_params, _ = rep.clone_params_onto(pc.submesh(["cpu"]))
-    spawned = pc.Replica(1, cfg, ["cpu"], alpha=1.05, max_batch_queries=2,
-                         params=spawned_params)
+    spawned_params, _ = rep.clone_params_onto(pc.submesh([0]))
+    spawned = pc.Replica(1, cfg, [0], alpha=1.05, max_batch_queries=2,
+                         params=spawned_params, device="cpu")
     before = tables.clone()
     batch = _rand_batch(cfg, 9, 1, 0.0)
     assert rep.apply_row_updates(batch) == batch.n_rows

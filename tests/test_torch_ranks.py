@@ -15,10 +15,10 @@ One spawn of 4 ranks and one of 2 (module-scoped fixtures) run every
 case: each primitive of ``parallel.primitives`` at k = 2 and 4, the serve
 step under plan none, the sharded config in both wire modes and an auto
 plan, the five train cases of ``tests/test_dlrm_distributed.py``, depth 2
-against depth 1, ``dp_axes`` on (2, 2), the Engine's validation and what
-still raises (ROADMAP A6b-ii; the LM trains over k ranks, its
-checkpoints raise), and Engine sessions at k = 2 against the
-port's own 1-rank sessions. One ``torch.distributed.run`` of the train
+against depth 1, ``dp_axes`` on (2, 2), the Engine's validation, the
+paths that boards of k ranks and checkpoints over k ranks opened (ROADMAP
+A6b-ii: a ``ckpt_dir``, the sharded fleet, the serve launcher's fleet),
+and Engine sessions at k = 2 against the port's own 1-rank sessions. One ``torch.distributed.run`` of the train
 launcher over 2 ranks prints the losses of an Engine session at k = 2.
 """
 from __future__ import annotations
@@ -322,8 +322,10 @@ def _job_k4(rank, world, out_dir):
 
 
 def _engine_errors():
-    """What the Engine and the launchers refuse on 4 ranks: each
-    message, by case."""
+    """What the Engine and the launchers refuse on 4 ranks, each message
+    by case; and what they run there since boards of k ranks and
+    checkpoints over k ranks came (ROADMAP A6b-ii), each an "ok: ..."
+    line."""
     from repro_torch.configs import get_arch, get_dlrm
     from repro_torch.engine import Engine
     from repro_torch.launch import serve as serve_launcher
@@ -340,21 +342,21 @@ def _engine_errors():
                                 axis=("model",), dp_axes=("data",)),
         "host_tier": lambda: Engine(cfg, device="cpu", mesh=mesh,
                                     host_capacity_mb=1.0),
-        "lm": lambda: Engine(get_arch("internlm2-1.8b").reduced(),
-                             device="cpu", mesh=mesh).train_session(
-                                 ckpt_dir="unused"),
-        "fleet": lambda: Engine(cfg, device="cpu").sharded_fleet(
-            n_boards=1),
-        "ckpt": lambda: Engine(cfg, device="cpu").train_session(
-            ckpt_dir="unused"),
-        "launcher_fleet": lambda: serve_launcher.main(
-            ["--smoke", "--device", "cpu", "--replicas", "2"]),
+        "lm": lambda: "ok: resume_step=%d" % Engine(
+            get_arch("internlm2-1.8b").reduced(), device="cpu",
+            mesh=mesh).train_session(ckpt_dir="unused").resume_step,
+        "fleet": lambda: "ok: boards %s" % [b.devices for b in Engine(
+            cfg, device="cpu").sharded_fleet(n_boards=1).boards],
+        "ckpt": lambda: "ok: resume_step=%d" % Engine(
+            cfg, device="cpu").train_session(ckpt_dir="unused").resume_step,
+        "launcher_fleet": lambda: "ok: rc=%d" % serve_launcher.main(
+            ["--smoke", "--device", "cpu", "--replicas", "2", "--queries",
+             "8", "--sla-ms", "5000"]),
     }
     out = {}
     for name, fn in cases.items():
         try:
-            fn()
-            msg = "no error"
+            msg = fn() or "no error"
         except (ValueError, NotImplementedError) as err:
             msg = f"{type(err).__name__}: {err}"
         out[f"error/{name}"] = np.frombuffer(msg.encode(), np.uint8)
@@ -696,15 +698,20 @@ ERRORS = {
     "overlap": ("ValueError", "overlap the embedding axis"),
     "cover": ("ValueError", "cover 2 devices but the mesh has 4"),
     "host_tier": ("ValueError", "single-board"),
-    "lm": ("NotImplementedError", "ROADMAP A6b-ii"),
-    "fleet": ("NotImplementedError", "ROADMAP A6b-ii"),
-    "ckpt": ("NotImplementedError", "ROADMAP A6b-ii"),
-    "launcher_fleet": ("NotImplementedError", "ROADMAP A6b-ii"),
+    # ported with boards of k ranks and checkpoints over k ranks
+    # (ROADMAP A6b-ii): each runs
+    "lm": ("ok", "resume_step=0"),
+    "fleet": ("ok", "boards [[0, 1, 2, 3]]"),
+    "ckpt": ("ok", "resume_step=0"),
+    "launcher_fleet": ("ok", "rc=0"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ERRORS))
 def test_engine_refuses_over_4_ranks(runs, case):
+    """What the Engine refuses on 4 ranks; the LM and DLRM sessions with a
+    ckpt_dir, the sharded fleet (one board of the 4 ranks) and the serve
+    launcher's fleet (2 boards of 2 ranks) run there."""
     kind, text = ERRORS[case]
     for r in runs[4]:
         msg = bytes(r[f"error/{case}"]).decode()

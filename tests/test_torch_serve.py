@@ -324,10 +324,12 @@ def test_launcher_report_json(capsys, tmp_path):
 @pytest.mark.parametrize("flag,item", [(["--model-axis", "2"], "A6b-ii")])
 def test_reference_launcher_flags_not_ported_name_their_item(flag, item):
     """--model-axis is ported (A6b-i: tests/test_torch_ranks.py runs the
-    launchers over gloo ranks); a fleet of boards of more than one rank
-    is not, and names its item."""
+    launchers over gloo ranks), and so are fleets of boards of more than
+    one rank (``item``: tests/test_torch_boards.py runs this launcher's
+    fleet over 4 ranks); on one rank a board of 2 finds a pool of 1, as
+    the reference's does on one device."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match="pool has 1"):
         serve.main(["--smoke", "--device", "cpu", "--replicas", "2", *flag])
 
 
