@@ -1,9 +1,10 @@
-"""Benchmark driver of the port: one section per paper table/figure and
-per bench ported so far (``benchmarks/run.py``'s sections, less those
-still to port).
+"""Benchmark runner of the port: one section per paper table/figure, per
+bench and the roofline aggregation (``benchmarks/run.py``'s sections,
+plus ``render_experiments``).
 
     PYTHONPATH=src python -m benchmarks_torch.run [--only NAME]
         [--emit-json] [--device cpu] [--reduced] [--out-dir DIR]
+        [--reports-dir DIR]
 
 The figures are the perf model's and run anywhere. The benches run on the
 card, at full width, unless ``--device cpu`` (their plain versions on the
@@ -11,9 +12,9 @@ host) or ``--reduced`` (the reference's sizes) say otherwise;
 ``--device``, ``--reduced`` and ``--out-dir`` pass through to every bench
 section. The fleet, host-tier and online sections (``cluster``,
 ``fabric``, ``elastic``, ``hoststore``, ``online``) take the reference's
-``--tiny``. ``roofline`` and ``render_experiments`` read the dry-run's
-reports, which the port does not have yet (ROADMAP A8c): asked for one,
-``--only`` says so and exits 2.
+``--tiny``. ``roofline`` and ``render_experiments`` render the port's
+dry-run reports (``repro_torch.launch.dryrun``) under ``--reports-dir``
+(default ``reports/torch``).
 """
 import argparse
 import sys
@@ -25,6 +26,7 @@ from benchmarks_torch import (bench_cluster, bench_elastic,
                               bench_tiered_embedding, fig6_membw,
                               fig8_inference, fig9_latency, fig10_sharding,
                               fig11_training, fig12_13_phases, kernel_bench,
+                              render_experiments, roofline,
                               table16_17_upper_bounds)
 
 # (name, main, the section's own arguments, whether it is a bench that
@@ -46,13 +48,15 @@ SECTIONS = [
     ("elastic", bench_elastic.main, ("--tiny",), True),
     ("hoststore", bench_hoststore.main, ("--tiny",), True),
     ("online", bench_online.main, ("--tiny",), True),
+    ("roofline", roofline.main, (), False),
+    ("render_experiments", render_experiments.main, (), False),
 ]
 
 # the reference's sections the port does not run yet, and why
-NOT_PORTED = {
-    "roofline": "it reads the dry-run's reports (ROADMAP A8c)",
-    "render_experiments": "it renders the dry-run's reports (ROADMAP A8c)",
-}
+NOT_PORTED: dict = {}
+
+# sections that render the dry-run's reports (they take --reports-dir)
+READS_REPORTS = {"roofline", "render_experiments"}
 
 # sections that can write a BENCH_torch_<name>.json artifact
 EMITS_JSON = {"kernels", "pipeline", "tiered_embedding", "engine_serve",
@@ -83,7 +87,7 @@ def run_section(name: str, argv: list) -> int:
     """Run one section with ``argv`` (a figure takes none); returns its
     code: nonzero when a headline claim failed."""
     fn, bench = next((f, b) for n, f, _, b in SECTIONS if n == name)
-    return (fn(argv) if bench else fn()) or 0
+    return (fn(argv) if bench or name in READS_REPORTS else fn()) or 0
 
 
 def main(argv=None) -> int:
@@ -102,6 +106,9 @@ def main(argv=None) -> int:
                    help="the benches at the reference's sizes")
     p.add_argument("--out-dir", default=None,
                    help="where --emit-json writes (default build/bench/)")
+    p.add_argument("--reports-dir", default=None,
+                   help="the dry-run's reports for roofline and "
+                        "render_experiments (default reports/torch)")
     args = p.parse_args(argv)
     if args.only in NOT_PORTED:
         p.error(f"section {args.only} is not ported: "
@@ -112,9 +119,14 @@ def main(argv=None) -> int:
             continue
         t0 = time.time()
         print(f"{'='*72}\n== {name}\n{'='*72}")
-        rc = run_section(name, section_args(
-            name, args.emit_json, args.device, args.reduced, args.out_dir)
-            if bench else [])
+        if bench:
+            argv_ = section_args(name, args.emit_json, args.device,
+                                 args.reduced, args.out_dir)
+        elif name in READS_REPORTS and args.reports_dir is not None:
+            argv_ = ["--reports-dir", args.reports_dir]
+        else:
+            argv_ = []
+        rc = run_section(name, argv_)
         # sections signal a failed headline claim with a nonzero return
         if rc:
             failed.append(name)

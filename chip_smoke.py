@@ -313,6 +313,29 @@ Phases; any failure exits non-zero:
      restore. The
      phase under 240 s, then it waits for the host to take the ranks'
      pages back;
+     9i. the dry-run's DLRM cells (ROADMAP A8c-i), after 9h: every
+     ``dlrm:`` cell of ``repro_torch.launch.dryrun.all_cell_ids()`` (4 RM2
+     configs x serve/train x the 256- and 512-rank placeholder meshes, at
+     full per-rank width: rank 0's shards of 2**22-row bf16 tables and
+     its slice of the global batch) through ``dryrun.run_cell`` on the
+     card and on the meta device: each cell ok; its flops, traffic,
+     collective count and collective bytes by kind on the card equal to
+     the meta trace's; row 4 launched in every table-wise cell and no
+     kernel in a row-wise one (as the reference's are jnp); the meta
+     peak within 0.5-2x of ``torch.cuda.max_memory_allocated`` over the
+     card's step. Then each cell's values at its own shapes
+     (``dryrun_values``): the step once more on the card, every row-4
+     output held against ``ref.embedding_bag_ref`` on the tables and ids
+     the kernel got (the 8 table-wise cells), serving's probs finite in
+     [0, 1], training's loss finite and its tables finite and moved after
+     the dense agreement; RM2-small table-wise serve on (16, 16) and
+     train on (2, 16, 16) also held whole against the same step on the
+     CPU (the plain versions) on copies of the same arguments. Each
+     cell's three roofline terms, bottleneck, peaks and
+     its step's wall time beside ``t_bound_s`` (evidence only) are
+     printed, its report written under ``build/dryrun/dryrun/``, then
+     ``benchmarks_torch.roofline`` renders them. The phase under
+     ``DRYRUN_PHASE_S``;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -376,7 +399,8 @@ kernel timings do; phase 4c's row-wise sessions are profiled too. The
 line before the last holds the per-kernel JSON (every TPU kernel of the
 JAX package, all nine ported; row 4's ``launches`` include phase 8d's,
 the ranks' summed over every rank and case, also given apart as
-``ranks_launches``, and row 8's phase 9g's, as ``lm_ranks_launches``;
+``ranks_launches``, and phase 9i's, as ``dryrun_launches``, and row 8's
+phase 9g's, as ``lm_ranks_launches``;
 every kernel's phase 9h launches are in ``launches`` and given apart as
 ``boards_launches``);
 the last line is ``{"ok": true,
@@ -673,6 +697,16 @@ BOARDS_DLRM = {
                     "none", "sgd", True)}
 BOARDS_LM = {"mixtral-8x7b": ("k2", (1, 2), "ep"),
              "internlm2-1.8b": ("k4", (2, 2), "auto")}
+# phase 9i: the dry-run's DLRM cells on the card and on meta
+DRYRUN_PHASE_S = 75.0
+DRYRUN_PEAK_RANGE = (0.5, 2.0)    # meta peak over the card's
+# the cells whose whole step is also held against the CPU's (plain) step
+DRYRUN_PLAIN_CELLS = ("dlrm:dlrm-rm2-small-unsharded:serve:single",
+                      "dlrm:dlrm-rm2-small-unsharded:train:multi")
+DRYRUN_KEYS = ("flops_per_chip", "traffic_bytes_per_chip",
+               "collective_bytes_per_chip", "collective_count",
+               "collective_by_kind", "collective_count_by_kind",
+               "flops_by_dtype", "kernel_launches")
 HOT_PER_TABLE = 65_536
 TIERED_ALPHA = 1.05
 GB = 1e9
@@ -7388,6 +7422,201 @@ def phase_boards(dev, card):
     return dict(launches)
 
 
+# -------------------------------------------------------------- phase 9i
+def _tree_to(tree, device):
+    """A copy of ``tree`` (dicts, lists, tuples of tensors) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree
+
+
+def dryrun_values(cell_id, dev, errs, plain):
+    """Phase 9i's values of ``cell_id``'s step on the card, at the
+    dry-run's own shapes (rank 0's shards of 2**22-row bf16 tables, its
+    slice of the batch, the ids the placeholder all-to-all hands row 4):
+    every row-4 output held against ``ref.embedding_bag_ref`` on the
+    tables and ids the kernel got; serving's probs finite in [0, 1], one
+    a sample of the slice; training's loss finite, its dense layers
+    moved, its tables finite after the dense agreement (``_dp_dense``),
+    and moved in a table-wise cell. (The bf16 tables swallow most of an
+    update of the global mean's scale, ~1e-10: a row-wise shard may keep
+    every entry; on the CPU at 2**18 rows, 105 of 25.2M table-wise entries
+    moved and 8 of 1.3M row-wise.) With ``plain``,
+    the whole step against the same step on the CPU (the plain versions)
+    on copies of the same arguments: probs, loss and dense layers within
+    RTOL/ATOL, the bf16 tables within (k + 1) bf16 ulps at their scale, k
+    the most times one row was looked up. Returns row 4's outputs held."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    _, name, mode, mesh_kind = cell_id.split(":")
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    cell = steps.build_dlrm_cell(dryrun.DLRM_CONFIGS[name], mode, mesh,
+                                 rows_per_table=dryrun.DLRM_DRYRUN_ROWS)
+    args = cell.make_args(dev)
+    b_local = cell.global_batch // mesh.size()
+    cpu_args = _tree_to(args, "cpu") if plain else None
+    before = _tree_to(args[0], dev) if mode == "train" else None
+    kernel, held = ops.embedding_bag, []
+
+    def spy(tables, indices):
+        out = kernel(tables, indices)
+        with torch.no_grad():
+            held.append((tuple(tables.shape), indices.clone(), out,
+                         ref.embedding_bag_ref(tables, indices)))
+        return out
+
+    ops.embedding_bag = spy
+    try:
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        ops.embedding_bag = kernel
+    want = cell.fn(*cpu_args) if plain else None
+    for shape, ids, got, pool in held:
+        close("embedding_bag", f"9i {cell_id}: tables {shape}, ids "
+              f"{tuple(ids.shape)}", got, pool, errs)
+    check(len(held) == (1 if "unsharded" in name else 0),
+          f"phase 9i {cell_id}: row 4 held {len(held)} times")
+    if mode == "serve":
+        check(out.shape == (b_local,) and bool(torch.isfinite(out).all())
+              and bool(((out >= 0) & (out <= 1)).all()),
+              f"phase 9i {cell_id}: probs {tuple(out.shape)} not finite "
+              f"in [0, 1]")
+        text = f"probs {tuple(out.shape)} in [{out.min().item():.4f}, " \
+               f"{out.max().item():.4f}]"
+        if plain:
+            err = (out.cpu() - want).abs().max().item()
+            check(torch.allclose(out.cpu(), want, rtol=RTOL, atol=ATOL),
+                  f"phase 9i {cell_id}: probs off the CPU's by {err:.3e}")
+            text += f", max_abs_err against the CPU's {err:.3e}"
+    else:
+        params, _, loss = out
+        tab = params["tables"]
+        moved = (tab != before["tables"]).sum().item()
+        dense_moved = all(
+            not torch.equal(layer[n], b_layer[n])
+            and bool(torch.isfinite(layer[n]).all())
+            for k in params if k != "tables"
+            for layer, b_layer in zip(params[k], before[k]) for n in layer)
+        check(bool(torch.isfinite(loss)) and dense_moved
+              and bool(torch.isfinite(tab).all())
+              and (moved > 0 or "unsharded" not in name),
+              f"phase 9i {cell_id}: loss {loss.item()}, dense layers moved "
+              f"and finite {dense_moved}, {moved} table entries moved, "
+              f"tables finite {bool(torch.isfinite(tab).all())}")
+        text = (f"loss {loss.item():.6f}, dense layers moved, {moved:,} of "
+                f"{tab.numel():,} table entries moved, finite")
+        if plain:
+            w_params, _, w_loss = want
+            check(abs(loss.item() - w_loss.item())
+                  <= ATOL + RTOL * abs(w_loss.item()),
+                  f"phase 9i {cell_id}: loss {loss.item()} against the "
+                  f"CPU's {w_loss.item()}")
+            dense_err = 0.0
+            for k in params:
+                if k == "tables":
+                    continue
+                for layer, w_layer in zip(params[k], w_params[k]):
+                    for n in layer:
+                        g = layer[n].cpu()
+                        dense_err = max(dense_err, (g - w_layer[n]).abs()
+                                        .max().item())
+                        check(torch.allclose(g, w_layer[n], rtol=RTOL,
+                                             atol=ATOL),
+                              f"phase 9i {cell_id}: {k} {n} off the CPU's")
+            ids = held[0][1]
+            k_max = max(torch.bincount(ids[:, t].reshape(-1).long())
+                        .max().item() for t in range(ids.shape[1]))
+            old = before["tables"].float()
+            scale = max(old.abs().max().item(),
+                        (tab.float() - old).abs().max().item())
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+            t_err = (tab.cpu().float() - w_params["tables"].float()) \
+                .abs().max().item()
+            check(t_err <= (k_max + 1) * ulp,
+                  f"phase 9i {cell_id}: tables off the CPU's by {t_err:.3e}"
+                  f" (limit {k_max + 1} ulps of {ulp:.3e})")
+            text += (f"; against the CPU's: loss {w_loss.item():.6f}, dense "
+                     f"layers max_abs_err {dense_err:.3e}, tables "
+                     f"{t_err:.3e} (limit {k_max + 1} x {ulp:.3e})")
+    print(f"[dryrun] {cell_id} values: {text}; row 4 held "
+          f"{len(held)} time(s)")
+    return 1 if "unsharded" in name else 0
+
+
+def phase_dryrun(dev, card):
+    """Phase 9i (see the module doc): the 16 DLRM cells of the dry-run on
+    the card and on meta, each cell's values at its own shapes
+    (``dryrun_values``); returns row 4's launches and its errors."""
+    import shutil
+    from benchmarks_torch import roofline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    errs = {}
+    root = os.path.join(BUILD_DIR, "dryrun")
+    out = os.path.join(root, "dryrun")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(out)
+    cells = [c for c in dryrun.all_cell_ids() if c.startswith("dlrm:")]
+    check(len(cells) == 16, f"phase 9i: {len(cells)} DLRM cells, not 16")
+    launches = held = 0
+    for cell in cells:
+        meta = dryrun.run_cell(cell, device="meta")
+        ops.reset_launch_counts()
+        rec = dryrun.run_cell(cell, device=dev)
+        n4 = ops.launch_counts["embedding_bag"]
+        others = {k: v for k, v in ops.launch_counts.items()
+                  if v and k != "embedding_bag"}
+        launches += n4
+        check(meta["status"] == rec["status"] == "ok",
+              f"phase 9i {cell}: {meta['status']} / {rec['status']}")
+        a, m = rec["op_analysis"], meta["op_analysis"]
+        for key in DRYRUN_KEYS:
+            check(a[key] == m[key], f"phase 9i {cell}: {key} on the card "
+                                    f"{a[key]} against meta {m[key]}")
+        # the traced run and the timed run: one launch each
+        want = 2 if "unsharded" in cell else 0
+        check(n4 == want and not others,
+              f"phase 9i {cell}: row 4 launched {n4} times (want {want}), "
+              f"others {others}")
+        peak, mpeak = (rec["memory"]["peak_per_device_bytes"],
+                       meta["memory"]["peak_per_device_bytes"])
+        lo, hi = DRYRUN_PEAK_RANGE
+        check(lo * peak <= mpeak <= hi * peak,
+              f"phase 9i {cell}: meta peak {mpeak / GB:.3f} GB against the "
+              f"card's {peak / GB:.3f} GB")
+        r = rec["roofline"]
+        print(f"[dryrun] {cell}: compute {r['t_compute_s'] * 1e3:.4f} ms, "
+              f"memory {r['t_memory_s'] * 1e3:.4f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.4f} ms -> {r['bottleneck']}; "
+              f"peak {peak / GB:.3f} GB on the card, {mpeak / GB:.3f} GB "
+              f"on meta; step {rec['step_wall_s'] * 1e3:.2f} ms against "
+              f"t_bound {r['t_bound_s'] * 1e3:.4f} ms; {a['n_ops']} ops, "
+              f"row 4 {a['kernel_launches'].get('embedding_bag', 0)}; "
+              f"run {rec['elapsed_s']:.2f} s ({card})")
+        with open(os.path.join(out, cell.replace(":", "__") + ".json"),
+                  "w") as f:
+            json.dump(rec, f, indent=2, default=str)
+        held += dryrun_values(cell, dev, errs, cell in DRYRUN_PLAIN_CELLS)
+        torch.cuda.empty_cache()
+    check(held == 8, f"phase 9i: row 4 held in {held} cells, not 8")
+    check(roofline.main(["--reports-dir", root]) == 0,
+          "phase 9i: roofline did not render")
+    wall = time.perf_counter() - t_phase
+    print(f"[dryrun] phase 9i: {len(cells)} cells in {wall:.1f} s (budget "
+          f"{DRYRUN_PHASE_S} s); row 4 launched {launches} times, held "
+          f"against its plain version in {held} cells ({card})")
+    check(wall <= DRYRUN_PHASE_S, f"phase 9i took {wall:.1f} s, over its "
+                                  f"{DRYRUN_PHASE_S} s budget")
+    return launches, {k: max(v) for k, v in errs.items()}
+
+
 # -------------------------------------------------------------- phase 11
 def bench_artifact(name, out_dir, speed_claims=BENCH_SPEED_CLAIMS):
     """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
@@ -7691,11 +7920,12 @@ def main() -> int:
     lm_ranks_launches, _ = phase_lm_ranks(dev, card)
     lm["launches"]["flash_attention"] += lm_ranks_launches
     boards_launches = phase_boards(dev, card)
+    dryrun_launches, dryrun_errs = phase_dryrun(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     torch.cuda.empty_cache()
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
                  blocked[2], host_errs, fabric_errs, online_errs,
-                 ssm["errs"]):
+                 ssm["errs"], dryrun_errs):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -7706,7 +7936,8 @@ def main() -> int:
                 **tiered[0], **packed[0], **api_serve[0], **api_attention[0],
                 **blocked[0]}
     fabric_launches = sum(run["launches"] for run in fabric.values())
-    launches["embedding_bag"] += fabric_launches + ranks_launches
+    launches["embedding_bag"] += (fabric_launches + ranks_launches
+                                  + dryrun_launches)
     for name, n in online_launches.items():
         launches[name] += n
     for name, n in lm["launches"].items():
@@ -7799,7 +8030,8 @@ def main() -> int:
              "host_tier_peak_gb": host["peak_gb"]}
             if name == "cached_embedding_bag" else {}),
          **({"fabric_launches": fabric_launches,
-             "ranks_launches": ranks_launches}
+             "ranks_launches": ranks_launches,
+             "dryrun_launches": dryrun_launches}
             if name == "embedding_bag" else {}),
          **({"lm_ranks_launches": lm_ranks_launches}
             if name == "flash_attention" else {}),

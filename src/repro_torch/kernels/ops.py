@@ -1,24 +1,34 @@
 """Public kernel entry points, dispatched by the tensors' device.
 
 A CUDA tensor launches the hand-written kernel, and a failed build or
-launch raises. A CPU tensor runs the plain version in ``kernels.ref``.
-Nothing else selects the path: there is no environment switch and no
-fallback from the kernel to the plain version.
+launch raises. A CPU tensor runs the plain version in ``kernels.ref``. A
+meta tensor (the dry-run's trace without allocation) returns an empty
+meta tensor of the kernel's output shape and dtype. Nothing else selects
+the path: there is no environment switch and no fallback from the kernel
+to the plain version.
 
 ``launch_counts`` counts, per kernel, the launches made through these
 entry points, so a run can show that its main path went through the
 kernel. Direct calls of a kernel's wrapper (as when it is held against
 its plain version) are not counted.
+
+Under an op stream (``repro_torch.op_stream.OpStream``, the dry-run's
+counts) each call reports itself as one op, whatever its device: its
+operands, its result and its flops, counted as the reference counts the
+dot it replaces (the bags none). The plain version and the meta branch
+run untraced, so the card, the CPU and the meta device count one stream.
+The meta output's shape and the flops are worked out only when needed.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.kernels import attention
 from repro_torch.kernels import embedding_bags as bag_kernels
 from repro_torch.kernels import feature_interactions, fused_serve, ref
+from repro_torch.op_stream import active
 
 launch_counts: Dict[str, int] = {
     "fused_bag_interactions": 0,
@@ -38,21 +48,65 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _no_path(op: str, t: torch.Tensor) -> ValueError:
-    return ValueError(f"{op}: no path for tables on {t.device}")
+def _launch(name: str, at: torch.Tensor, inputs, cuda: Callable,
+            cpu: Callable, meta: Callable,
+            flops: Optional[Callable[[], float]] = None,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Run ``name`` on ``at``'s device (``cuda``: the kernel, counted in
+    ``launch_counts``; ``cpu``: the plain version; ``meta``: the output's
+    shape), reported to the op stream in force as one op of ``inputs``
+    and ``flops()`` in ``dtype``."""
+    kind = at.device.type
+    stream = active()
+    if kind == "cuda" and stream is None:
+        out = cuda()
+        launch_counts[name] += 1
+        return out
+    if kind == "cuda":
+        fn = cuda
+    elif kind == "cpu":
+        fn = cpu
+    elif kind == "meta":
+        fn = meta
+    else:
+        raise ValueError(f"{name}: no path for tables on {at.device}")
+    if stream is None:
+        out = fn()
+    else:
+        with stream.untraced():
+            out = fn()
+        stream.kernel(name, inputs, out, flops() if flops else 0.0, dtype)
+    if kind == "cuda":
+        launch_counts[name] += 1
+    return out
+
+
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _pooled_shape(indices: torch.Tensor, d: int):
+    return (indices.shape[0], indices.shape[1], d)
+
+
+def _interaction_flops(B: int, T: int, d: int) -> float:
+    """The dot of ``einsum("bid,bjd->bij", A, A)``, A (B, T+1, d)."""
+    return 2.0 * B * (T + 1) * (T + 1) * d
+
+
+def _features_shape(bot_out: torch.Tensor, T: int):
+    return (bot_out.shape[0], bot_out.shape[1] + (T + 1) * T // 2)
 
 
 def embedding_bag(tables: torch.Tensor,
                   indices: torch.Tensor) -> torch.Tensor:
     """(T, R, d) x (B, T, L) -> (B, T, d) pooled, fp32; one launch on the
     card."""
-    if tables.device.type == "cuda":
-        out = bag_kernels.embedding_bag(tables, indices)
-        launch_counts["embedding_bag"] += 1
-        return out
-    if tables.device.type == "cpu":
-        return ref.embedding_bag_ref(tables, indices)
-    raise _no_path("embedding_bag", tables)
+    return _launch(
+        "embedding_bag", tables, (tables, indices),
+        lambda: bag_kernels.embedding_bag(tables, indices),
+        lambda: ref.embedding_bag_ref(tables, indices),
+        lambda: _meta(_pooled_shape(indices, tables.shape[-1])))
 
 
 def embedding_bag_blocked(tables: torch.Tensor, indices: torch.Tensor, *,
@@ -60,13 +114,16 @@ def embedding_bag_blocked(tables: torch.Tensor, indices: torch.Tensor, *,
     """(T, R, d) x (B, T, L) -> (B, T, d) pooled, fp32, read ``lblk``
     consecutive rows at a time when the stream is aligned; one launch on
     the card. L % lblk != 0 raises ValueError."""
-    if tables.device.type == "cuda":
-        out = bag_kernels.embedding_bag_blocked(tables, indices, lblk=lblk)
-        launch_counts["embedding_bag_blocked"] += 1
-        return out
-    if tables.device.type == "cpu":
-        return ref.embedding_bag_blocked_ref(tables, indices, lblk)
-    raise _no_path("embedding_bag_blocked", tables)
+    def meta():
+        bag_kernels.check_lblk("embedding_bag_blocked", indices.shape[-1],
+                               lblk)
+        return _meta(_pooled_shape(indices, tables.shape[-1]))
+
+    return _launch(
+        "embedding_bag_blocked", tables, (tables, indices),
+        lambda: bag_kernels.embedding_bag_blocked(tables, indices,
+                                                  lblk=lblk),
+        lambda: ref.embedding_bag_blocked_ref(tables, indices, lblk), meta)
 
 
 def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
@@ -77,44 +134,48 @@ def cached_embedding_bag(fast: torch.Tensor, bulk: torch.Tensor,
     card. A 2-D bulk (R+1, d) is one tier that every table reads, as the
     (T, R+1, d) tier ``bulk[None].expand(T, -1, -1)``. Shapes that
     disagree raise ValueError."""
-    if fast.device.type == "cuda":
-        out = bag_kernels.cached_embedding_bag(fast, bulk, fast_idx,
-                                               bulk_idx)
-        launch_counts["cached_embedding_bag"] += 1
-        return out
-    if fast.device.type == "cpu":
+    def plain():
         bag_kernels.cached_shapes("cached_embedding_bag", fast, bulk,
                                   fast_idx, bulk_idx)
-        if bulk.dim() == 2:
-            bulk = bulk[None].expand(fast.shape[0], -1, -1)
-        return ref.cached_embedding_bag_ref(fast, bulk, fast_idx, bulk_idx)
-    raise _no_path("cached_embedding_bag", fast)
+        b = bulk[None].expand(fast.shape[0], -1, -1) if bulk.dim() == 2 \
+            else bulk
+        return ref.cached_embedding_bag_ref(fast, b, fast_idx, bulk_idx)
+
+    def meta():
+        bag_kernels.cached_shapes("cached_embedding_bag", fast, bulk,
+                                  fast_idx, bulk_idx)
+        return _meta(_pooled_shape(fast_idx, fast.shape[-1]))
+
+    return _launch(
+        "cached_embedding_bag", fast, (fast, bulk, fast_idx, bulk_idx),
+        lambda: bag_kernels.cached_embedding_bag(fast, bulk, fast_idx,
+                                                 bulk_idx), plain, meta)
 
 
 def interactions(bot_out: torch.Tensor,
                  pooled: torch.Tensor) -> torch.Tensor:
     """(B, d) x (B, T, d) -> (B, d + (T+1)T/2) fp32; one launch on the
     card."""
-    if pooled.device.type == "cuda":
-        out = feature_interactions.interactions(bot_out, pooled)
-        launch_counts["interactions"] += 1
-        return out
-    if pooled.device.type == "cpu":
-        return ref.interactions_ref(bot_out, pooled)
-    raise _no_path("interactions", pooled)
+    B, T, d = pooled.shape
+    return _launch(
+        "interactions", pooled, (bot_out, pooled),
+        lambda: feature_interactions.interactions(bot_out, pooled),
+        lambda: ref.interactions_ref(bot_out, pooled),
+        lambda: _meta(_features_shape(bot_out, T)),
+        lambda: _interaction_flops(B, T, d))
 
 
 def fused_bag_interactions(tables: torch.Tensor, indices: torch.Tensor,
                            bot_out: torch.Tensor) -> torch.Tensor:
     """(T, R, d) x (B, T, L) x (B, d) -> (B, d + (T+1)T/2) fp32 fused
     gather -> pool -> interaction features; one launch on the card."""
-    if tables.device.type == "cuda":
-        out = fused_serve.fused_bag_interactions(tables, indices, bot_out)
-        launch_counts["fused_bag_interactions"] += 1
-        return out
-    if tables.device.type == "cpu":
-        return ref.fused_bag_interactions_ref(tables, indices, bot_out)
-    raise _no_path("fused_bag_interactions", tables)
+    B, T, _ = indices.shape
+    return _launch(
+        "fused_bag_interactions", tables, (tables, indices, bot_out),
+        lambda: fused_serve.fused_bag_interactions(tables, indices, bot_out),
+        lambda: ref.fused_bag_interactions_ref(tables, indices, bot_out),
+        lambda: _meta(_features_shape(bot_out, T)),
+        lambda: _interaction_flops(B, T, bot_out.shape[1]))
 
 
 def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
@@ -124,15 +185,16 @@ def fused_cached_bag_interactions(fast: torch.Tensor, bulk: torch.Tensor,
     """Two-tier fused serve path: (T, S+1, d) x (T, R+1, d) x 2 x (B, T, L)
     x (B, d) -> (B, d + (T+1)T/2) fp32 interaction features; one launch on
     the card."""
-    if fast.device.type == "cuda":
-        out = fused_serve.fused_cached_bag_interactions(
-            fast, bulk, fast_idx, bulk_idx, bot_out)
-        launch_counts["fused_cached_bag_interactions"] += 1
-        return out
-    if fast.device.type == "cpu":
-        return ref.fused_cached_bag_interactions_ref(fast, bulk, fast_idx,
-                                                     bulk_idx, bot_out)
-    raise _no_path("fused_cached_bag_interactions", fast)
+    B, T, _ = fast_idx.shape
+    return _launch(
+        "fused_cached_bag_interactions", fast,
+        (fast, bulk, fast_idx, bulk_idx, bot_out),
+        lambda: fused_serve.fused_cached_bag_interactions(
+            fast, bulk, fast_idx, bulk_idx, bot_out),
+        lambda: ref.fused_cached_bag_interactions_ref(
+            fast, bulk, fast_idx, bulk_idx, bot_out),
+        lambda: _meta(_features_shape(bot_out, T)),
+        lambda: _interaction_flops(B, T, bot_out.shape[1]))
 
 
 def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
@@ -148,15 +210,16 @@ def fused_grouped_bag_interactions(tables_fast: torch.Tensor,
     ``fused_serve.grouped_pos(inv_perm, device)``, built once by the
     caller (the tiered exchange); the card reads ``pos``, the plain
     version ``inv_perm``."""
-    if bot_out.device.type == "cuda":
-        out = fused_serve.fused_grouped_bag_interactions(
-            tables_fast, tables_bulk, indices_perm, bot_out, pos)
-        launch_counts["fused_grouped_bag_interactions"] += 1
-        return out
-    if bot_out.device.type == "cpu":
-        return ref.fused_grouped_bag_interactions_ref(
-            tables_fast, tables_bulk, indices_perm, bot_out, inv_perm)
-    raise _no_path("fused_grouped_bag_interactions", bot_out)
+    B, T, _ = indices_perm.shape
+    return _launch(
+        "fused_grouped_bag_interactions", bot_out,
+        (tables_fast, tables_bulk, indices_perm, bot_out, pos),
+        lambda: fused_serve.fused_grouped_bag_interactions(
+            tables_fast, tables_bulk, indices_perm, bot_out, pos),
+        lambda: ref.fused_grouped_bag_interactions_ref(
+            tables_fast, tables_bulk, indices_perm, bot_out, inv_perm),
+        lambda: _meta(_features_shape(bot_out, T)),
+        lambda: _interaction_flops(B, T, bot_out.shape[1]))
 
 
 def fused_grouped_bag_interactions_unpermuted(
@@ -171,15 +234,16 @@ def fused_grouped_bag_interactions_unpermuted(
     ``src`` is ``fused_serve.grouped_src(inv_perm, device)``, built once by
     the caller (the tiered exchange); the card reads ``src``, the plain
     version ``inv_perm``."""
-    if bot_out.device.type == "cuda":
-        out = fused_serve.fused_grouped_bag_interactions_unpermuted(
-            tables_fast, tables_bulk, indices, bot_out, src)
-        launch_counts["fused_grouped_bag_interactions"] += 1
-        return out
-    if bot_out.device.type == "cpu":
-        return ref.fused_grouped_bag_interactions_unpermuted_ref(
-            tables_fast, tables_bulk, indices, bot_out, inv_perm)
-    raise _no_path("fused_grouped_bag_interactions", bot_out)
+    B, T, _ = indices.shape
+    return _launch(
+        "fused_grouped_bag_interactions", bot_out,
+        (tables_fast, tables_bulk, indices, bot_out, src),
+        lambda: fused_serve.fused_grouped_bag_interactions_unpermuted(
+            tables_fast, tables_bulk, indices, bot_out, src),
+        lambda: ref.fused_grouped_bag_interactions_unpermuted_ref(
+            tables_fast, tables_bulk, indices, bot_out, inv_perm),
+        lambda: _meta(_features_shape(bot_out, T)),
+        lambda: _interaction_flops(B, T, bot_out.shape[1]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -187,13 +251,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
     """(B, T, Hq, hd) x (B, S, Hkv, hd)^2 -> (B, T, Hq, hd) in q's dtype;
     one launch on the card, which picks its own tiles."""
-    if q.device.type == "cuda":
-        out = attention.flash_attention(q, k, v, causal=causal, window=window)
-        launch_counts["flash_attention"] += 1
-        return out
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    raise _no_path("flash_attention", q)
+    B, T, Hq, hd = q.shape
+    # q·kᵀ and p·v over every (query, key) pair, as the reference's
+    # masked jnp attention counts them
+    return _launch(
+        "flash_attention", q, (q, k, v),
+        lambda: attention.flash_attention(q, k, v, causal=causal,
+                                          window=window),
+        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window),
+        lambda: _meta(q.shape, q.dtype),
+        lambda: 4.0 * B * Hq * T * k.shape[1] * hd, q.dtype)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -201,10 +269,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """(B, Hq, hd) x (B, S, Hkv, hd)^2 x (B,) -> (B, Hq, hd) in q's dtype;
     one launch on the card."""
-    if q.device.type == "cuda":
-        out = attention.flash_decode(q, k_cache, v_cache, lengths)
-        launch_counts["flash_decode"] += 1
-        return out
-    if q.device.type == "cpu":
-        return ref.flash_decode_ref(q, k_cache, v_cache, lengths)
-    raise _no_path("flash_decode", q)
+    B, Hq, hd = q.shape
+    return _launch(
+        "flash_decode", q, (q, k_cache, v_cache, lengths),
+        lambda: attention.flash_decode(q, k_cache, v_cache, lengths),
+        lambda: ref.flash_decode_ref(q, k_cache, v_cache, lengths),
+        lambda: _meta(q.shape, q.dtype),
+        lambda: 4.0 * B * Hq * k_cache.shape[1] * hd, q.dtype)

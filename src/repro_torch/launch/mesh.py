@@ -26,7 +26,17 @@ fleet's scale-up does in the middle of a run, reuse them.
 
 Axis semantics, as in the reference: ``model`` carries the
 latency-bound embedding exchanges, ``data`` the data-parallel batch
-split; ``dp_axes`` replicate the tables.
+split; ``pod`` (the production mesh's cross-pod axis) only
+bandwidth-tolerant traffic; ``dp_axes`` replicate the tables.
+
+The production mesh (``make_production_mesh``: 16 x 16 over ("data",
+"model"), or 2 x 16 x 16 over ("pod", "data", "model")) is a
+*placeholder* in one process (``PlaceholderMesh``), as the reference's
+dry-run lays 512 placeholder host devices out: this process plays rank 0,
+and every group is a ``PlaceholderGroup`` that knows its size and this
+rank's place in it (``repro_torch.op_stream``). A collective over one
+sends nothing. Only a caller that builds such a mesh reaches
+it; ``Mesh`` over an initialised world never holds one.
 """
 from __future__ import annotations
 
@@ -37,6 +47,8 @@ import os
 from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
+
+from repro_torch.op_stream import PlaceholderGroup
 
 Axis = Union[str, Tuple[str, ...]]
 
@@ -215,6 +227,49 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.ranks}, rank={self.rank})"
+
+
+class PlaceholderMesh(Mesh):
+    """A mesh of ``shape`` over ``axes`` with no world behind it: this
+    process plays its rank 0, and each set of axes of more than one rank
+    has a ``PlaceholderGroup``. The reference's dry-run mesh of
+    placeholder devices, seen from the first of them."""
+
+    def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...]):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes) \
+                or any(s < 1 for s in shape):
+            raise ValueError(f"mesh shape {shape} and axes {axes} must pair "
+                             f"up, one distinct name a dimension of >= 1")
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = axes
+        self.ranks = tuple(range(self.size()))
+        self.lead, self.rank, self.member = 0, 0, True
+        self.coords = self.coords_of(0)
+        self._groups = {}
+        for k in range(1, len(axes) + 1):
+            for sub in itertools.combinations(axes, k):
+                self._groups[sub] = (PlaceholderGroup(
+                    sub, self.size(sub), self.rank_in(sub))
+                    if self.size(sub) > 1 else None)
+
+    def broadcast_object(self, obj):
+        return obj
+
+    def barrier(self) -> None:
+        return None
+
+    def __repr__(self) -> str:
+        return f"PlaceholderMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> PlaceholderMesh:
+    """The reference's production mesh, (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model"), as a placeholder seen
+    from rank 0."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return PlaceholderMesh(shape, axes)
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:

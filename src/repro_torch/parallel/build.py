@@ -33,10 +33,20 @@ the loss are summed over the ranks (the grads through the int8
 error-feedback all-reduce under ``compress_grads``) and the dense update
 is ``p - lr * g``. Over ``dp_axes`` every replica then applies the sum of
 the replicas' table (and accumulator) changes, as the reference's psum of
-the deltas: sparsely, over the rows the step touched. The step updates
+the deltas: sparsely, over the rows the step touched (``dp_sync="sparse"``),
+or as the reference does it, ``tables + psum(new - tables)`` over whole
+shards (``dp_sync="dense"``, the deltas summed in fp32, as XLA:CPU runs
+the reference's bf16 tables; no data-dependent shape, so a trace on the
+meta device runs it). The step updates
 the tables, the dense layers and the optimizer state IN PLACE (the
 reference returns new arrays from donated ones) and returns the same
 objects; the loss is a device scalar.
+
+``local_batch=True`` gives the step this rank's slice of the batch in
+place of the global batch, and serving returns this rank's probs (no
+gather): each device's view of the reference's step, whose inputs and
+outputs are sharded over ``dp_axes + axis``. The dry-run's cells
+(``launch.steps``) build rank 0's slice alone that way.
 """
 from __future__ import annotations
 
@@ -258,6 +268,7 @@ def build_step(cfg: DLRMConfig, mesh=None, *, mode: str = "serve",
                fused: bool = True, optimizer: str = "sgd", lr: float = 0.01,
                compress_grads: bool = False,
                dp_axes: Tuple[str, ...] = (),
+               local_batch: bool = False, dp_sync: str = "sparse",
                device: DeviceArg = None) -> Callable:
     """Compose the exchange with the dense compute into one serve or train
     step (see the module doc).
@@ -270,10 +281,15 @@ def build_step(cfg: DLRMConfig, mesh=None, *, mode: str = "serve",
     through the exchange's fused kernel when it supports one;
     ``fused=False`` forces the composed path. The returned serve step's
     ``serve_kernel`` attribute ("fused" or "composed") names the branch
-    it runs. ``optimizer`` ("sgd" | "adagrad"), ``lr`` and
-    ``compress_grads``: train mode."""
+    it runs. ``optimizer`` ("sgd" | "adagrad"), ``lr``,
+    ``compress_grads`` and ``dp_sync`` ("sparse" | "dense", how the
+    replicas over ``dp_axes`` agree): train mode. ``local_batch``: see
+    the module doc."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
+    if dp_sync not in ("sparse", "dense"):
+        raise ValueError(f"dp_sync must be 'sparse' or 'dense', got "
+                         f"{dp_sync!r}")
     dp_axes = _axes(dp_axes)
     if mesh is None:
         if dp_axes:
@@ -298,7 +314,7 @@ def build_step(cfg: DLRMConfig, mesh=None, *, mode: str = "serve",
 
     def local(x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the global batch."""
-        if n_full == 1:
+        if n_full == 1 or local_batch:
             return x
         b = x.shape[0]
         if b % n_full:
@@ -309,7 +325,7 @@ def build_step(cfg: DLRMConfig, mesh=None, *, mode: str = "serve",
 
     if mode == "train":
         return _train_step(exch, depth, optimizer, lr, local, n_full,
-                           full_group, dp_group, compress_grads)
+                           full_group, dp_group, compress_grads, dp_sync)
     use_fused = bool(fused) and exch.supports_fused_forward()
 
     def serve(params: Params, dense: torch.Tensor,
@@ -336,7 +352,7 @@ def build_step(cfg: DLRMConfig, mesh=None, *, mode: str = "serve",
                     params, den_mb[i], pooled)
                 outs.append(torch.sigmoid(logits))
         probs = outs[0] if depth == 1 else torch.cat(outs)
-        return prim.all_gather(probs, full_group)
+        return probs if local_batch else prim.all_gather(probs, full_group)
 
     serve.serve_kernel = "fused" if use_fused else "composed"
     return serve
@@ -407,10 +423,22 @@ def _dp_apply(flat: torch.Tensor, lin: torch.Tensor, old: torch.Tensor,
                         d_all[j * m:j * m + size])
 
 
+def _dp_dense(cur: torch.Tensor, old: torch.Tensor,
+              group: prim.Group) -> None:
+    """``cur = old + psum(cur - old)`` over ``group``, in place: the
+    reference's ``tables + psum(new - tables, dp_axes)`` over a whole
+    shard, the deltas summed in fp32."""
+    delta = cur.float()
+    if delta is cur:
+        delta = cur.clone()
+    delta = prim.psum(delta.sub_(old), group)
+    cur.copy_(delta.add_(old))
+
+
 def _train_step(exch: EmbeddingExchange, depth: int, optimizer: str,
                 lr: float, local: Callable, n_full: int,
                 full_group: prim.Group, dp_group: prim.Group,
-                compress_grads: bool) -> Callable:
+                compress_grads: bool, dp_sync: str) -> Callable:
     if optimizer not in ("sgd", "adagrad"):
         raise ValueError(f"optimizer must be 'sgd' or 'adagrad', got "
                          f"{optimizer!r}")
@@ -434,9 +462,15 @@ def _train_step(exch: EmbeddingExchange, depth: int, optimizer: str,
             # every micro-batch's forward reads the tables before the step
             fwd = [exch.forward(tables, idx)
                    for idx in _mb_slices(local(indices), depth)]
-            snap = (_dp_snapshot(exch, tables, opt_state,
-                                 [ctx for _, ctx in fwd], ada is not None)
-                    if replicated else None)
+            if not replicated:
+                snap = None
+            elif dp_sync == "dense":
+                snap = {k: (tables[k].clone(), opt_state[acc_key(k)].clone()
+                            if ada is not None else None)
+                        for k in exch.table_keys}
+            else:
+                snap = _dp_snapshot(exch, tables, opt_state,
+                                    [ctx for _, ctx in fwd], ada is not None)
         loss = torch.zeros((), device=dense.device)
         g_dense = None
         flat_mbs = []
@@ -468,7 +502,12 @@ def _train_step(exch: EmbeddingExchange, depth: int, optimizer: str,
             if ada is not None:
                 for k, (fi, fg) in _concat_flat_grads(flat_mbs).items():
                     ada(tables[k], opt_state[acc_key(k)], fi, fg)
-            if snap is not None:
+            if snap is not None and dp_sync == "dense":
+                for k, (old, acc_old) in snap.items():
+                    _dp_dense(tables[k], old, dp_group)
+                    if acc_old is not None:
+                        _dp_dense(opt_state[acc_key(k)], acc_old, dp_group)
+            elif snap is not None:
                 for k, (lin, old, acc_old) in snap.items():
                     tab = tables[k]
                     _dp_apply(tab.view(tab.shape[0] * tab.shape[1], -1), lin,

@@ -33,6 +33,14 @@ through host memory itself), so no wrapper stages a tensor through the
 host. ``call_counts`` counts every collective a wrapper ran, by the
 tensor's device. No wrapper catches an error of a collective.
 
+A group of a placeholder mesh (``op_stream.PlaceholderGroup``, the
+production mesh of the dry-run) has no other rank: a wrapper sends
+nothing over it, and the group fakes the collective
+(``PlaceholderGroup.fake``): it reports it to the op stream and returns
+a tensor of the collective's shape and dtype made from this rank's own
+data, as if every rank held what this one holds. So the ids the
+table-wise all-to-all hands to row 4 stay in range.
+
 The LM over k ranks (``models.moe_dist``) differentiates through its
 collectives: ``ad_all_gather``, ``ad_psum_scatter`` and ``ad_all_to_all``
 are the wrappers under autograd along any dim, each backward the
@@ -48,34 +56,46 @@ passes go through the same counted wrappers.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import dlrm as dlrm_lib
 from repro_torch.kernels import ops
+from repro_torch.op_stream import PlaceholderGroup
 
-Group = Optional[dist.ProcessGroup]
+Group = Optional[Union[dist.ProcessGroup, PlaceholderGroup]]
 COLLECTIVES = ("all_to_all", "all_gather", "psum_scatter", "psum", "pmax",
                "broadcast", "gather")
 call_counts: Dict[str, int] = {f"{c}_{where}": 0 for c in COLLECTIVES
-                               for where in ("cuda", "cpu")}
+                               for where in ("cuda", "cpu", "meta")}
 
 
 def group_size(group: Group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, PlaceholderGroup):
+        return group.size
+    return dist.get_world_size(group)
 
 
 def group_rank(group: Group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    if group is None:
+        return 0
+    if isinstance(group, PlaceholderGroup):
+        return group.rank
+    return dist.get_rank(group)
 
 
-def _run(name: str, fn: Callable, out: torch.Tensor,
-         inp: torch.Tensor) -> torch.Tensor:
-    """``fn(out, inp)``, the collective, counted by ``inp``'s device."""
-    fn(out, inp)
-    call_counts[f"{name}_{'cuda' if inp.is_cuda else 'cpu'}"] += 1
+def _run(name: str, fn: Callable, out, inp: torch.Tensor, group: Group):
+    """``fn(out, inp)``, the collective, counted by ``inp``'s device; over
+    a placeholder group, faked (see the module doc)."""
+    if isinstance(group, PlaceholderGroup):
+        group.fake(name, out, inp)
+    else:
+        fn(out, inp)
+    call_counts[f"{name}_{inp.device.type}"] += 1
     return out
 
 
@@ -93,7 +113,7 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
         .movedim(s, 0).contiguous()
     recv = _run("all_to_all",
                 lambda o, i: dist.all_to_all_single(o, i, group=group),
-                torch.empty_like(send), send)
+                torch.empty_like(send), send, group)
     chunk = send.shape[1:]
     return recv.movedim(0, c).reshape(
         chunk[:c] + (n * chunk[c],) + chunk[c + 1:])
@@ -109,7 +129,7 @@ def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
                       device=x.device)
     return _run("all_gather",
                 lambda o, i: dist.all_gather_into_tensor(o, i, group=group),
-                out, x)
+                out, x, group)
 
 
 def psum_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -123,7 +143,7 @@ def psum_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
                       device=x.device)
     return _run("psum_scatter",
                 lambda o, i: dist.reduce_scatter_tensor(o, i, group=group),
-                out, x)
+                out, x, group)
 
 
 def _all_reduce(name: str, x: torch.Tensor, group: Group,
@@ -137,7 +157,7 @@ def _all_reduce(name: str, x: torch.Tensor, group: Group,
             o.copy_(i)
         dist.all_reduce(o, op=op, group=group)
 
-    return _run(name, reduce, out, out)
+    return _run(name, reduce, out, out, group)
 
 
 def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -156,7 +176,8 @@ def broadcast(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _run("broadcast",
-                lambda o, i: dist.broadcast(o, src=src, group=group), x, x)
+                lambda o, i: dist.broadcast(o, src=src, group=group), x, x,
+                group)
 
 
 def gather(x: torch.Tensor, dst: int, group: Group
@@ -171,7 +192,7 @@ def gather(x: torch.Tensor, dst: int, group: Group
              if dist.get_rank() == dst else None)
     return _run("gather",
                 lambda o, i: dist.gather(i, o, dst=dst, group=group),
-                parts, x)
+                parts, x, group)
 
 
 # ---------------------------------------------------------------------------

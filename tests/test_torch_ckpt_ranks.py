@@ -118,6 +118,21 @@ def _patch_port():
     T.COMPUTE_DTYPE = LM.COMPUTE_DTYPE = torch.float32
 
 
+@pytest.fixture
+def port_patched(monkeypatch):
+    """``_patch_port`` in this process, undone after the test: the batch
+    functions and the compute dtype are module state that later tests of
+    the same worker read."""
+    from repro_torch.engine import training
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as T
+    for mod, name in ((training, "make_recsys_batch"),
+                      (training, "make_lm_batch"), (T, "COMPUTE_DTYPE"),
+                      (LM, "COMPUTE_DTYPE")):
+        monkeypatch.setattr(mod, name, getattr(mod, name))
+    _patch_port()
+
+
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
@@ -407,11 +422,11 @@ def test_dlrm_checkpoint_holds_the_reference_checkpoint(runs, name):
 
 
 @pytest.mark.parametrize("k", [1, 4])
-def test_a_2_rank_checkpoint_resumes_on_1_and_4_ranks(runs, k):
+def test_a_2_rank_checkpoint_resumes_on_1_and_4_ranks(runs, k,
+                                                      port_patched):
     """Plan none with SGD, written by 2 ranks at step 4: resumed on 1 rank
     (here) and on 4 (the 4-rank spawn), 4 more steps within the
     tolerance of the uninterrupted 2-rank run."""
-    _patch_port()
     from repro_torch.engine.training import TrainSession
     want = _port(runs, "none_sgd", "full", 8)
     d = runs["dir"] / "port" / f"cross{k}"
@@ -429,11 +444,10 @@ def test_a_2_rank_checkpoint_resumes_on_1_and_4_ranks(runs, k):
 
 
 @pytest.mark.parametrize("case", ["residuals", "plan_groups"])
-def test_a_layout_that_depends_on_k_raises(runs, case):
+def test_a_layout_that_depends_on_k_raises(runs, case, port_patched):
     """The (2, 2) error-feedback residuals (one per rank) do not restore
     on 1 rank, nor a placed plan's checkpoint whose fast/bulk groups
     differ at 1 rank: ValueError naming what differs."""
-    _patch_port()
     from repro_torch.engine.training import TrainSession
     d = runs["dir"] / "port"
     if case == "residuals":

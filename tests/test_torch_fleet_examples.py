@@ -1,6 +1,7 @@
 """The port's fleet and LM examples (``examples_torch.{cluster_sla,
 fabric_sharding,lm_mini}``) on the CPU, held against the reference's
-(``examples``), and ``benchmarks_torch.run``'s new sections.
+(``examples``), and ``benchmarks_torch.run``'s new sections, the
+dry-run's ``roofline`` and ``render_experiments`` on a meta dry-run.
 
 ``fabric_sharding``'s capacity lines (the table set, the board budget and
 the one-board refusal, in the config's nominal bytes) equal the
@@ -25,9 +26,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from benchmarks_torch import run  # noqa: E402
+from benchmarks_torch import render_experiments, run  # noqa: E402
 from examples import fabric_sharding as ref_fabric_sharding  # noqa: E402
 from examples_torch import cluster_sla, fabric_sharding, lm_mini  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 
 NEW_SECTIONS = ("cluster", "fabric", "elastic", "hoststore", "online")
 
@@ -122,15 +124,80 @@ def test_run_knows_the_new_sections(name):
                     "--reduced", "--out-dir", "o"]
 
 
+def _quiet(main, argv):
+    """``main(argv)`` with its printed lines; returns (rc, lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+@pytest.fixture(scope="module")
+def dry_run_reports(tmp_path_factory):
+    """A tiny dry-run on the meta device: two DLRM cells in both wire
+    modes (the optimized reports in partial_pool) and internlm2-1.8b's
+    LM cells, which are not ported."""
+    root = tmp_path_factory.mktemp("reports")
+    cells = ("dlrm:dlrm-rm2-small-unsharded:serve:single",
+             "dlrm:dlrm-rm2-small-sharded:serve:single")
+    for cell in cells:
+        for sub, mode in (("dryrun", "unpooled"),
+                          ("dryrun_optimized", "partial_pool")):
+            rc, lines = _quiet(dryrun.main, [
+                "--cell", cell, "--device", "meta", "--dlrm-exchange", mode,
+                "--out", str(root / sub)])
+            assert rc == 0, lines
+    rc, lines = _quiet(dryrun.main, [
+        "--arch", "internlm2-1.8b", "--mesh", "single", "--device", "meta",
+        "--out", str(root / "dryrun")])
+    assert rc == 0, lines
+    return root, cells
+
+
 @pytest.mark.parametrize("name", ["roofline", "render_experiments"])
-def test_run_says_why_a_dry_run_section_waits(name):
+def test_run_has_the_dry_run_sections(name):
+    assert name in [n for n, _, _, _ in run.SECTIONS]
+    assert run.NOT_PORTED == {} and name in run.READS_REPORTS
+
+
+def test_run_renders_the_roofline_of_a_meta_dry_run(dry_run_reports):
+    root, cells = dry_run_reports
     proc = subprocess.run(
-        [sys.executable, "-m", "benchmarks_torch.run", "--only", name],
-        capture_output=True, text=True, cwd=REPO, timeout=300,
+        [sys.executable, "-m", "benchmarks_torch.run", "--only", "roofline",
+         "--reports-dir", str(root)], capture_output=True, text=True,
+        cwd=REPO, timeout=300,
         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
-    assert proc.returncode == 2, proc.stderr
-    assert f"section {name} is not ported" in proc.stderr
-    assert "ROADMAP A8c" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    for cell in cells:
+        row = next(ln for ln in lines if ln.startswith(cell + ","))
+        fields = row.split(",")
+        assert len(fields) == 8
+        assert fields[4] in ("compute", "memory", "collective")
+        assert all(float(x) >= 0 for x in fields[1:4] + fields[5:7])
+    assert "lm:internlm2-1.8b:train_4k:single,NOT PORTED,,,,,," in lines
+    assert "# 2/2 cells ran (meta), 3 not ported" in lines
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_run_renders_the_experiments_of_a_meta_dry_run(dry_run_reports,
+                                                        mesh):
+    root, cells = dry_run_reports
+    rc, lines = _quiet(run.main, ["--only", "render_experiments",
+                                  "--reports-dir", str(root)])
+    assert rc == 0
+    rows = [ln for ln in lines if ln.startswith("| ")]
+    assert rows[0].startswith("| cell | t_comp (ms)")
+    for cell in cells:
+        row = next(r for r in rows if r.startswith(
+            f"| {cell.replace(':single', '')} |"))
+        assert "—" not in row and row.count("|") == 11   # optimized too
+    # the section renders the single-pod mesh; the module takes either
+    rc, lines = _quiet(render_experiments.main, [mesh, "--reports-dir",
+                                                 str(root)])
+    assert rc == 0
+    body = [r for r in lines if r.startswith("| ")]
+    assert len(body) == (1 + 2 + 3 if mesh == "single" else 1)
 
 
 @pytest.mark.parametrize("main", [cluster_sla.main, fabric_sharding.main,

@@ -45,6 +45,14 @@ BOARD_MODULES = (
     "repro_torch.cluster.cluster", "repro_torch.fabric.fleet",
     "repro_torch.checkpoint.manager", "repro_torch.parallel.build",
     "repro_torch.convert", "repro_torch.launch.serve")
+# The DLRM half of the dry-run (ROADMAP A8c-i), held the same way; its
+# renderers are among the bench sources below.
+DRYRUN_MODULES = (
+    "repro_torch.op_stream", "repro_torch.launch.op_analysis",
+    "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+    "repro_torch.kernels.ops")
+DRYRUN_BENCHES = ("benchmarks_torch.roofline",
+                  "benchmarks_torch.render_experiments")
 
 
 def _forbidden(module: str) -> bool:
@@ -82,7 +90,7 @@ def test_training_modules_import_without_jax_or_repro():
         sys.exit(1 if bad else 0)
     """)
     for name in (TRAINING_MODULES + RANK_MODULES + LM_RANK_MODULES
-                 + BOARD_MODULES):
+                 + BOARD_MODULES + DRYRUN_MODULES):
         rel = Path(*name.split(".")[1:])
         assert ((PORT / rel).with_suffix(".py").exists()
                 or (PORT / rel / "__init__.py").exists()), name
@@ -91,7 +99,7 @@ def test_training_modules_import_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES,
                            *RANK_MODULES, *LM_RANK_MODULES,
-                           *BOARD_MODULES],
+                           *BOARD_MODULES, *DRYRUN_MODULES],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -110,8 +118,8 @@ def test_bench_and_example_modules_import_without_jax_or_repro():
     names = [f"{p.parent.name}.{p.stem}" if p.stem != "__init__"
              else p.parent.name for p in BENCH_SOURCES]
     assert len(names) >= 16, names
-    assert set(FLEET_MODULES) <= set(names), sorted(
-        set(FLEET_MODULES) - set(names))
+    assert set(FLEET_MODULES + DRYRUN_BENCHES) <= set(names), sorted(
+        set(FLEET_MODULES + DRYRUN_BENCHES) - set(names))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), str(REPO)]))
     proc = subprocess.run([sys.executable, "-c", code, *names],
