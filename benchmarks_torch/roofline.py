@@ -8,7 +8,8 @@ MODEL_FLOPS ratio.
 
 ``--reports-dir`` is the root the reports lie under (default
 ``reports/torch``; the table reads its ``dryrun/``). A cell the port does
-not run yet (an LM cell, ROADMAP A8c-ii) is a ``NOT PORTED`` row.
+not run yet (a MoE or SSM arch's LM cell, ROADMAP A8c-ii-b) is a ``NOT
+PORTED`` row.
 """
 import argparse
 import glob

@@ -336,6 +336,39 @@ Phases; any failure exits non-zero:
      printed, its report written under ``build/dryrun/dryrun/``, then
      ``benchmarks_torch.roofline`` renders them. The phase under
      ``DRYRUN_PHASE_S``;
+     9j. the dry-run's LM cells of the six attention archs (ROADMAP
+     A8c-ii-a), after 9i: the 38 ``lm:`` cells of command-r-plus-104b,
+     deepseek-7b, h2o-danube-3-4b, internlm2-1.8b, internvl2-26b and
+     whisper-base (train_4k, prefill_32k and decode_32k on both
+     placeholder meshes, and h2o-danube's long_500k) through
+     ``dryrun.run_cell`` on the meta device, then each cell whose meta
+     peak is under ``DRYRUN_LM_CARD_GB`` on the card, as rank 0 of 256 or
+     512 ranks at full per-rank width (the spec-driven executor: FSDP
+     over "data", TP over "model", decode over a cache split along S):
+     every count (flops, traffic, collective bytes and counts by kind,
+     kernel launches) on the card equal to the meta trace's, rows 8 and
+     9 launched by the card as often as the stream counts them (one
+     run a cell, whose wall time is the step's; ``DRYRUN_LM_GAP_CELL``
+     runs once more untraced, which gives the trace's cost), the meta
+     peak within 0.8-1.25x of the card's. Row 9
+     with ``return_lse`` at internlm2-1.8b
+     decode_32k's rank shapes held against its plain version (output and
+     log-sum-exp) and timed; row 8 at every shape the cells of
+     ``DRYRUN_LM_ROW8_CELLS`` launch it at (train_4k and prefill_32k,
+     causal and windowed, 1, 2 and 6 local query heads) held against
+     its plain version; the train and prefill steps of
+     ``DRYRUN_LM_PLAIN_CELLS`` held against the same step on the card
+     through rows 8 and 9's plain versions (the loss and fp32's caches
+     held; the grad norm, which the placeholder mesh's collectives make
+     chaotic, printed beside the plain step's own sensitivity), and the
+     smallest cell of each kind whose CPU step is estimated under 30 s
+     against the same step on the CPU (decode's logits at phase 9e's
+     bf16 tolerances; train's loss; prefill's cache positions). Each
+     cell's roofline terms,
+     bottleneck, peaks and step wall time printed, its report written
+     under ``build/dryrun_lm/dryrun/`` and rendered by
+     ``benchmarks_torch.roofline``. The phase under
+     ``DRYRUN_LM_PHASE_S``;
  10. the host chunk tier (last, once every earlier tensor is freed):
      ``Engine(get_dlrm("dlrm-rm2-large-unsharded"), host_capacity_mb=
      40960, alpha=1.05).serve_session()`` at full width (40 x 4,194,304
@@ -400,7 +433,9 @@ line before the last holds the per-kernel JSON (every TPU kernel of the
 JAX package, all nine ported; row 4's ``launches`` include phase 8d's,
 the ranks' summed over every rank and case, also given apart as
 ``ranks_launches``, and phase 9i's, as ``dryrun_launches``, and row 8's
-phase 9g's, as ``lm_ranks_launches``;
+phase 9g's, as ``lm_ranks_launches``; rows 8 and 9's phase 9j launches
+are in ``launches`` and given apart as ``dryrun_lm_launches``, and row
+9's ``lse`` holds 9j's lse check and times;
 every kernel's phase 9h launches are in ``launches`` and given apart as
 ``boards_launches``);
 the last line is ``{"ok": true,
@@ -703,6 +738,46 @@ DRYRUN_PEAK_RANGE = (0.5, 2.0)    # meta peak over the card's
 # the cells whose whole step is also held against the CPU's (plain) step
 DRYRUN_PLAIN_CELLS = ("dlrm:dlrm-rm2-small-unsharded:serve:single",
                       "dlrm:dlrm-rm2-small-unsharded:train:multi")
+# phase 9j: the dry-run's LM cells of the six attention archs (A8c-ii-a)
+# on meta, then each whose meta peak is under DRYRUN_LM_CARD_GB on the
+# card (every count equal to meta's, the meta peak within
+# DRYRUN_LM_PEAK_RANGE of the card's); row 9's lse at internlm2-1.8b
+# decode_32k's rank shapes (B 8, S 2,048 of 32,768 over 16 ranks, Hq 16,
+# Hkv 8, hd 128, bf16), its log-sum-exp within DRYRUN_LM_LSE_TOL
+# (natural-log units) of the plain version's; the smallest cell of each
+# kind whose CPU step is estimated under DRYRUN_LM_CPU_S and whose plain
+# attention's fp32 scores fit DRYRUN_LM_CPU_SCORES_GB held against the
+# same step on the CPU (``dryrun_lm_values``).
+DRYRUN_LM_PHASE_S = 150.0
+DRYRUN_LM_ARCHS = ("command-r-plus-104b", "deepseek-7b", "h2o-danube-3-4b",
+                   "internlm2-1.8b", "internvl2-26b", "whisper-base")
+DRYRUN_LM_CELLS = 38
+DRYRUN_LM_CARD_GB = 70.0
+DRYRUN_LM_PEAK_RANGE = (0.8, 1.25)    # meta peak over the card's
+DRYRUN_LM_LSE = (8, 2048, 16, 8, 128)  # B, S, Hq, Hkv, hd
+DRYRUN_LM_LSE_TOL = 1e-4
+DRYRUN_LM_CPU_S = 30.0
+DRYRUN_LM_CPU_SCORES_GB = 16.0
+# row 8 held against its plain version (on the card, a batch row at a
+# time) at every shape these cells' card runs launch it at: a rank's
+# query heads (1, 2 and 6 local, the GQA mapping of ``layers._kv_for``),
+# causal, and h2o-danube's window
+DRYRUN_LM_ROW8_CELLS = ("lm:internlm2-1.8b:train_4k:single",
+                        "lm:internlm2-1.8b:prefill_32k:single",
+                        "lm:h2o-danube-3-4b:train_4k:single",
+                        "lm:h2o-danube-3-4b:prefill_32k:single",
+                        "lm:command-r-plus-104b:train_4k:single")
+# cells whose step on the card is held against the same step on the card
+# through rows 8 and 9's plain versions (``plain_attention``): the train
+# loss and, in fp32, the prefill caches (each over its norm) within
+# DRYRUN_LM_FP32_REL; the grad norm and bf16's caches printed beside the
+# plain step's own sensitivity (``dryrun_lm_plain``)
+DRYRUN_LM_PLAIN_CELLS = ("lm:internlm2-1.8b:train_4k:multi",
+                         "lm:internlm2-1.8b:prefill_32k:multi")
+DRYRUN_LM_FP32_REL = 1e-3
+# an LM cell's wall time is its traced run's; this cell (2.4 s a step)
+# also runs once untraced, which gives the trace's cost
+DRYRUN_LM_GAP_CELL = "lm:internvl2-26b:train_4k:multi"
 DRYRUN_KEYS = ("flops_per_chip", "traffic_bytes_per_chip",
                "collective_bytes_per_chip", "collective_count",
                "collective_by_kind", "collective_count_by_kind",
@@ -7617,6 +7692,458 @@ def phase_dryrun(dev, card):
     return launches, {k: max(v) for k, v in errs.items()}
 
 
+# -------------------------------------------------------------- phase 9j
+def dryrun_lm_lse(dev, errs):
+    """Row 9 with ``return_lse`` at internlm2-1.8b decode_32k's rank
+    shapes (``DRYRUN_LM_LSE``), lengths as a rank's slice of a cache split
+    along S clips them (whole, partial, one row, none): the output
+    against the plain version (``close_attention``), the log-sum-exp
+    within ``DRYRUN_LM_LSE_TOL`` (-1e30 on both where the length is 0),
+    and the default call's output bitwise equal. Timed against the call
+    without lse, the plain version and the library's decode (which has
+    no lse); the bound adds the lse's bytes to ``decode_bound``'s."""
+    from benchmarks_torch.kernel_bench import BF16_FLOP_PER_S, least_time
+    from repro_torch.kernels import attention, ref
+    B, S, Hq, Hkv, hd = DRYRUN_LM_LSE
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((B, Hq, hd), device=dev, generator=gen).bfloat16()
+    kc, vc = (torch.randn((B, S, Hkv, hd), device=dev, generator=gen)
+              .bfloat16() for _ in range(2))
+    lens = torch.tensor([S, S, 1, 0, 1000, S // 2, 7, S], dtype=torch.int32,
+                        device=dev)
+    got, got_lse = attention.flash_decode(q, kc, vc, lens, return_lse=True)
+    want, want_lse = ref.flash_decode_ref(q, kc, vc, lens, return_lse=True)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16"
+    close_attention("flash_decode", f"9j lse {shape} lengths "
+                    f"{lens.tolist()}", got, want, errs)
+    torch.cuda.synchronize()
+    empty = lens == 0
+    check(bool((got_lse[empty] == -1e30).all()
+               and (want_lse[empty] == -1e30).all()),
+          "phase 9j: an empty slice's lse is not -1e30")
+    lse_err = (got_lse[~empty] - want_lse[~empty]).abs().max().item()
+    print(f"[kernel] flash_decode 9j lse {shape}: lse max_abs_err "
+          f"{lse_err:.3e} (tol {DRYRUN_LM_LSE_TOL})")
+    check(lse_err <= DRYRUN_LM_LSE_TOL, f"phase 9j: row 9's lse off the "
+                                        f"plain version's by {lse_err:.3e}")
+    check(torch.equal(attention.flash_decode(q, kc, vc, lens), got),
+          "phase 9j: row 9's default output moved with return_lse")
+    full = lens.clamp_min(1)       # the timed lengths: every slice read
+    _, _, nbytes, flops = decode_bound(q, kc, full)
+    timed = report_time(
+        "flash_decode", f"9j lse {shape}, lengths in [1, S]",
+        kernel_ms(lambda _: attention.flash_decode(q, kc, vc, full,
+                                                   return_lse=True), 1,
+                  iters=20),
+        time_ms(lambda _: ref.flash_decode_ref(q, kc, vc, full,
+                                               return_lse=True), 1, iters=3),
+        time_ms(lambda _: sdpa_decode(q, kc, vc, full), 1, iters=3),
+        [least_time(nbytes + B * Hq * 4, flops, BF16_FLOP_PER_S)])
+    timed["without_lse_ms"] = time_ms(
+        lambda _: attention.flash_decode(q, kc, vc, full), 1, iters=20)
+    timed["lse_max_abs_err"] = lse_err
+    return timed
+
+def cpu_flops_rate():
+    """The CPU's fp32 and bf16 matmul rates (flop/s), probed at 2,048^3."""
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((2048, 2048)).to(dtype)
+        a @ a
+        t0 = time.perf_counter()
+        for _ in range(3):
+            a @ a
+        rates[dtype] = 3 * 2 * 2048 ** 3 / (time.perf_counter() - t0)
+    return rates
+
+
+def dryrun_lm_cpu_pick(cells, metas, rates):
+    """The smallest cell (meta flops) of each kind whose CPU step is
+    estimated under DRYRUN_LM_CPU_S (its flops at the slower of the CPU's
+    two rates) and whose plain attention's fp32 scores (every query head
+    of a rank's rows, T x T, twice) fit DRYRUN_LM_CPU_SCORES_GB; (kind,
+    cell or None, its estimate in s)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    rate = min(rates.values())
+    picks = []
+    for kind in ("train", "prefill", "decode"):
+        best = None
+        for cell in cells:
+            _, arch, shape_name, _ = cell.split(":")
+            shape = next(s for s in dryrun.LM_SHAPES
+                         if s.name == shape_name)
+            if shape.kind != kind:
+                continue
+            m = metas[cell]
+            flops = m["op_analysis"]["flops_per_chip"]
+            rows = max(1, m["global_batch"] // (m["n_chips"] // 16))
+            scores = (0.0 if kind == "decode" else 8.0 * rows
+                      * get_arch(arch).n_heads * shape.seq_len ** 2)
+            if flops / rate < DRYRUN_LM_CPU_S and \
+                    scores <= DRYRUN_LM_CPU_SCORES_GB * GB and \
+                    (best is None or flops < best[1]):
+                best = (cell, flops)
+        picks.append((kind, best[0] if best else None,
+                      best[1] / rate if best else None))
+    return picks
+
+
+def _dryrun_lm_cell(cell_id):
+    """(cfg, shape, mesh, the cell's program) of an ``lm:`` cell id."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    _, arch, shape_name, mesh_kind = cell_id.split(":")
+    cfg = get_arch(arch)
+    shape = next(s for s in dryrun.LM_SHAPES if s.name == shape_name)
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    return cfg, shape, mesh, steps.build_lm_cell(cfg, shape, mesh)
+
+
+def dryrun_lm_values(cell_id, dev, errs):
+    """The cell's step on the card against the same step on the CPU (the
+    plain versions), on copies of rank 0's arguments: decode, the logits
+    of rank 0's columns of the vocabulary at LM_ULPS / LM_REL; train, the
+    loss within LM_LOSS_TOL; prefill, the cache positions equal. The
+    grad norm and the prefill caches are printed: under the placeholder
+    mesh a rounding-sized change moves them far (``dryrun_lm_plain``).
+    Returns the CPU step's seconds."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg, shape, mesh, cell = _dryrun_lm_cell(cell_id)
+    args = cell.make_args(dev)
+    cpu_args = _tree_to(args, "cpu")
+    label = f"phase 9j {cell_id} card against CPU"
+    if shape.kind == "decode":
+        sharder = steps.lm_sharder(cfg, mesh, shape.global_batch,
+                                   shape.seq_len)
+
+        def logits(params, caches, token, pos, *mem):
+            with torch.no_grad():
+                hid, _ = T.forward_with_state(params, cfg, token[:, None],
+                                              caches, pos,
+                                              mem[0] if mem else None,
+                                              sharder)
+                return T.logits_from_hidden(params, cfg, hid, sharder)
+        got = logits(*args)
+        t0 = time.perf_counter()
+        want = logits(*cpu_args)
+        cpu_s = time.perf_counter() - t0
+        lm_close(f"{label}: logits {tuple(got.shape)}", got.cpu(), want)
+        return cpu_s
+    out = _tree_to(cell.fn(*args), "cpu")
+    t0 = time.perf_counter()
+    want = cell.fn(*cpu_args)
+    cpu_s = time.perf_counter() - t0
+    gap = _step_gaps(out, want)
+    print(f"[dryrun] {label} (relative): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()))
+    if "loss" in gap:
+        d = abs(out[1]["loss"].item() - want[1]["loss"].item())
+        check(d <= LM_LOSS_TOL, f"{label}: loss off by {d:.3e}")
+    return cpu_s
+
+
+def _grad_norm(state):
+    """A train step's grad norm from its state: AdamW's first moment
+    after one step is 0.1 x the grads."""
+    from repro_torch.models.common import tree_leaves
+    return math.sqrt(sum(float(m.float().square().sum())
+                         for m in tree_leaves(state["opt"]["mu"]))) / 0.1
+
+
+@contextlib.contextmanager
+def lm_compute_dtype(dtype):
+    """The LM's compute dtype (and the prefill caches' default) ``dtype``
+    inside, as the fp32 tests set it."""
+    from repro_torch.models import lm as LM
+    from repro_torch.models import transformer as T
+    saved = (T.COMPUTE_DTYPE, LM.COMPUTE_DTYPE,
+             T.caches_from_prefill_spmd.__defaults__,
+             T.caches_from_prefill.__defaults__)
+    T.COMPUTE_DTYPE = LM.COMPUTE_DTYPE = dtype
+    T.caches_from_prefill_spmd.__defaults__ = (dtype,)
+    T.caches_from_prefill.__defaults__ = (dtype,)
+    try:
+        yield
+    finally:
+        (T.COMPUTE_DTYPE, LM.COMPUTE_DTYPE,
+         T.caches_from_prefill_spmd.__defaults__,
+         T.caches_from_prefill.__defaults__) = saved
+
+
+def _rounded_plain(eps, gen):
+    """Row 8's plain version with each output element scaled by (1 + eps
+    N(0, 1)): the plain step under a perturbation of its attention
+    outputs at the size of a rounding."""
+    from repro_torch.kernels import ref
+
+    def attention(q, k, v, causal=True, window=None):
+        out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        noise = torch.randn(out.shape, device=out.device, generator=gen)
+        return (out.float() * (1 + eps * noise)).to(out.dtype)
+    return attention
+
+
+def _step_gaps(out, want):
+    """Relative gaps of a train step's loss and grad norm, or of each
+    prefill cache over its norm (positions held equal)."""
+    if isinstance(out[1], dict):                        # train
+        loss, w_loss = out[1]["loss"].item(), want[1]["loss"].item()
+        norm, w_norm = _grad_norm(out[0]), _grad_norm(want[0])
+        return {"loss": abs(loss - w_loss) / abs(w_loss),
+                "grad norm": abs(norm - w_norm) / w_norm}
+    rel = {}
+    for i, (c, w) in enumerate(zip(out[0], want[0])):
+        check(torch.equal(c["pos"], w["pos"]),
+              "phase 9j: prefill cache positions differ")
+        for n in ("k", "v"):
+            rel[f"caches {i} {n}"] = ((c[n].float() - w[n].float()).norm()
+                                      / w[n].float().norm()).item()
+    return rel
+
+
+def dryrun_lm_plain(cell_id, dev):
+    """The cell's train or prefill step on the card against the same step
+    on the card through rows 8 and 9's plain versions
+    (``plain_attention``), on copies of rank 0's arguments, with the
+    compute in fp32 and in bf16; beside it the plain step against itself
+    with its attention outputs perturbed at the dtype's unit roundoff
+    (``_rounded_plain``), the step's own sensitivity. Under the
+    placeholder mesh's collectives (a psum returns the rank's own part)
+    the step is not the model's: its activations grow and a perturbation
+    of 1e-6 decorrelates its grads, so the grad norm and bf16's caches
+    are printed beside that floor and not held. Held: the train loss
+    (fp32 within DRYRUN_LM_FP32_REL relative, bf16 within LM_LOSS_TOL),
+    fp32's caches (each over its norm within DRYRUN_LM_FP32_REL) and the
+    cache positions. Returns {dtype name: {quantity: (kernel gap, floor)}}.
+    """
+    from repro_torch.kernels import ops
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        eps = torch.finfo(dtype).eps / 2
+        with lm_compute_dtype(dtype):
+            cell = _dryrun_lm_cell(cell_id)[3]
+            args = cell.make_args(dev)
+            twin, third = _tree_to(args, dev), _tree_to(args, dev)
+            out = cell.fn(*args)
+            with plain_attention():
+                want = cell.fn(*twin)
+                ops.flash_attention = _rounded_plain(
+                    eps, torch.Generator(device=dev).manual_seed(1))
+                moved = cell.fn(*third)
+            torch.cuda.synchronize()
+        gap, floor = _step_gaps(out, want), _step_gaps(moved, want)
+        train = "loss" in gap
+        print(f"[dryrun] phase 9j {cell_id} {name} card against its plain "
+              f"versions on the card (relative; beside each, the plain "
+              f"step perturbed at {eps:.3e}): "
+              + ", ".join(f"{k} {v:.3e} ({floor[k]:.3e})"
+                          for k, v in gap.items())
+              + (f"; loss {out[1]['loss'].item():.7f} against "
+                 f"{want[1]['loss'].item():.7f}" if train else ""))
+        if train and dtype == torch.float32:
+            check(gap["loss"] <= DRYRUN_LM_FP32_REL,
+                  f"phase 9j {cell_id}: fp32 loss off its plain versions' "
+                  f"by {gap['loss']:.3e}")
+        elif train:
+            d = abs(out[1]["loss"].item() - want[1]["loss"].item())
+            check(d <= LM_LOSS_TOL, f"phase 9j {cell_id}: bf16 loss off its "
+                                    f"plain versions' by {d:.3e}")
+        elif dtype == torch.float32:
+            check(max(gap.values()) <= DRYRUN_LM_FP32_REL,
+                  f"phase 9j {cell_id}: fp32 caches off their plain "
+                  f"versions' by {max(gap.values()):.3e}")
+        got[name] = {k: (v, floor[k]) for k, v in gap.items()}
+        del args, twin, third, out, want, moved
+        torch.cuda.empty_cache()
+    return got
+
+
+@contextlib.contextmanager
+def row8_shapes(shapes):
+    """Record in ``shapes`` each (q shape, k shape, dtype, causal, window)
+    ``ops.flash_attention`` is called at; the calls run as before."""
+    from repro_torch.kernels import ops
+    run = ops.flash_attention
+
+    def recorded(q, k, v, causal=True, window=None):
+        shapes.add((tuple(q.shape), tuple(k.shape), q.dtype, causal, window))
+        return run(q, k, v, causal=causal, window=window)
+    ops.flash_attention = recorded
+    try:
+        yield
+    finally:
+        ops.flash_attention = run
+
+
+def dryrun_lm_row8(shapes_by_cell, dev, errs):
+    """Row 8 at each recorded rank shape on N(0, 1) inputs against its
+    plain version, run a batch row at a time (its fp32 scores of a whole
+    prefill_32k batch would not fit), at ``close_attention``'s
+    tolerances; returns the shapes held."""
+    from repro_torch.kernels import attention, ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    held = 0
+    for cell, shapes in shapes_by_cell.items():
+        check(bool(shapes), f"phase 9j {cell}: row 8 never called")
+        for q_shape, k_shape, dtype, causal, window in sorted(
+                shapes, key=str):
+            q = torch.randn(q_shape, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(k_shape, device=dev, generator=gen)
+                    .to(dtype) for _ in range(2))
+            got = attention.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+            want = torch.cat([ref.flash_attention_ref(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal,
+                window=window) for b in range(q.shape[0])])
+            close_attention("flash_attention", f"9j {cell} rank shape q "
+                            f"{q_shape} k {k_shape} causal={causal} "
+                            f"window={window}", got, want, errs)
+            held += 1
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    return held
+
+
+def dryrun_lm_untraced(cell_id, dev):
+    """The cell's step once more on the card, untraced, on fresh
+    arguments: its wall time (s)."""
+    cell = _dryrun_lm_cell(cell_id)[3]
+    args = cell.make_args(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cell.run(dev, args)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def phase_dryrun_lm(dev, card):
+    """Phase 9j (see the module doc): the 38 LM cells of the six attention
+    archs on meta and on the card; row 9's lse; row 8 at the cells' rank
+    shapes; cells held against the plain versions on the card and
+    against the CPU. Returns (rows 8 and 9's launches, their errors, row
+    9's lse times)."""
+    import shutil
+    from benchmarks_torch import roofline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    errs = {}
+    root = os.path.join(BUILD_DIR, "dryrun_lm")
+    out = os.path.join(root, "dryrun")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(out)
+    cells = [c for c in dryrun.all_cell_ids() if c.startswith("lm:")
+             and c.split(":")[1] in DRYRUN_LM_ARCHS]
+    check(len(cells) == DRYRUN_LM_CELLS,
+          f"phase 9j: {len(cells)} LM cells, not {DRYRUN_LM_CELLS}")
+    metas = {}
+    for cell in cells:
+        metas[cell] = dryrun.run_cell(cell, device="meta")
+        check(metas[cell]["status"] == "ok", f"phase 9j {cell}: meta "
+                                             f"{metas[cell]['status']}")
+    meta_s = time.perf_counter() - t_phase
+    print(f"[dryrun] phase 9j: {len(cells)} LM cells on meta in "
+          f"{meta_s:.1f} s")
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    on_card = 0
+    row8, gap = {}, None
+    for cell in cells:
+        m = metas[cell]
+        mpeak = m["memory"]["peak_per_device_bytes"]
+        if mpeak >= DRYRUN_LM_CARD_GB * GB:
+            print(f"[dryrun] {cell}: meta peak {mpeak / GB:.2f} GB, not "
+                  f"run on the card")
+            continue
+        ops.reset_launch_counts()
+        shapes = set()
+        with (row8_shapes(shapes) if cell in DRYRUN_LM_ROW8_CELLS
+              else contextlib.nullcontext()):
+            rec = dryrun.run_cell(cell, device=dev)
+        on_card += 1
+        a, ma = rec["op_analysis"], m["op_analysis"]
+        check(rec["status"] == "ok", f"phase 9j {cell}: {rec['status']}")
+        for key in DRYRUN_KEYS:
+            check(a[key] == ma[key], f"phase 9j {cell}: {key} on the card "
+                                     f"{a[key]} against meta {ma[key]}")
+        kl = a["kernel_launches"]
+        n = {k: ops.launch_counts[k] for k in launches}
+        others = {k: v for k, v in ops.launch_counts.items()
+                  if v and k not in launches}
+        # one run, traced and timed: each of the cell's attention layers
+        check(rec["step_wall_source"] == "traced" and sum(kl.values()) > 0
+              and not others and n == {k: kl.get(k, 0) for k in launches},
+              f"phase 9j {cell}: launches {n} (stream {kl}), others "
+              f"{others}")
+        for k in launches:
+            launches[k] += n[k]
+        if cell in DRYRUN_LM_ROW8_CELLS:
+            row8[cell] = shapes
+        if cell == DRYRUN_LM_GAP_CELL:
+            untraced = dryrun_lm_untraced(cell, dev)
+            gap = rec["traced_wall_s"] / untraced
+            print(f"[dryrun] {cell}: step traced "
+                  f"{rec['traced_wall_s'] * 1e3:.2f} ms, untraced "
+                  f"{untraced * 1e3:.2f} ms on fresh arguments "
+                  f"({gap:.3f}x) ({card})")
+        peak = rec["memory"]["peak_per_device_bytes"]
+        lo, hi = DRYRUN_LM_PEAK_RANGE
+        check(lo * peak <= mpeak <= hi * peak,
+              f"phase 9j {cell}: meta peak {mpeak / GB:.3f} GB against the "
+              f"card's {peak / GB:.3f} GB")
+        r = rec["roofline"]
+        print(f"[dryrun] {cell}: compute {r['t_compute_s'] * 1e3:.4f} ms, "
+              f"memory {r['t_memory_s'] * 1e3:.4f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.4f} ms -> {r['bottleneck']}; "
+              f"peak {peak / GB:.3f} GB on the card, {mpeak / GB:.3f} GB "
+              f"on meta ({mpeak / peak:.3f}x); step "
+              f"{rec['step_wall_s'] * 1e3:.2f} ms (traced) against t_bound "
+              f"{r['t_bound_s'] * 1e3:.4f} ms; {a['n_ops']} ops, "
+              f"{kl}; run {rec['elapsed_s']:.2f} s ({card})")
+        with open(os.path.join(out, cell.replace(":", "__") + ".json"),
+                  "w") as f:
+            json.dump(rec, f, indent=2, default=str)
+        del rec
+        torch.cuda.empty_cache()
+    check(roofline.main(["--reports-dir", root]) == 0,
+          "phase 9j: roofline did not render")
+    lse = dryrun_lm_lse(dev, errs)
+    check(set(row8) == set(DRYRUN_LM_ROW8_CELLS) and gap is not None,
+          f"phase 9j: row 8's cells {sorted(row8)} or the untraced cell "
+          f"did not run on the card")
+    row8_held = dryrun_lm_row8(row8, dev, errs)
+    for cell in DRYRUN_LM_PLAIN_CELLS:
+        dryrun_lm_plain(cell, dev)
+    rates = cpu_flops_rate()
+    held = 0
+    for kind, cell, est in dryrun_lm_cpu_pick(cells, metas, rates):
+        if cell is None:
+            print(f"[dryrun] phase 9j: no {kind} cell's CPU step is "
+                  f"estimated under {DRYRUN_LM_CPU_S} s (CPU at "
+                  f"{rates[torch.float32] / 1e9:.1f} fp32 / "
+                  f"{rates[torch.bfloat16] / 1e9:.1f} bf16 GFLOP/s)")
+            continue
+        cpu_s = dryrun_lm_values(cell, dev, errs)
+        held += 1
+        print(f"[dryrun] phase 9j: {cell} held against the CPU's step "
+              f"({cpu_s:.2f} s on the CPU, {est:.2f} s estimated)")
+        torch.cuda.empty_cache()
+    check(held >= 1, "phase 9j: no cell held against the CPU's step")
+    wall = time.perf_counter() - t_phase
+    print(f"[dryrun] phase 9j: {len(cells)} LM cells on meta "
+          f"({meta_s:.1f} s), {on_card} on the card, row 8 held at "
+          f"{row8_held} rank shapes, {len(DRYRUN_LM_PLAIN_CELLS)} cells "
+          f"against the plain versions on the card, {held} against the "
+          f"CPU, in {wall:.1f} s (budget {DRYRUN_LM_PHASE_S} s); rows "
+          f"8 and 9 launched {launches} ({card})")
+    check(wall <= DRYRUN_LM_PHASE_S, f"phase 9j took {wall:.1f} s, over "
+                                     f"its {DRYRUN_LM_PHASE_S} s budget")
+    return launches, {k: max(v) for k, v in errs.items()}, lse
+
+
 # -------------------------------------------------------------- phase 11
 def bench_artifact(name, out_dir, speed_claims=BENCH_SPEED_CLAIMS):
     """Load ``BENCH_torch_<name>.json`` and hold its form: the reference's
@@ -7921,11 +8448,12 @@ def main() -> int:
     lm["launches"]["flash_attention"] += lm_ranks_launches
     boards_launches = phase_boards(dev, card)
     dryrun_launches, dryrun_errs = phase_dryrun(dev, card)
+    dryrun_lm_launches, dryrun_lm_errs, lse = phase_dryrun_lm(dev, card)
     host, host_errs = phase_host_tier(dev, card)
     torch.cuda.empty_cache()
     for more in (tiered[2], api_serve[2], packed[2], api_attention[2],
                  blocked[2], host_errs, fabric_errs, online_errs,
-                 ssm["errs"], dryrun_errs):
+                 ssm["errs"], dryrun_errs, dryrun_lm_errs):
         for name, err in more.items():       # the run's largest per kernel
             errs[name] = max(err, errs.get(name, 0.0))
 
@@ -7945,6 +8473,8 @@ def main() -> int:
     for name, n in boards_launches.items():
         if name in KERNELS:
             launches[name] += n
+    for name, n in dryrun_lm_launches.items():
+        launches[name] += n
     # each kernel's row: the serve kernels at the depth-8 micro-batch
     # B = 25, the bags at B = 200, attention at the largest shape where
     # the plain version and the library also run
@@ -8035,6 +8565,9 @@ def main() -> int:
             if name == "embedding_bag" else {}),
          **({"lm_ranks_launches": lm_ranks_launches}
             if name == "flash_attention" else {}),
+         **({"dryrun_lm_launches": dryrun_lm_launches[name]}
+            if name in dryrun_lm_launches else {}),
+         **({"lse": lse} if name == "flash_decode" else {}),
          **({"online_launches": online_launches[name]}
             if name in online_launches else {}),
          "lm_launches": lm["launches"].get(name, 0),

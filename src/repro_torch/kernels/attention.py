@@ -57,7 +57,7 @@ def _decode_lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = [
-        p, p, p, p, i, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     lib.flash_decode_launch.restype = i
     lib.flash_decode_error_string.argtypes = [i]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -127,11 +127,13 @@ def _decode_chunks(device: torch.device, blocks: int, S: int) -> int:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, lengths: torch.Tensor,
+                 return_lse: bool = False):
     """q (B, Hq, hd), k_cache and v_cache (B, S, Hkv, hd), one dtype of
     fp32 or bf16, lengths (B,) int32 or int64, contiguous on one CUDA
-    device, hd <= 128 -> (B, Hq, hd) in q's dtype.
+    device, hd <= 128 -> (B, Hq, hd) in q's dtype; with ``return_lse``
+    also (B, Hq) fp32, each (b, head)'s natural log-sum-exp of its scores
+    (-1e30 where its length is 0).
 
     Launches on the current stream and does not synchronise. Raises if
     the kernel does not build or its launch is refused."""
@@ -146,6 +148,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{op}: lengths {tuple(lengths.shape)}, want "
                          f"({B},)")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     chunks = _decode_chunks(q.device, B * Hkv * -(-(Hq // Hkv) // 4), S)
     part = (torch.empty(B * Hq * chunks * (hd + 2), dtype=torch.float32,
                         device=q.device) if chunks > 1 else None)
@@ -156,6 +160,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), int(lengths.dtype == torch.int64),
             out.data_ptr(), None if part is None else part.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             chunks, int(q.dtype == torch.bfloat16), B, S, Hq, Hkv, hd,
             LOG2E / math.sqrt(hd), stream)
     if err != 0:
@@ -163,4 +168,4 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"{op} launch failed (cudaError {err}: {msg}) at "
                            f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
                            f"{q.dtype}")
-    return out
+    return (out, lse) if return_lse else out

@@ -33,6 +33,12 @@
 // them through shared memory. With one chunk it writes the output,
 // dividing by max(l, 1e-30); with more it writes its (max, sum, output)
 // in fp32, and a second kernel merges the chunks.
+//
+// Optional `lse` (B, Hq) fp32: each (b, head)'s natural log-sum-exp of
+// its scores over the rows it read, ln(sum) + max, written by whichever
+// kernel writes the output; -1e30 where the length was 0 (every score
+// masked, as the reference's masked logsumexp gives in fp32). A caller
+// that splits a cache along S combines the slices' outputs with it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +52,13 @@ constexpr int kWarps = 8;
 constexpr int kHeads = 4;   // query heads a block
 constexpr int kUnroll = 4;  // row steps a warp loads at once
 constexpr float kMasked = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ln(sum) + max of a base-2 online softmax state; kMasked when every
+// score was masked.
+__device__ __forceinline__ float natural_lse(float mx, float sum) {
+  return mx <= kMasked ? kMasked : (mx + log2f(sum)) * kLn2;
+}
 
 // The 16 bytes of columns [col, col + 16 / sizeof(T)) of a row, zero past
 // hd. `vec`: hd is a multiple of the vector and the row 16-byte aligned.
@@ -90,7 +103,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const void* __restrict__ lengths,
     int lengths_i64, T* __restrict__ out, float* __restrict__ part,
-    int n_k, int n_heads, int n_kv_heads, int hd, float qk_scale, int vec) {
+    float* __restrict__ lse, int n_k, int n_heads, int n_kv_heads, int hd,
+    float qk_scale, int vec) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kRows = 32 / LPR;              // rows a warp step
   constexpr int kStates = kWarps * kRows;
@@ -228,6 +242,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_decode_kernel(
     const long long bh = b * n_heads + h0 + i;
     if (n_chunks == 1) {
       store_as(out + bh * hd + c, o / fmaxf(sum, 1e-30f));
+      if (lse != nullptr && c == 0) lse[bh] = natural_lse(mx, sum);
     } else {
       float* p = part + (bh * n_chunks + chunk) * (hd + 2);
       p[c] = o;
@@ -242,7 +257,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_decode_kernel(
 // out[bh] from the n_chunks partial states of (b, h): one block a (b, h).
 template <typename T>
 __global__ void merge_chunks_kernel(const float* __restrict__ part,
-                                    T* __restrict__ out, int n_chunks,
+                                    T* __restrict__ out,
+                                    float* __restrict__ lse, int n_chunks,
                                     int hd) {
   const long long bh = blockIdx.x;
   const float* p = part + bh * n_chunks * (hd + 2);
@@ -257,14 +273,15 @@ __global__ void merge_chunks_kernel(const float* __restrict__ part,
       o = fmaf(pj[c], f, o);
     }
     store_as(out + bh * hd + c, o / fmaxf(sum, 1e-30f));
+    if (lse != nullptr && c == 0) lse[bh] = natural_lse(mx, sum);
   }
 }
 
 template <typename T, int LPR>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           int lengths_i64, void* out, void* part, int n_chunks, int batch,
-           int n_k, int n_heads, int n_kv_heads, int hd, float qk_scale,
-           cudaStream_t stream) {
+           int lengths_i64, void* out, void* part, float* lse, int n_chunks,
+           int batch, int n_k, int n_heads, int n_kv_heads, int hd,
+           float qk_scale, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int vec = hd % kVec == 0 &&
                   (reinterpret_cast<uintptr_t>(k) |
@@ -274,34 +291,36 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   flash_decode_kernel<T, LPR><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, lengths_i64, static_cast<T*>(out),
-      static_cast<float*>(part), n_k, n_heads, n_kv_heads, hd, qk_scale,
-      vec);
+      static_cast<float*>(part), lse, n_k, n_heads, n_kv_heads, hd,
+      qk_scale, vec);
   if (n_chunks > 1)
     merge_chunks_kernel<T><<<batch * n_heads, 128, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<T*>(out), n_chunks, hd);
+        static_cast<const float*>(part), static_cast<T*>(out), lse, n_chunks,
+        hd);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v,
               const void* lengths, int lengths_i64, void* out, void* part,
-              int n_chunks, int batch, int n_k, int n_heads, int n_kv_heads,
-              int hd, float qk_scale, cudaStream_t stream) {
+              float* lse, int n_chunks, int batch, int n_k, int n_heads,
+              int n_kv_heads, int hd, float qk_scale, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (hd <= 4 * kVec)
-    return launch<T, 4>(q, k, v, lengths, lengths_i64, out, part, n_chunks,
-                        batch, n_k, n_heads, n_kv_heads, hd, qk_scale,
-                        stream);
+    return launch<T, 4>(q, k, v, lengths, lengths_i64, out, part, lse,
+                        n_chunks, batch, n_k, n_heads, n_kv_heads, hd,
+                        qk_scale, stream);
   if (hd <= 8 * kVec)
-    return launch<T, 8>(q, k, v, lengths, lengths_i64, out, part, n_chunks,
-                        batch, n_k, n_heads, n_kv_heads, hd, qk_scale,
-                        stream);
+    return launch<T, 8>(q, k, v, lengths, lengths_i64, out, part, lse,
+                        n_chunks, batch, n_k, n_heads, n_kv_heads, hd,
+                        qk_scale, stream);
   if (hd <= 16 * kVec)
-    return launch<T, 16>(q, k, v, lengths, lengths_i64, out, part, n_chunks,
-                         batch, n_k, n_heads, n_kv_heads, hd, qk_scale,
-                         stream);
-  return launch<T, 32>(q, k, v, lengths, lengths_i64, out, part, n_chunks,
-                       batch, n_k, n_heads, n_kv_heads, hd, qk_scale, stream);
+    return launch<T, 16>(q, k, v, lengths, lengths_i64, out, part, lse,
+                         n_chunks, batch, n_k, n_heads, n_kv_heads, hd,
+                         qk_scale, stream);
+  return launch<T, 32>(q, k, v, lengths, lengths_i64, out, part, lse,
+                       n_chunks, batch, n_k, n_heads, n_kv_heads, hd,
+                       qk_scale, stream);
 }
 
 }  // namespace
@@ -309,19 +328,22 @@ int launch_hd(const void* q, const void* k, const void* v,
 // q (B, Hq, hd), caches (B, S, Hkv, hd), out (B, Hq, hd), one dtype;
 // lengths (B,) int32 or int64; 1 <= hd <= 128, Hq a multiple of Hkv.
 // qk_scale = log2(e) / sqrt(hd). n_chunks >= 1 splits each b's valid rows;
-// above 1, part holds B * Hq * n_chunks * (hd + 2) fp32 of scratch.
+// above 1, part holds B * Hq * n_chunks * (hd + 2) fp32 of scratch. lse,
+// if not null, receives (B, Hq) fp32 natural log-sum-exps.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    int lengths_i64, void* out, void* part,
-                                   int n_chunks, int bf16, int batch,
-                                   int n_k, int n_heads, int n_kv_heads,
-                                   int hd, float qk_scale, void* stream) {
+                                   void* lse, int n_chunks, int bf16,
+                                   int batch, int n_k, int n_heads,
+                                   int n_kv_heads, int hd, float qk_scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (bf16)
     return launch_hd<__nv_bfloat16>(q, k, v, lengths, lengths_i64, out,
-                                    part, n_chunks, batch, n_k, n_heads,
+                                    part, l, n_chunks, batch, n_k, n_heads,
                                     n_kv_heads, hd, qk_scale, s);
-  return launch_hd<float>(q, k, v, lengths, lengths_i64, out, part,
+  return launch_hd<float>(q, k, v, lengths, lengths_i64, out, part, l,
                           n_chunks, batch, n_k, n_heads, n_kv_heads, hd,
                           qk_scale, s);
 }

@@ -81,6 +81,15 @@ def _launch(name: str, at: torch.Tensor, inputs, cuda: Callable,
     return out
 
 
+def _contiguous(out):
+    """A plain version's output laid out as the kernel writes it (rows
+    in order), so that the ops after it run alike on the CPU and the
+    card."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
 def _meta(shape, dtype=torch.float32) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
@@ -258,21 +267,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "flash_attention", q, (q, k, v),
         lambda: attention.flash_attention(q, k, v, causal=causal,
                                           window=window),
-        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window),
+        lambda: _contiguous(ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)),
         lambda: _meta(q.shape, q.dtype),
         lambda: 4.0 * B * Hq * T * k.shape[1] * hd, q.dtype)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, lengths: torch.Tensor,
+                 return_lse: bool = False):
     """(B, Hq, hd) x (B, S, Hkv, hd)^2 x (B,) -> (B, Hq, hd) in q's dtype;
-    one launch on the card."""
+    with ``return_lse`` also (B, Hq) fp32, each (b, head)'s natural
+    log-sum-exp (a cache split along S combines its slices with it); one
+    launch on the card."""
     B, Hq, hd = q.shape
+
+    def meta():
+        out = _meta(q.shape, q.dtype)
+        return (out, _meta((B, Hq))) if return_lse else out
+
     return _launch(
         "flash_decode", q, (q, k_cache, v_cache, lengths),
-        lambda: attention.flash_decode(q, k_cache, v_cache, lengths),
-        lambda: ref.flash_decode_ref(q, k_cache, v_cache, lengths),
-        lambda: _meta(q.shape, q.dtype),
-        lambda: 4.0 * B * Hq * k_cache.shape[1] * hd, q.dtype)
+        lambda: attention.flash_decode(q, k_cache, v_cache, lengths,
+                                       return_lse),
+        lambda: _contiguous(ref.flash_decode_ref(q, k_cache, v_cache,
+                                                 lengths, return_lse)),
+        meta, lambda: 4.0 * B * Hq * k_cache.shape[1] * hd, q.dtype)

@@ -175,14 +175,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     return_lse: bool = False):
     """Single-token GQA attention over a KV cache. q (B, Hq, hd), caches
     (B, S, Hkv, hd), lengths (B,) valid-prefix lengths -> (B, Hq, hd) in
-    q's dtype, fp32 inside.
+    q's dtype, fp32 inside; with ``return_lse`` also (B, Hq) fp32, the
+    natural log-sum-exp of each (b, head)'s masked scores.
 
     A length above S acts as S. A length of 0 masks every key at -1e30,
-    so the answer is the mean of v over all S rows."""
+    so the answer is the mean of v over all S rows (and its lse -1e30 in
+    fp32)."""
     B, Hq, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -193,4 +195,7 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s.masked_fill_(~ok[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    out = out.reshape(B, Hq, hd).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, Hq)
+    return out

@@ -18,13 +18,16 @@ Cell ids:  lm:<arch>:<shape>:<single|multi>
 The reference lowers and compiles each cell for 512 placeholder host
 devices and reads XLA's memory and cost analyses and its HLO. The port
 runs rank 0's step (``launch.steps``) on a device: the card by default,
-where ``torch.cuda.max_memory_allocated`` is the peak; ``meta``, where
+where ``torch.cuda.max_memory_allocated`` over the step, less what the
+card held before its arguments were made, is the peak; ``meta``, where
 nothing is allocated and the op stream's high-water mark of live bytes is
 the peak; or ``cpu``. Collectives over the placeholder mesh send nothing
 and report themselves to the op stream (``repro_torch.op_stream``). The
 reference's ``--skip-hlo`` has no counterpart: the op stream is the only
-analysis, and it always runs. LM cells are ROADMAP A8c-ii: each is
-written as ``not_ported``, which is not a failure.
+analysis, and it always runs. The LM cells of the archs whose layers are
+attention and dense MLP run through the spec-driven executor
+(``launch.steps.build_lm_cell``); a MoE or SSM arch's cell is ROADMAP
+A8c-ii-b and is written as ``not_ported``, which is not a failure.
 
 Outputs: ``reports/torch/dryrun/<cell-id>.json`` (``:`` as ``__``),
 never the reference's ``reports/dryrun``.
@@ -97,14 +100,21 @@ def _storages(tree) -> Dict[int, int]:
 def measure(cell: steps.CellProgram, mesh: Mesh, device: torch.device,
             model_flops: float) -> Dict:
     """Run ``cell`` once on ``device`` under an op stream and return the
-    reference's record fields (after ``cell`` and ``status``); on the card
-    the step runs a second time, untraced, for its wall time."""
-    args = cell.make_args(device)
+    reference's record fields (after ``cell`` and ``status``). On the card
+    the traced run is timed (``traced_wall_s``); a cell whose
+    ``timed_untraced`` is set runs its step a second time, untraced, for
+    its wall time (``step_wall_s``), else the step's wall time is the
+    traced run's (``step_wall_source`` says which)."""
     cuda = device.type == "cuda"
+    if cuda:      # what the card held before: not the step's
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+    args = cell.make_args(device)
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     stream = op_stream.OpStream()
+    t0 = time.perf_counter()
     with stream:
         stream.track(args)
         out, _ = cell.run(device, args)
@@ -117,11 +127,17 @@ def measure(cell: steps.CellProgram, mesh: Mesh, device: torch.device,
     stream_peak = stream.peak_bytes
     if cuda:
         torch.cuda.synchronize(device)
-        peak = torch.cuda.max_memory_allocated(device)
-        t0 = time.perf_counter()
-        out, _ = cell.run(device, args)
-        torch.cuda.synchronize(device)
-        record["step_wall_s"] = time.perf_counter() - t0
+        traced = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) - base
+        record["traced_wall_s"] = traced
+        record["step_wall_source"] = "traced"
+        record["step_wall_s"] = traced
+        if cell.timed_untraced:
+            t0 = time.perf_counter()
+            out, _ = cell.run(device, args)
+            torch.cuda.synchronize(device)
+            record["step_wall_s"] = time.perf_counter() - t0
+            record["step_wall_source"] = "untraced"
     else:
         peak = stream_peak
     arg_b = sum(arg_st.values())
@@ -131,7 +147,8 @@ def measure(cell: steps.CellProgram, mesh: Mesh, device: torch.device,
         "alias_bytes": sum(b for k, b in out_st.items() if k in arg_st),
         "temp_bytes": max(0, peak - arg_b),
         "peak_per_device_bytes": peak,
-        "peak_source": ("torch.cuda.max_memory_allocated" if cuda
+        "peak_source": ("torch.cuda.max_memory_allocated less what the "
+                        "card held before the step's arguments" if cuda
                         else "op stream live bytes"),
         "stream_peak_bytes": stream_peak,
     }
@@ -153,15 +170,26 @@ def measure(cell: steps.CellProgram, mesh: Mesh, device: torch.device,
     return record
 
 
-def run_cell(cell_id: str, device=None,
-             dlrm_exchange: str = "unpooled") -> Dict:
-    """One cell's record on ``device`` (None: the card). An LM cell
-    raises ``NotImplementedError`` naming ROADMAP A8c-ii."""
+def run_cell(cell_id: str, device=None, dlrm_exchange: str = "unpooled"
+             ) -> Dict:
+    """One cell's record on ``device`` (None: the card). A MoE or SSM
+    arch's LM cell raises ``NotImplementedError`` naming ROADMAP
+    A8c-ii-b."""
     kind, *rest = cell_id.split(":")
     t0 = time.time()
     record: Dict = {"cell": cell_id, "status": "ok"}
-    if kind == "lm":
-        steps.build_lm_cell(*rest)
+    if kind == "lm" and len(rest) == 3:
+        arch_name, shape_name, mesh_kind = rest
+        cfg = ARCHS[arch_name]
+        shape = next(s for s in LM_SHAPES if s.name == shape_name)
+        cell = steps.build_lm_cell(cfg, shape, make_production_mesh(
+            multi_pod=(mesh_kind == "multi")))
+        dev = resolve_device(device)
+        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+        record.update(measure(cell, mesh, dev, model_flops_estimate(
+            shape.kind, cfg, shape)))
+        record["elapsed_s"] = time.time() - t0
+        return record
     if kind != "dlrm" or len(rest) != 3:
         raise ValueError(f"unknown cell id {cell_id!r}")
     cfg_name, mode, mesh_kind = rest

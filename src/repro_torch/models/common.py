@@ -15,6 +15,32 @@ no mesh: one rank. The reference's ``act`` and ``batch_act`` are
 placement constraints (``with_sharding_constraint``), which change where
 XLA keeps a value and not its numbers; eager torch has no counterpart,
 so they are left out.
+
+With ``specs`` (the filtered ``models.sharding_rules`` specs of the
+params) the sharder is spec-driven, the port's stand-in for XLA's SPMD
+partitioner on the dry-run's cells: every rank holds its shard of each
+leaf, and the model (``layers``, ``transformer``, ``lm``) issues the
+collectives the specs imply.
+
+  * FSDP: before each unit, every leaf split over "data" is all-gathered
+    over "data" (``fsdp``, ``primitives.ad_all_gather``); its backward
+    is the grads' reduce-scatter, and under ``forward(remat=)`` the
+    recompute gathers again.
+  * TP over "model": the residual stream is split over "model" along d
+    between units, as the reference's ``batch_act`` constrains it (a
+    sublayer's pre-norm normalizes each rank's columns and all-gathers
+    them, ``layers.rms_norm_spmd``; ``leave`` brings a sublayer's result
+    back: a partial sum is reduce-scattered, a result every rank
+    computed whole is narrowed to the rank's columns).
+    Column-parallel weights give their output split over "model";
+    row-parallel ones take it so and give partial sums.
+
+  Cotangents follow one convention. The residual stream carries whole
+  cotangents; inside a sublayer a value every rank of "model" holds alike
+  carries this rank's part of its cotangent, so the grad of a leaf whole
+  over "model" is a part, summed over "model" after the backward
+  (``sync_grads``), and the all-gather into a sublayer sums the parts of
+  the stream's cotangent in its backward.
 """
 from __future__ import annotations
 
@@ -22,6 +48,8 @@ import math
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.models.sharding_rules import DATA, MODEL, _axes
 
 Params = Any  # nested dict / list tree of tensors
 
@@ -44,13 +72,20 @@ class Sharder:
     |model| > 1, else local)."""
 
     def __init__(self, mesh=None, batch_axes: Sequence[str] = ("data",),
-                 moe_impl: str = "auto"):
+                 moe_impl: str = "auto", specs=None, cache_specs=None,
+                 memory_spec=None):
         if moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
                              f"{moe_impl!r}")
         self.mesh = mesh
         self.batch_axes = tuple(batch_axes)
         self.moe_impl = moe_impl
+        # the spec-driven mode (see the module doc): the params' filtered
+        # specs, the caches' (a position of the unit each) and whisper's
+        # memory_kv's, as ``models.sharding_rules`` gives them
+        self.specs = specs
+        self.cache_specs = cache_specs
+        self.memory_spec = memory_spec
 
     def axis_size(self, names: Sequence[str]) -> int:
         return 1 if self.mesh is None else self.mesh.size(tuple(names))
@@ -102,6 +137,83 @@ class Sharder:
         return "local"
 
 
+    # ----------------------------------------------- the spec-driven mode
+    @property
+    def spmd(self) -> bool:
+        return self.specs is not None
+
+    def group(self, axes: Sequence[str]):
+        """The group over ``axes`` (those in the mesh, in its order); None
+        for one rank."""
+        names = tuple(a for a in self.mesh.axis_names if a in tuple(axes))
+        return self.mesh.group(names) if self.axis_size(names) > 1 else None
+
+    def fsdp(self, tree, specs, dtype=None):
+        """``tree`` (this rank's shards) with every dim split over "data"
+        all-gathered over "data" under autograd: each leaf whole but for
+        its split over "model". A leaf it gathers is cast to ``dtype``
+        (the compute dtype) first, so the gather moves, and the grads'
+        reduce-scatter sums, that dtype."""
+        if isinstance(tree, dict):
+            return {k: self.fsdp(v, specs[k], dtype) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.fsdp(v, s, dtype)
+                              for v, s in zip(tree, specs))
+        from repro_torch.parallel.primitives import ad_all_gather
+        for dim, entry in enumerate(specs):
+            if _axes(entry) == (DATA,):
+                if dtype is not None:
+                    tree = tree.to(dtype)
+                tree = ad_all_gather(tree, dim, self.group((DATA,)))
+        return tree
+
+    def residual_split(self, d: int) -> bool:
+        """Whether the residual stream of width ``d`` is split over
+        "model" (the reference's ``batch_act``: when |model| divides d)."""
+        M = self.model_size
+        return M > 1 and d % M == 0
+
+    def leave(self, y: torch.Tensor, partial: bool, d: int) -> torch.Tensor:
+        """A sublayer's (..., d) result -> the residual stream's layout:
+        a partial sum over "model" reduce-scattered along d (or psummed,
+        unsplit); a whole result narrowed to this rank's columns (or,
+        unsplit, counted once in the backward)."""
+        from repro_torch.parallel import primitives as P
+        group = self.model_group
+        if P.group_size(group) == 1:
+            return y
+        if self.residual_split(d):
+            if partial:
+                return P.ad_psum_scatter(y, y.dim() - 1, group)
+            n = d // self.model_size
+            return y.narrow(y.dim() - 1, self.model_rank * n, n)
+        return P.ad_psum(y, group) if partial else P.first_rank_grad(
+            y, group)
+
+    def columns(self, local: int, full: int) -> Tuple[int, int]:
+        """The range of a dim of ``full`` a rank holds ``local`` of: split
+        over "model" (its block) or whole."""
+        if local == full:
+            return 0, full
+        return self.model_rank * local, (self.model_rank + 1) * local
+
+    def sync_grads(self, grads, specs):
+        """Each leaf's grad summed over the batch axes it is not split
+        over (an FSDP leaf's backward has reduce-scattered it over
+        "data"), and over "model" when the leaf is whole over "model"
+        (its grad there is this rank's part)."""
+        if isinstance(grads, dict):
+            return {k: self.sync_grads(v, specs[k]) for k, v in grads.items()}
+        if isinstance(grads, (list, tuple)):
+            return type(grads)(self.sync_grads(g, s)
+                               for g, s in zip(grads, specs))
+        from repro_torch.parallel import primitives as P
+        held = {a for entry in specs for a in _axes(entry)}
+        axes = [a for a in self.batch_axes + (MODEL,) if a not in held]
+        group = self.group(axes)
+        return grads if group is None else P.psum(grads, group)
+
+
 NULL_SHARDER = Sharder(None)
 
 
@@ -121,9 +233,41 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                    generator, dtype)
 
 
-def embed_init(generator: torch.Generator, vocab: int, d: int,
-               dtype=PARAM_DTYPE) -> torch.Tensor:
-    return _normal((vocab, d), 0.02, generator, dtype)
+# The init of the attention and dense-MLP archs' leaves by name: the one
+# table ``layers.init_attention``, ``layers.init_mlp``,
+# ``transformer.init_model`` and the dry-run's per-rank draw
+# (``launch.steps.draw_params``) read.
+EMBED_STD = 0.02
+RESIDUAL_OUT = ("wo", "w_down")      # scaled by 1 / sqrt(2 n_layers)
+
+
+def init_std(name: str, shape: Tuple[int, ...], n_layers: int
+             ) -> Optional[float]:
+    """The spread a leaf named ``name`` of (whole) ``shape`` is drawn
+    with: N(0, (scale / sqrt(d_in))^2) for a (..., d_in, d_out) weight,
+    0.02 for the embedding; 0.0 for the biases (zeros), None for the
+    norms (ones)."""
+    if "norm" in name:
+        return None
+    if name in ("bq", "bk", "bv"):
+        return 0.0
+    if name == "embed":
+        return EMBED_STD
+    scale = (1.0 / math.sqrt(2 * n_layers) if name in RESIDUAL_OUT
+             else 1.0)
+    return scale / math.sqrt(shape[-2])
+
+
+def init_leaf(generator: torch.Generator, name: str,
+              shape: Tuple[int, ...], n_layers: int) -> torch.Tensor:
+    """A leaf of ``shape`` drawn as ``init_std`` says."""
+    std = init_std(name, shape, n_layers)
+    if std is None:
+        return torch.ones(shape, dtype=PARAM_DTYPE, device=generator.device)
+    if std == 0.0:
+        return torch.zeros(shape, dtype=PARAM_DTYPE,
+                           device=generator.device)
+    return _normal(shape, std, generator)
 
 
 def tree_map(fn, tree: Params, *rest: Params) -> Params:

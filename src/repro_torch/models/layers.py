@@ -22,6 +22,14 @@ plain torch (the TPU kernel has none; the reference differentiates jnp).
 
 Decode writes the new K/V into the cache tensors in place (the reference
 returns new arrays): at decode_32k a copy a step would double the cache.
+
+The ``*_spmd`` sublayers are the spec-driven executor's
+(``models.common.Sharder(specs=)``): the pre-norm of a residual stream
+split along d (``rms_norm_spmd``), column- and row-parallel attention
+(whole heads, or gathered where a rank's columns split a head), decode
+over a cache split along S (row 9's log-sum-exp combines the ranks'
+slices, ``combine_slices``), the MLP and the vocabulary-parallel
+embedding.
 """
 from __future__ import annotations
 
@@ -34,7 +42,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (COMPUTE_DTYPE, NULL_SHARDER,
-                                       Sharder, dense_init)
+                                       Sharder, dense_init, init_leaf)
+from repro_torch.op_stream import host_work
+from repro_torch.parallel import primitives as P
 
 
 # ------------------------------------------------------------------- norms
@@ -80,35 +90,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
                    lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    p = {
-        "wq": dense_init(generator, d, cfg.n_heads * hd, lead=lead),
-        "wk": dense_init(generator, d, cfg.n_kv_heads * hd, lead=lead),
-        "wv": dense_init(generator, d, cfg.n_kv_heads * hd, lead=lead),
-        "wo": dense_init(generator, cfg.n_heads * hd, d,
-                         scale=1.0 / math.sqrt(2 * cfg.n_layers), lead=lead),
-    }
+    lead = tuple(lead)
+    shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
     if cfg.qkv_bias:
-        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
-                        ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros(tuple(lead) + (n * hd,),
-                                  device=generator.device)
-    return p
+        shapes.update(bq=(cfg.n_heads * hd,), bk=(cfg.n_kv_heads * hd,),
+                      bv=(cfg.n_kv_heads * hd,))
+    return {n: init_leaf(generator, n, lead + s, cfg.n_layers)
+            for n, s in shapes.items()}
 
 
-def _backward_block(B: int, Hq: int, T: int, S: int) -> int:
-    """Query rows the backward takes at once: ~2^25 fp32 scores (128 MB) a
+# fp32 scores a temporary of the attention backward holds: 2^25 (128 MB)
+# on the one-rank path; 2^29 (2 GB) on the spec-driven executor's, whose
+# train cells spent most of their eager ops in 128 MB blocks (PERF.md
+# section 6) and have room for the larger ones at their peaks.
+BACKWARD_SCORES = 1 << 25
+SPMD_BACKWARD_SCORES = 1 << 29
+
+
+def _backward_block(B: int, Hq: int, T: int, S: int,
+                    scores: int = BACKWARD_SCORES) -> int:
+    """Query rows the backward takes at once: ~``scores`` fp32 scores a
     temporary."""
-    return max(1, min(T, (1 << 25) // max(1, B * Hq * S)))
+    return max(1, min(T, scores // max(1, B * Hq * S)))
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        dout: torch.Tensor, causal: bool,
-                       window: Optional[int]
+                       window: Optional[int],
+                       scores: int = BACKWARD_SCORES
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``ops.flash_attention`` in plain torch: the softmax
-    recomputed a query block at a time in fp32 (no (B, H, T, S) tensor is
-    held whole), dq, dk, dv summed over each GQA group, each in its
-    input's dtype."""
+    recomputed a query block of ~``scores`` fp32 scores at a time (no (B,
+    H, T, S) tensor is held whole), dq, dk, dv summed over each GQA group,
+    each in its input's dtype."""
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -118,7 +133,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.zeros((B, S, Hkv, hd), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     kpos = torch.arange(S, device=q.device)[None, :]
-    bq = _backward_block(B, Hq, T, S)
+    bq = _backward_block(B, Hq, T, S, scores)
     for t0 in range(0, T, bq):
         t1 = min(T, t0 + bq)
         qb = q[:, t0:t1].reshape(B, t1 - t0, Hkv, G, hd).float()
@@ -149,27 +164,29 @@ class FlashAttention(torch.autograd.Function):
     ``attention_backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, scores):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scores = causal, window, scores
         return ops.flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         return (*attention_backward(q, k, v, dout.contiguous(), ctx.causal,
-                                    ctx.window), None, None)
+                                    ctx.window, ctx.scores), None, None,
+                None)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool = True, window: Optional[int] = None
-           ) -> torch.Tensor:
+           causal: bool = True, window: Optional[int] = None,
+           scores: int = BACKWARD_SCORES) -> torch.Tensor:
     """q (B, T, Hq, hd), k, v (B, S, Hkv, hd) -> (B, T, Hq, hd) through
-    row 8, differentiable when autograd asks for it."""
+    row 8, differentiable when autograd asks for it (the backward's
+    blocks of ~``scores`` fp32 scores)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window)
+        return FlashAttention.apply(q, k, v, causal, window, scores)
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -273,13 +290,9 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
              d_ff: Optional[int] = None, lead: Tuple[int, ...] = ()
              ) -> Dict[str, torch.Tensor]:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {
-        "w_gate": dense_init(generator, d, ff, lead=lead),
-        "w_up": dense_init(generator, d, ff, lead=lead),
-        "w_down": dense_init(generator, ff, d,
-                             scale=1.0 / math.sqrt(2 * cfg.n_layers),
-                             lead=lead),
-    }
+    shapes = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+    return {n: init_leaf(generator, n, tuple(lead) + s, cfg.n_layers)
+            for n, s in shapes.items()}
 
 
 def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -287,6 +300,219 @@ def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     act = _act(cfg)
     h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+# ------------------------------------------ tensor parallel (spec-driven)
+# The sublayers of a spec-driven ``Sharder`` (``models.common``) take their
+# input whole on every rank of "model" (``rms_norm_spmd``) and their
+# params after the FSDP gather (whole but for their split over "model"),
+# and return (result (..., d), partial): ``partial`` says the ranks'
+# results sum to the sublayer's (``Sharder.leave`` reduce-scatters it),
+# else every rank holds all of it.
+def rms_norm_spmd(x: torch.Tensor, w: torch.Tensor, eps: float, d: int,
+                  sharder: Sharder) -> torch.Tensor:
+    """A sublayer's pre-norm of the residual stream, whole on every rank of
+    "model": on a stream split along d, each rank normalizes its columns
+    (the sum of squares psummed over "model") and the normalized columns
+    are all-gathered, so no rank normalizes all of d; an unsplit stream
+    is normalized whole on every rank (``replicate_in``: its backward
+    sums the ranks' parts of the cotangent)."""
+    if not sharder.residual_split(d):
+        return rms_norm(P.replicate_in(x, sharder.model_group), w, eps)
+    n = d // sharder.model_size
+    w = w.narrow(-1, sharder.model_rank * n, n)
+    dt = x.dtype
+    xf = x.float()
+    var = P.ad_all_reduce(xf.square().sum(dim=-1, keepdim=True),
+                          sharder.model_group) / d
+    h = (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+    return P.ad_all_gather(h, h.dim() - 1, sharder.model_group)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+             full: int, sharder: Sharder) -> Tuple[torch.Tensor, int, int]:
+    """``x @ w (+ b)``: the output columns [c0, c1) of ``full`` this rank
+    holds (all of them when ``w`` is whole over "model")."""
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    c0, c1 = sharder.columns(w.shape[-1], full)
+    return y, c0, c1
+
+
+def _heads(y: torch.Tensor, c0: int, c1: int, full: int, hd: int,
+           sharder: Sharder, every: bool = False
+           ) -> Tuple[torch.Tensor, int]:
+    """A projection's columns [c0, c1) -> (B, T, heads, hd) whole heads
+    and the first head's index: columns that split a head (|model| above
+    the heads), or with ``every`` any split, are all-gathered over
+    "model" first."""
+    if c0 % hd or c1 % hd or (every and c1 - c0 < full):
+        y = P.ad_all_gather(y, y.dim() - 1, sharder.model_group)
+        c0, c1 = 0, full
+    return y.reshape(y.shape[:-1] + ((c1 - c0) // hd, hd)), c0 // hd
+
+
+def _kv_for(q_heads: Tuple[int, int], k: torch.Tensor, v: torch.Tensor,
+            k0: int, cfg: ModelConfig, sharder: Sharder
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads the query heads [h0, h1) read, laid out for the
+    kernels' GQA mapping (local query head i reads local KV head
+    i // (local group)): k, v hold heads [k0, k0 + n) (all-gathered over
+    "model" first if they lack some), and a range that does not map
+    evenly is expanded to one KV head a query head."""
+    h0, h1 = q_heads
+    G = cfg.n_heads // cfg.n_kv_heads
+    n0, n1 = h0 // G, (h1 - 1) // G + 1
+    if n0 < k0 or n1 > k0 + k.shape[-2]:
+        k = P.ad_all_gather(k, k.dim() - 2, sharder.model_group)
+        v = P.ad_all_gather(v, v.dim() - 2, sharder.model_group)
+        k0 = 0
+    k, v = k[..., n0 - k0:n1 - k0, :], v[..., n0 - k0:n1 - k0, :]
+    if not ((h0 % G == 0 and (h1 - h0) % G == 0) or n1 - n0 == 1):
+        idx = torch.arange(h0, h1, device=k.device) // G - n0
+        k, v = k[..., idx, :], v[..., idx, :]
+    return k, v
+
+
+def _out_proj(out: torch.Tensor, h0: int, wo: torch.Tensor,
+              cfg: ModelConfig, sharder: Sharder
+              ) -> Tuple[torch.Tensor, bool]:
+    """Attention's (..., heads, hd) output of heads from ``h0`` times
+    wo's rows this rank holds: a partial sum when wo is split over
+    "model"."""
+    hd = cfg.resolved_head_dim
+    full = cfg.n_heads * hd
+    out = out.reshape(out.shape[:-2] + (out.shape[-2] * hd,))
+    a0 = h0 * hd
+    r0, r1 = sharder.columns(wo.shape[0], full)
+    if r0 < a0 or r1 > a0 + out.shape[-1]:
+        out = P.ad_all_gather(out, out.dim() - 1, sharder.model_group)
+        a0 = 0
+    out = out[..., r0 - a0:r1 - a0]
+    return out @ wo.to(out.dtype), r1 - r0 < full
+
+
+def attention_spmd(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig,
+                   sharder: Sharder, memory: Optional[torch.Tensor] = None,
+                   causal: bool = True, collect_kv: bool = False):
+    """``attention_block``'s train / prefill modes over "model": q, k, v
+    column-parallel (whole heads, or gathered where a rank's columns
+    split a head), row 8 on this rank's query heads, wo row-parallel.
+    ``memory`` (the encoder's output, whole) makes it cross-attention.
+    Returns (result, partial, seed): with ``collect_kv``, seed is the
+    post-RoPE (k, v) for the caches (every KV head, or this rank's)."""
+    B, T, _ = x.shape
+    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, h0 = _heads(*_project(x, p["wq"], p.get("bq"), Hq * hd, sharder),
+                   Hq * hd, hd, sharder)
+    src = x if memory is None else memory
+    k, k0 = _heads(*_project(src, p["wk"], p.get("bk"), Hkv * hd, sharder),
+                   Hkv * hd, hd, sharder)
+    v, _ = _heads(*_project(src, p["wv"], p.get("bv"), Hkv * hd, sharder),
+                  Hkv * hd, hd, sharder)
+    if memory is None:
+        pos = positions[None, :].expand(B, T)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    ka, va = _kv_for((h0, h0 + q.shape[-2]), k, v, k0, cfg, sharder)
+    if memory is None:
+        out = attend(q, ka, va, causal=causal, window=cfg.sliding_window,
+                     scores=SPMD_BACKWARD_SCORES)
+    else:
+        out = attend(q, ka, va, causal=False, window=None,
+                     scores=SPMD_BACKWARD_SCORES)
+    y, partial = _out_proj(out, h0, p["wo"], cfg, sharder)
+    return y, partial, ((k, v) if collect_kv else None)
+
+
+def combine_slices(out: torch.Tensor, lse: torch.Tensor, group
+                   ) -> torch.Tensor:
+    """Attention over a cache split along S into the ranks' slices: each
+    rank's (B, H, hd) output and (B, H) log-sum-exp over its slice ->
+    the whole cache's output, out = sum_r exp(lse_r - lse) out_r with
+    lse = log sum_r exp(lse_r) (a pmax, then one psum of the weighted
+    outputs and their weights)."""
+    if P.group_size(group) == 1:
+        return out
+    m = P.pmax(lse, group)
+    w = torch.exp(lse - m)[..., None]
+    both = P.psum(torch.cat([out.float() * w, w], dim=-1), group)
+    return (both[..., :-1] / both[..., -1:]).to(out.dtype)
+
+
+def decode_attention_spmd(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                          cfg: ModelConfig, sharder: Sharder,
+                          cache: Optional[Dict[str, torch.Tensor]] = None,
+                          cache_pos=None, cache_split: bool = False,
+                          memory=None, memory_split: bool = False
+                          ) -> Tuple[torch.Tensor, bool]:
+    """``attention_block``'s decode mode over "model", with a cache (or
+    whisper's ``memory`` (k, v)) that may be split along S over "model":
+    every rank takes every query head, writes the new token's k/v into
+    the cache only where it owns the token's slot, runs row 9 on its
+    slice with the lengths clipped to it (``return_lse``), and the slices
+    combine (``combine_slices``); wo is row-parallel."""
+    B = x.shape[0]
+    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, _ = _heads(*_project(x, p["wq"], p.get("bq"), Hq * hd, sharder),
+                  Hq * hd, hd, sharder, every=True)
+    if memory is None:
+        cp = int(cache_pos)
+        with host_work():
+            positions = torch.tensor([cp], device=x.device)
+        k, _ = _heads(*_project(x, p["wk"], p.get("bk"), Hkv * hd,
+                                sharder), Hkv * hd, hd, sharder, every=True)
+        v, _ = _heads(*_project(x, p["wv"], p.get("bv"), Hkv * hd,
+                                sharder), Hkv * hd, hd, sharder, every=True)
+        q = apply_rope(q, positions[None, :].expand(B, 1), cfg.rope_theta)
+        k = apply_rope(k, positions[None, :].expand(B, 1), cfg.rope_theta)
+        S = cache["k"].shape[1]
+        S_full = S * sharder.model_size if cache_split else S
+        slot = cp % S_full if (cfg.sliding_window is not None
+                               and S_full < 2**20) else cp
+        owner = slot // S if cache_split else sharder.model_rank
+        if owner == sharder.model_rank:
+            s = slot % S
+            cache["k"][:, s] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, s] = v[:, 0].to(cache["v"].dtype)
+            cache["pos"][:, s] = cp
+        kc, vc, split = cache["k"], cache["v"], cache_split
+        lengths = (cache["pos"] >= 0).sum(dim=-1)
+    else:
+        kc, vc = memory
+        split = memory_split
+        lengths = torch.full((B,), kc.shape[1], dtype=torch.int32,
+                             device=x.device)
+    out, lse = ops.flash_decode(q[:, 0].contiguous(), kc, vc, lengths,
+                                return_lse=True)
+    if split:
+        out = combine_slices(out, lse, sharder.model_group)
+    return _out_proj(out[:, None], 0, p["wo"], cfg, sharder)
+
+
+def mlp_spmd(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, bool]:
+    """``mlp_block`` over "model": w_gate and w_up column-parallel, w_down
+    row-parallel (a partial sum when split)."""
+    act = _act(cfg)
+    h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype), p["w_down"].shape[0] < cfg.d_ff
+
+
+def embed_spmd(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+               sharder: Sharder) -> Tuple[torch.Tensor, bool]:
+    """The embedding lookup of a table whole along d (after the FSDP
+    gather): vocab-parallel, a masked lookup of the rows this rank holds
+    (a partial sum), when the table is split over "model"."""
+    V = table.shape[0]
+    if V == cfg.padded_vocab:
+        return F.embedding(tokens, table), False
+    local = tokens - sharder.model_rank * V
+    mine = (local >= 0) & (local < V)
+    x = F.embedding(local.clamp(0, V - 1), table)
+    return x * mine[..., None].to(x.dtype), True
 
 
 # -------------------------------------------------------------------- MoE

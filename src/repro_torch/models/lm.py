@@ -12,6 +12,13 @@ Prefill and decode run under ``torch.no_grad``; the train step
 differentiates the forward (row 8 through ``layers.FlashAttention``) and
 updates params and optimizer state in place.
 
+Over a spec-driven sharder (``Sharder.spmd``, the dry-run's LM cells,
+``launch.steps``) the forward is ``transformer.forward_spmd`` on this
+rank's shards, the cross-entropy a distributed softmax over the
+vocabulary split over "model" (``cross_entropy_sums_spmd``), and prefill
+and decode return this rank's cache blocks and the greedy token over the
+whole vocabulary.
+
 Over k ranks (a ``Sharder`` with a mesh) the train step is the
 reference's under ``Sharder(mesh)``: each rank holds its rows of the
 batch (``shard_batch``), the MoE runs over "model" (``models.moe_dist``)
@@ -23,6 +30,7 @@ leaf once.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -74,6 +82,67 @@ def cross_entropy_sums(params: Params, cfg: ModelConfig,
         loss_sum = loss_sum + ((logz - gold) * valid.float()).sum()
         count = count + valid.sum()
     return loss_sum, count
+
+
+def cross_entropy_sums_spmd(params: Params, cfg: ModelConfig,
+                            hidden: torch.Tensor, labels: torch.Tensor,
+                            sharder: Sharder, chunk: int = CE_CHUNK
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cross_entropy_sums`` over a spec-driven sharder, ``hidden`` whole
+    on every rank of "model": with the head split over "model" along the
+    vocabulary, each chunk's logsumexp is a distributed softmax (the
+    ranks' maxima's pmax, then one psum of their exp-sums together with
+    the label's logit from the rank that holds it); with a whole head
+    every rank computes the same sums, whose cotangent only the first
+    rank keeps, so the head and the hidden count once."""
+    B, Tlen, _ = hidden.shape
+    chunk = min(chunk, Tlen)
+    head = T.head_spmd(params, cfg, sharder).to(COMPUTE_DTYPE)
+    V, group = head.shape[-1], sharder.model_group
+    split = V < cfg.padded_vocab
+    v0 = sharder.model_rank * V if split else 0
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, Tlen, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk].long()
+        logits = (h @ head).float()                           # (B, c, V)
+        valid = (y >= 0) & (y < cfg.vocab_size)
+        ysafe = y.clamp(0, cfg.padded_vocab - 1) - v0
+        mine = (ysafe >= 0) & (ysafe < V)
+        gold = torch.gather(logits, -1, ysafe.clamp(0, V - 1)[..., None])
+        gold = gold[..., 0] * mine.float()
+        if split:
+            m = P.pmax(logits.detach().amax(dim=-1), group)
+            sums = torch.exp(logits - m[..., None]).sum(dim=-1)
+            both = P.ad_psum(torch.stack([sums, gold]), group)
+            logz, gold = torch.log(both[0]) + m, both[1]
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+        loss_sum = loss_sum + ((logz - gold) * valid.float()).sum()
+        count = count + valid.sum()
+    if not split:
+        loss_sum = P.first_rank_grad(loss_sum, group)
+    return loss_sum, count
+
+
+def greedy_spmd(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+                sharder: Sharder) -> torch.Tensor:
+    """``_greedy`` over a spec-driven sharder: each rank's best token of
+    its columns of the real vocabulary, then the best of the ranks' (the
+    first on a tie, as an argmax over the whole vocabulary picks)."""
+    logits = T.logits_from_hidden(params, cfg, hidden[:, -1, :], sharder)
+    V = logits.shape[-1]
+    if V == cfg.padded_vocab:
+        return torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    v0 = sharder.model_rank * V
+    ids = torch.arange(v0, v0 + V, device=logits.device)
+    logits = logits.float().masked_fill(ids >= cfg.vocab_size, -math.inf)
+    best, at = logits.max(dim=-1)
+    pairs = torch.stack([best, (at + v0).float()], dim=-1)     # (B, 2)
+    every = P.all_gather(pairs[None], sharder.model_group)     # (M, B, 2)
+    pick = torch.argmax(every[..., 0], dim=0)                  # (B,)
+    rows = torch.arange(pairs.shape[0], device=pairs.device)
+    return every[pick, rows, 1].long()
 
 
 # ---------------------------------------------------------------------------
@@ -190,21 +259,28 @@ def _greedy(cfg: ModelConfig, params: Params,
     return torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      sharder: Sharder = NULL_SHARDER):
     """prefill(params, batch) -> (caches, next_token (B,)).
 
     PARALLEL prefill: one forward over the whole prompt (row 8 an
     attention layer; collect=True gathers each attention layer's post-RoPE
     K/V and each mamba / rwkv6 layer's final state), then one bulk scatter
     a position seeds the attention caches; the states are the SSM
-    caches."""
+    caches. Over a spec-driven sharder: this rank's shards in, this
+    rank's cache blocks out (``transformer.caches_from_prefill_spmd``)."""
     def prefill(params, batch):
         tokens = batch["tokens"]                               # (B, Tp)
         with torch.no_grad():
             hidden, extras = T.forward(
-                params, cfg, tokens, collect=True,
+                params, cfg, tokens, collect=True, sharder=sharder,
                 frontend_embeds=batch.get("frontend_embeds"),
                 encoder_embeds=batch.get("encoder_embeds"))
+            if sharder.spmd:
+                caches = T.caches_from_prefill_spmd(cfg, extras, max_len,
+                                                    sharder)
+                del extras
+                return caches, greedy_spmd(params, cfg, hidden, sharder)
             caches = T.caches_from_prefill(cfg, extras, hidden.shape[1],
                                            max_len)
             del extras
@@ -235,15 +311,19 @@ def prefill_into_cache(params: Params, cfg: ModelConfig,
     return torch.stack(hiddens, dim=1), caches
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, sharder: Sharder = NULL_SHARDER):
     """decode(params, caches, token (B,), pos) -> (caches, next_token (B,)):
     one new token against the caches (row 9 a self-attention layer; a
-    mamba / rwkv6 layer steps its state)."""
+    mamba / rwkv6 layer steps its state). Over a spec-driven sharder:
+    this rank's shards and cache blocks, each attention layer combining
+    the ranks' slices of its cache (``layers.decode_attention_spmd``)."""
     def decode(params, caches, token, pos, memory_kv=None):
         with torch.no_grad():
             hid, caches = T.forward_with_state(
                 params, cfg, token[:, None], caches, pos,
-                memory_kv=memory_kv)
+                memory_kv=memory_kv, sharder=sharder)
+            if sharder.spmd:
+                return caches, greedy_spmd(params, cfg, hid, sharder)
             return caches, _greedy(cfg, params, hid)
     return decode
 

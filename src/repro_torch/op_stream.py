@@ -88,6 +88,20 @@ def active() -> Optional["OpStream"]:
     return _ACTIVE[-1] if _ACTIVE else None
 
 
+@contextlib.contextmanager
+def host_work() -> Iterator[None]:
+    """Ops run here (the host's index bookkeeping a step derives from
+    shapes alone, and its move to the step's device) are not counted by
+    the stream in force, if any: the meta device and the CPU then count
+    the same stream."""
+    stream = active()
+    if stream is None:
+        yield
+        return
+    with stream.untraced():
+        yield
+
+
 def nbytes(t: torch.Tensor) -> int:
     """The bytes ``t`` spans: a broadcast (stride-0) dim counts once, as
     the reference counts a fusion's operand before its broadcast."""
@@ -144,10 +158,11 @@ class OpStream(TorchDispatchMode):
         self.traffic_bytes = 0.0
         self.coll_by_kind: Dict[str, float] = defaultdict(float)
         self.coll_count_by_kind: Dict[str, int] = defaultdict(int)
+        self.coll_by_group: Dict[str, float] = defaultdict(float)
         self.kernels: Dict[str, int] = defaultdict(int)
         self.n_ops = 0
         self._live: Dict[int, tuple] = {}
-        self.live_bytes = 0
+        self._counted = 0
         self.peak_bytes = 0
         self._paused = 0
 
@@ -200,11 +215,12 @@ class OpStream(TorchDispatchMode):
         self._allocated(out)
 
     def collective(self, kind: str, n: int, operand_bytes: int,
-                   result_bytes: int) -> None:
-        """A collective over a group of ``n`` ranks (a placeholder
-        group's record)."""
+                   result_bytes: int, axes: Tuple[str, ...] = ()) -> None:
+        """A collective over a group of ``n`` ranks along ``axes`` (a
+        placeholder group's record)."""
         wire = collective_wire(kind, n, operand_bytes, result_bytes)
         self.coll_by_kind[kind] += wire
+        self.coll_by_group[f"{kind}@{','.join(axes)}"] += wire
         self.coll_count_by_kind[kind] += 1
         self.traffic_bytes += operand_bytes + result_bytes
 
@@ -215,15 +231,33 @@ class OpStream(TorchDispatchMode):
         self._allocated(tree)
 
     def _allocated(self, tree) -> None:
-        for key in [k for k, (ref, _) in self._live.items()
-                    if ref.expired()]:
-            self.live_bytes -= self._live.pop(key)[1]
+        """Count ``tree``'s new storages. The freed ones are swept out only
+        when the count passes the peak: until then the live bytes, at most
+        the count, cannot raise it, so the peak stays exact at a sweep's
+        cost a new high rather than an op."""
         for t in tensors(tree):
             st = t.untyped_storage()
-            if st._cdata not in self._live:
-                self._live[st._cdata] = (StorageWeakRef(st), st.nbytes())
-                self.live_bytes += st.nbytes()
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            held = self._live.get(st._cdata)
+            if held is not None and not held[0].expired():
+                continue
+            if held is not None:          # a freed storage's address reused
+                self._counted -= held[1]
+            self._live[st._cdata] = (StorageWeakRef(st), st.nbytes())
+            self._counted += st.nbytes()
+        if self._counted > self.peak_bytes:
+            self._sweep()
+            self.peak_bytes = max(self.peak_bytes, self._counted)
+
+    def _sweep(self) -> None:
+        for key in [k for k, (ref, _) in self._live.items()
+                    if ref.expired()]:
+            self._counted -= self._live.pop(key)[1]
+
+    @property
+    def live_bytes(self) -> int:
+        """The bytes of the storages alive now."""
+        self._sweep()
+        return self._counted
 
     # -- the result -------------------------------------------------------
     @property
@@ -232,8 +266,9 @@ class OpStream(TorchDispatchMode):
 
     def summary(self) -> Dict[str, object]:
         """The keys of the reference's ``analyze`` that have a
-        counterpart, plus ``flops_by_dtype``, ``collective_count_by_kind``
-        and the kernels' launches."""
+        counterpart, plus ``flops_by_dtype``, ``collective_count_by_kind``,
+        the wire bytes by kind and axes ("all-gather@data": the FSDP
+        gathers of the spec-driven LM) and the kernels' launches."""
         return {
             "flops_per_chip": self.flops,
             "traffic_bytes_per_chip": float(self.traffic_bytes),
@@ -242,6 +277,7 @@ class OpStream(TorchDispatchMode):
             "collective_count": float(sum(self.coll_count_by_kind.values())),
             "collective_by_kind": dict(self.coll_by_kind),
             "collective_count_by_kind": dict(self.coll_count_by_kind),
+            "collective_by_group": dict(self.coll_by_group),
             "flops_by_dtype": {str(d).replace("torch.", ""): f
                                for d, f in self.flops_by_dtype.items()},
             "kernel_launches": dict(self.kernels),
@@ -274,7 +310,8 @@ class PlaceholderGroup:
         stream = active()
         if stream is not None:
             stream.collective(KINDS[name], self.size, nbytes(inp),
-                              sum(nbytes(t) for t in tensors(out)))
+                              sum(nbytes(t) for t in tensors(out)),
+                              self.axes)
         with (stream.untraced() if stream is not None
               else contextlib.nullcontext()):
             if name == "all_to_all":

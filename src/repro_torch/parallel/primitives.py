@@ -282,6 +282,38 @@ class _GatherOut(torch.autograd.Function):
         return _rank_slice(g, ctx.dim, ctx.group), None, None
 
 
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _FirstRankGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.first = group_rank(group) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
 def ad_all_gather(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)`` under
     autograd; its backward is ``psum_scatter`` along ``dim``."""
@@ -303,6 +335,28 @@ def ad_all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
     if group_size(group) == 1:
         return x
     return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+def ad_psum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``psum`` under autograd for a sum that leaves replicated: forward,
+    the sum of the ranks' parts; backward, each part takes the (whole,
+    replicated) cotangent as it is."""
+    return x if group_size(group) == 1 else _PsumReplicated.apply(x, group)
+
+
+def ad_all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``psum`` under autograd for a sum every rank then uses for its own
+    part of the work: forward, the sum; backward, the ranks' parts of its
+    cotangent summed."""
+    return x if group_size(group) == 1 else _AllReduce.apply(x, group)
+
+
+def first_rank_grad(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The identity, whose backward keeps the cotangent on the group's
+    first rank and zeros it on the others: a value every rank of the group
+    computed alike enters a region whose cotangents are summed over the
+    group, and must count once."""
+    return x if group_size(group) == 1 else _FirstRankGrad.apply(x, group)
 
 
 def shard_in(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:

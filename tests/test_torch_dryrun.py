@@ -453,31 +453,44 @@ def test_table_wise_cell_launches_row_4_and_keeps_ids_in_range():
 # behaviour
 # ---------------------------------------------------------------------------
 def test_lm_cell_raises_naming_a8c_ii():
-    with pytest.raises(NotImplementedError, match="A8c-ii"):
-        dryrun.run_cell("lm:internlm2-1.8b:train_4k:single", device="meta")
-    with pytest.raises(NotImplementedError, match="A8c-ii"):
-        steps.build_lm_cell(None, None, None)
+    """A MoE or SSM arch's LM cell is ROADMAP A8c-ii-b: the dry-run's
+    cell and ``build_lm_cell`` raise naming it."""
+    with pytest.raises(NotImplementedError, match="A8c-ii-b"):
+        dryrun.run_cell("lm:mixtral-8x7b:train_4k:single", device="meta")
+    from repro_torch.configs import get_arch
+    with pytest.raises(NotImplementedError, match="A8c-ii-b"):
+        steps.build_lm_cell(get_arch("rwkv6-3b"), dryrun.LM_SHAPES[0],
+                            make_production_mesh())
 
 
 def test_main_on_meta_runs_every_dlrm_cell(tmp_path):
+    """``main --device meta``, filtered by ``--arch`` to each RM2 config
+    (the LM archs' cells run in ``tests/test_torch_dryrun_lm.py``): every
+    DLRM cell ``ok``; and an A8c-ii-b arch's cells ``not_ported``."""
     out = io.StringIO()
+    names = sorted(DLRM_CONFIGS) + ["mixtral-8x7b"]
     with contextlib.redirect_stdout(out):
-        rc = dryrun.main(["--device", "meta", "--out", str(tmp_path)])
-    assert rc == 0
+        for name in names:
+            assert dryrun.main(["--device", "meta", "--arch", name, "--out",
+                                str(tmp_path)]) == 0
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
-    assert len(recs) == len(dryrun.all_cell_ids())
+    assert sorted(r["cell"] for r in recs) == sorted(
+        c for c in dryrun.all_cell_ids() if c.split(":")[1] in names)
     ok = [r for r in recs if r["status"] == "ok"]
     assert sorted(r["cell"] for r in ok) == sorted(
         c for c in dryrun.all_cell_ids() if c.startswith("dlrm:"))
     for r in recs:
         if r["cell"].startswith("lm:"):
-            assert r["status"] == "not_ported" and "A8c-ii" in r["error"]
+            assert r["status"] == "not_ported" and "A8c-ii-b" in r["error"]
     for r in ok:
         assert r["n_chips"] in (256, 512) and r["device"] == "meta"
         assert r["roofline"]["bottleneck"] in ("memory", "collective")
         assert r["memory"]["peak_per_device_bytes"] > \
             r["memory"]["argument_bytes"] > 0
-    assert "16/16 cells passed, 68 not ported" in out.getvalue()
+    assert out.getvalue().count("4/4 cells passed, 0 not ported") == 4
+    n_later = sum(c.split(":")[1] == "mixtral-8x7b"
+                  for c in dryrun.all_cell_ids())
+    assert f"0/0 cells passed, {n_later} not ported" in out.getvalue()
 
 
 @pytest.mark.parametrize("repeats", [False, True])

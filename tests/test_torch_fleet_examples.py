@@ -135,8 +135,8 @@ def _quiet(main, argv):
 @pytest.fixture(scope="module")
 def dry_run_reports(tmp_path_factory):
     """A tiny dry-run on the meta device: two DLRM cells in both wire
-    modes (the optimized reports in partial_pool) and internlm2-1.8b's
-    LM cells, which are not ported."""
+    modes (the optimized reports in partial_pool) and mixtral-8x7b's
+    single-pod LM cells, which are not ported (ROADMAP A8c-ii-b)."""
     root = tmp_path_factory.mktemp("reports")
     cells = ("dlrm:dlrm-rm2-small-unsharded:serve:single",
              "dlrm:dlrm-rm2-small-sharded:serve:single")
@@ -148,7 +148,7 @@ def dry_run_reports(tmp_path_factory):
                 "--out", str(root / sub)])
             assert rc == 0, lines
     rc, lines = _quiet(dryrun.main, [
-        "--arch", "internlm2-1.8b", "--mesh", "single", "--device", "meta",
+        "--arch", "mixtral-8x7b", "--mesh", "single", "--device", "meta",
         "--out", str(root / "dryrun")])
     assert rc == 0, lines
     return root, cells
@@ -175,8 +175,8 @@ def test_run_renders_the_roofline_of_a_meta_dry_run(dry_run_reports):
         assert len(fields) == 8
         assert fields[4] in ("compute", "memory", "collective")
         assert all(float(x) >= 0 for x in fields[1:4] + fields[5:7])
-    assert "lm:internlm2-1.8b:train_4k:single,NOT PORTED,,,,,," in lines
-    assert "# 2/2 cells ran (meta), 3 not ported" in lines
+    assert "lm:mixtral-8x7b:train_4k:single,NOT PORTED,,,,,," in lines
+    assert "# 2/2 cells ran (meta), 4 not ported" in lines
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
@@ -197,7 +197,7 @@ def test_run_renders_the_experiments_of_a_meta_dry_run(dry_run_reports,
                                                  str(root)])
     assert rc == 0
     body = [r for r in lines if r.startswith("| ")]
-    assert len(body) == (1 + 2 + 3 if mesh == "single" else 1)
+    assert len(body) == (1 + 2 + 4 if mesh == "single" else 1)
 
 
 @pytest.mark.parametrize("main", [cluster_sla.main, fabric_sharding.main,

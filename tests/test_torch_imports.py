@@ -51,6 +51,10 @@ DRYRUN_MODULES = (
     "repro_torch.op_stream", "repro_torch.launch.op_analysis",
     "repro_torch.launch.steps", "repro_torch.launch.dryrun",
     "repro_torch.kernels.ops")
+# The LM half of the dry-run (ROADMAP A8c-ii-a): the sharding rules and
+# the placement by spec, held the same way.
+LM_DRYRUN_MODULES = ("repro_torch.models.sharding_rules",
+                     "repro_torch.parallel.spmd")
 DRYRUN_BENCHES = ("benchmarks_torch.roofline",
                   "benchmarks_torch.render_experiments")
 
@@ -90,7 +94,7 @@ def test_training_modules_import_without_jax_or_repro():
         sys.exit(1 if bad else 0)
     """)
     for name in (TRAINING_MODULES + RANK_MODULES + LM_RANK_MODULES
-                 + BOARD_MODULES + DRYRUN_MODULES):
+                 + BOARD_MODULES + DRYRUN_MODULES + LM_DRYRUN_MODULES):
         rel = Path(*name.split(".")[1:])
         assert ((PORT / rel).with_suffix(".py").exists()
                 or (PORT / rel / "__init__.py").exists()), name
@@ -99,7 +103,8 @@ def test_training_modules_import_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code, *TRAINING_MODULES,
                            *RANK_MODULES, *LM_RANK_MODULES,
-                           *BOARD_MODULES, *DRYRUN_MODULES],
+                           *BOARD_MODULES, *DRYRUN_MODULES,
+                           *LM_DRYRUN_MODULES],
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
